@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of mpc4quantum_tpu for NVIDIA Hopper.
+
+Model predictive control of quantum state preparation, batched over fleets
+of perturbed plants. The modules mirror the JAX package (`ops/`,
+`solvers/`, `plants/`, `models/`, `mpc/`, `parallel/`, `presets.py`,
+`benchfleet.py`); the box-QP solve and the plant expm run as hand-written
+CUDA kernels (`kernels/`, sources in `csrc/`) on the card and as their plain
+PyTorch versions on the CPU. This package never imports JAX.
+
+Quick start:
+
+    from mpc4quantum_tpu_torch import presets, run_hostloop_fleet
+    import torch
+    sc = presets.not_state(device="cuda", dtype=torch.float32)
+    metrics, out = run_hostloop_fleet(sc, batch=16384, reps=4)
+"""
+
+from . import presets
+from .benchfleet import run_hostloop_fleet
+
+__all__ = ["presets", "run_hostloop_fleet"]

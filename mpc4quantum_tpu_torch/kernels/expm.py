@@ -1,0 +1,60 @@
+"""Batched small-matrix exponential: the wrapper of the CUDA kernel
+csrc/expm_small.cu and its plain PyTorch version.
+
+The kernel replaces mpc4quantum_tpu/ops/pallas_expm.py::_expm_kernel
+(`expm_pallas` there). On a CPU tensor the wrapper runs the plain version;
+on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.expm import expm_taylor
+from . import _build
+
+SIZES = (2, 3, 4)
+
+
+def expm_small_ref(A: torch.Tensor, taylor_k: int = 18, max_squarings: int = 12) -> torch.Tensor:
+    """Plain version of the kernel: ops/expm.expm_taylor in the same form -
+    no scaling or squaring at max_squarings = 0 (the caller certifies
+    ||A||_1 <= 1), else per-matrix squarings up to max_squarings."""
+    return expm_taylor(A, order=taylor_k, max_squarings=max_squarings,
+                       fixed_squarings=0 if max_squarings == 0 else None)
+
+
+def expm_small(A: torch.Tensor, taylor_k: int = 18, max_squarings: int = 12) -> torch.Tensor:
+    """exp(A) for a batch A of shape (B, d, d), complex, d in {2, 3, 4}
+    on the card (complex64), any d on the CPU.
+
+    :param taylor_k: Horner Taylor degree; 18 ~ 1e-15 truncation at
+        ||A/2^s||_1 <= 1, 12 ~ 9e-12 at <= 0.8.
+    :param max_squarings: bound on the per-matrix squaring count; 0 = the
+        caller certifies ||A||_1 <= 1 and the kernel skips the norm, the
+        scaling and the squaring.
+    """
+    if A.device.type == "cpu":
+        return expm_small_ref(A, taylor_k, max_squarings)
+    if A.device.type != "cuda":
+        raise ValueError(f"expm_small: unsupported device {A.device}")
+    if A.dtype != torch.complex64 or A.dim() != 3 or A.shape[1] != A.shape[2] \
+            or A.shape[1] not in SIZES:
+        raise ValueError(f"expm_small: A must be complex64 (B, d, d) with d in {SIZES}, "
+                         f"got {A.dtype} {tuple(A.shape)}")
+    if taylor_k < 1 or max_squarings < 0:
+        raise ValueError(f"expm_small: taylor_k={taylor_k}, max_squarings={max_squarings}")
+    B, d, _ = A.shape
+    planes = torch.view_as_real(A).reshape(B, d * d, 2).permute(2, 1, 0).contiguous()
+    out = torch.empty_like(planes)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    rc = lib.mpc4q_expm_small(planes[0].data_ptr(), planes[1].data_ptr(), out[0].data_ptr(),
+                              out[1].data_ptr(), B, d, int(taylor_k), int(max_squarings),
+                              stream)
+    _build.check(rc, "expm_small")
+    expm_small.launches += 1
+    return torch.view_as_complex(out.permute(2, 1, 0).contiguous()).reshape(B, d, d)
+
+
+expm_small.launches = 0

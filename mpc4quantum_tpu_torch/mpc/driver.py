@@ -1,0 +1,217 @@
+"""Receding-horizon MPC step pieces (counterpart of mpc4quantum_tpu/mpc/driver.py),
+batched over lanes: the per-step context, the SQP state, the line search,
+the QP-result update and the advance.
+
+Reference behaviour kept on purpose:
+  - the tracking window for step s starts at column max(s-1, 0): the
+    reference shifts its window at the end of the previous step;
+  - the first-step slew box is anchored at the benchmark control on steps
+    0 and 1 and at the last applied control afterwards;
+  - the QP dual carried to the next step drops the applied step's block and
+    duplicates the last one (the receding-horizon shift of the guesses);
+  - lanes that are done keep their state, guesses and duals frozen;
+  - exit codes are data: 0 completed, 2 QP failure, 3 non-finite
+    objective (1, an exit condition met, belongs to presets not ported yet).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..models.dmdc import DMDcModel, predict
+from ..ops.library import krtimes
+from ..ops.bilinear import BilinearModel
+from ..plants.quantum import QuantumPlant, lift_state, proj_state
+from ..solvers.boxqp import BoxQPParams
+from ..solvers.condense import QPResult, objective_value
+
+
+@dataclasses.dataclass(frozen=True)
+class MPCConfig:
+    """Static configuration of the MPC loop."""
+
+    horizon: int
+    n_steps: int
+    dt: float
+    dim_u: int
+    order: int
+    measure_freq: int = 1
+    warm_start: bool = True
+    step_tol: float = 1e-4
+    qp_params: BoxQPParams = dataclasses.field(default_factory=BoxQPParams)
+
+
+class Carry(NamedTuple):
+    """Per-lane loop state between MPC steps (leading axis B)."""
+
+    x_cur: torch.Tensor      # (B, dim_e) observed state
+    x_true: torch.Tensor     # (B, dim_e) true plant state
+    X_guess: torch.Tensor    # (B, dim_x, H+1) complex
+    U_guess: torch.Tensor    # (B, dim_u, H)
+    u_last: torch.Tensor     # (B, dim_u) last applied control
+    exit_code: torch.Tensor  # (B,) int32
+    done: torch.Tensor       # (B,) bool
+
+
+class SQPState(NamedTuple):
+    """Per-lane SQP iterate within one MPC step (leading axis B)."""
+
+    Xg: torch.Tensor
+    Ug: torch.Tensor
+    X_opt: torch.Tensor
+    U_opt: torch.Tensor
+    obj: torch.Tensor
+    n_iter: torch.Tensor
+    done: torch.Tensor
+    code: torch.Tensor
+    y: torch.Tensor          # (B, H*dim_u) QP dual carrier
+    rho: torch.Tensor        # (B,) QP penalty carrier (0 = cold sentinel)
+
+
+class StepContext(NamedTuple):
+    X_ref: torch.Tensor      # (dim_x, H+1)
+    U_ref: torch.Tensor      # (dim_u, H)
+    lift_x: torch.Tensor     # (B, dim_x)
+    u_prev: torch.Tensor     # (B, dim_u)
+
+
+def _lane(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Broadcast a (B,) mask against a (B, ...) tensor."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - 1))
+
+
+def select(mask, old, new):
+    """Per lane: `old` where mask, else `new` (fields of two NamedTuples)."""
+    return type(old)(*(torch.where(_lane(mask, a), a, b) for a, b in zip(old, new)))
+
+
+def bilinear_model(model: DMDcModel, config: MPCConfig) -> BilinearModel:
+    dim_x = model.dim_x
+    return BilinearModel.from_stacked(model.A[:, :dim_x], model.A[:, dim_x:],
+                                      config.dim_u, config.order)
+
+
+def context(carry: Carry, step: int, config: MPCConfig, X_targ, U_targ,
+            plants: QuantumPlant) -> StepContext:
+    """Per-step quantities shared by the SQP iterations and the advance."""
+    H = config.horizon
+    start = max(step - 1, 0)
+    X_ref = X_targ[:, start:start + H + 1]
+    U_ref = U_targ[:, start:start + H]
+    u_prev = carry.u_last if step > 1 else U_ref[:, 0].expand_as(carry.u_last)
+    return StepContext(X_ref, U_ref, lift_state(plants, carry.x_cur), u_prev)
+
+
+def sqp_init(carry: Carry, duals) -> SQPState:
+    """Initial SQP state; `duals` = (y (B, H*dim_u), rho (B,)) carried from
+    the previous step (zeros = cold)."""
+    B = carry.X_guess.shape[0]
+    dev = carry.X_guess.device
+    rdtype = carry.U_guess.dtype
+    return SQPState(carry.X_guess, carry.U_guess, carry.X_guess, carry.U_guess,
+                    torch.full((B,), float("inf"), dtype=rdtype, device=dev),
+                    torch.zeros(B, dtype=torch.int32, device=dev),
+                    torch.zeros(B, dtype=torch.bool, device=dev),
+                    torch.zeros(B, dtype=torch.int32, device=dev),
+                    duals[0], duals[1])
+
+
+def _line_search_alpha(Q_s, R_s, X_ref, U_ref, X_guess, U_guess, X_opt, U_opt, step_tol):
+    """Exact line search along (opt - guess) on the quadratic tracking cost:
+    three evaluations fix the parabola, alpha = -b/(2a) clamped to [0, 1].
+
+    Evaluated in float64 whatever the working dtype: the fit subtracts
+    objective values of nearly equal size, and in float32 that cancellation
+    alone moved final fidelities by up to 1.1e-4 against the float64 path
+    (64 flagship lanes on the CPU; 1.2e-6 with this fit in float64).
+    :return: (alpha (B,) in the working real dtype, small_step (B,) bool)."""
+    rdtype = U_guess.dtype
+    wide = lambda t: t.to(torch.complex128 if t.is_complex() else torch.float64)
+    Q_s, R_s, X_ref, U_ref = wide(Q_s), wide(R_s), wide(X_ref), wide(U_ref)
+    X_guess, U_guess = wide(X_guess), wide(U_guess)
+    dX = wide(X_opt) - X_guess
+    dU = wide(U_opt) - U_guess
+
+    def phi(a):
+        return objective_value(X_guess + a * dX, U_guess + a * dU, X_ref, U_ref, Q_s, R_s)
+
+    p0, ph, p1 = phi(0.0), phi(0.5), phi(1.0)
+    a = 2.0 * (p1 + p0 - 2.0 * ph)
+    b = p1 - p0 - a
+    curved = a.abs() > 1e-30
+    alpha = torch.where(curved, -b / (2.0 * torch.where(curved, a, torch.ones_like(a))),
+                        torch.ones_like(a))
+    alpha = torch.where(torch.isfinite(alpha), alpha, torch.ones_like(alpha))
+    alpha = torch.clamp(alpha, 0.0, 1.0)
+    dz_norm = torch.sqrt(dX.abs().pow(2).sum(dim=(1, 2)) + dU.abs().pow(2).sum(dim=(1, 2)))
+    return alpha.to(rdtype), alpha.abs() * dz_norm < step_tol
+
+
+def sqp_update_from_qp(s: SQPState, res: QPResult, X_ref, U_ref, Q_s, R_s,
+                       single_shot: bool, step_tol: float) -> SQPState:
+    """Apply one QP result to the SQP state: failure codes, line search (or
+    the full step when single-shot), and the guess blend, which a failed
+    lane skips."""
+    code = torch.where(~res.converged, 2,
+                       torch.where(~torch.isfinite(res.obj), 3, 0)).to(torch.int32)
+    if single_shot:
+        alpha = torch.ones_like(res.obj)
+        iqp_done = torch.ones_like(s.done)
+    else:
+        alpha, small = _line_search_alpha(Q_s, R_s, X_ref, U_ref, s.Xg, s.Ug,
+                                          res.X, res.U, step_tol)
+        iqp_done = small | (code > 0)
+    ok = code == 0
+    step = ok.to(alpha.dtype) * alpha
+    return SQPState(
+        s.Xg + _lane(step, s.Xg) * (res.X - s.Xg),
+        s.Ug + _lane(step, s.Ug) * (res.U - s.Ug),
+        res.X, res.U, res.obj, s.n_iter + 1, iqp_done, code,
+        torch.where(ok[:, None], res.y.to(s.y.dtype), s.y),
+        torch.where(ok, res.rho.to(s.rho.dtype), s.rho),
+    )
+
+
+def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
+            ctx: StepContext, bmodel: BilinearModel, model: DMDcModel,
+            plants: QuantumPlant, plant_step: Callable):
+    """Apply each lane's first control to the plant, observe, close the loop
+    and shift the guesses and duals. Observation is noiseless and there is
+    no exit condition: exit codes are 0 or a QP failure's 2 / 3.
+
+    :param plant_step: (x_true (B, dim_e), u (B, dim_u)) -> next plant state.
+    :return: (carry_new, duals_out) with duals_out = (y, rho) for the next
+        step's warm start.
+    """
+    dim_u = config.dim_u
+    done = carry.done
+    u_apply = s.U_opt[:, :, 0]
+    step_failed = s.code > 0
+
+    x_plant = plant_step(carry.x_true, u_apply)
+    if ((step + 1) % config.measure_freq) == 0:
+        # measurement step: the observation re-seeds the loop
+        x_next = x_plant
+    else:
+        # between measurements the loop closes through the model
+        lift_u = bmodel.lift_u(u_apply.T)                          # (Lm, B)
+        ux = krtimes(lift_u, ctx.lift_x.T)                          # (Lm*dim_x, B)
+        x_next = proj_state(plants, predict(model, ctx.lift_x.T, ux).T)
+
+    keep = lambda old, new: torch.where(_lane(done, old), old, new)
+    hold = lambda old, new: torch.where(_lane(step_failed, old), old, new)
+    shift = lambda G: torch.cat([G[:, :, 1:], G[:, :, -1:]], dim=2)
+    carry_new = Carry(
+        keep(carry.x_cur, hold(carry.x_cur, x_next)),
+        keep(carry.x_true, hold(carry.x_true, x_plant)),
+        keep(carry.X_guess, shift(s.Xg)),
+        keep(carry.U_guess, shift(s.Ug)),
+        keep(carry.u_last, hold(carry.u_last, u_apply)),
+        keep(carry.exit_code, torch.where(step_failed, s.code, torch.zeros_like(s.code))),
+        done | step_failed,
+    )
+    y_shift = torch.cat([s.y[:, dim_u:], s.y[:, -dim_u:]], dim=1)
+    return carry_new, (keep(s.y, y_shift), s.rho)

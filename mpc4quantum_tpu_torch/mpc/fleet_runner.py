@@ -1,0 +1,139 @@
+"""Fleet MPC runner: the receding-horizon loop for a batch of lanes, with
+the whole fleet's box QPs solved by one kernel launch per SQP iteration and
+the plant propagators by one kernel launch per step (the main-path
+semantics of mpc4quantum_tpu/mpc/hostloop.py `HostLoopMPC.run` with
+qp_impl="pallas" and plant_impl="pallas").
+
+Schedule per MPC step:
+  - warm steps (step <= 1 with warm_start): `warm_sqp_iters[step]` line-
+    searched SQP iterations, each a cold QP solve (y0 = 0, rho0 = 0);
+  - steady steps: one single-shot SQP iteration whose QP starts from the
+    previous solve's shifted dual and rho.
+One SQP iteration: linearize along each lane's guess, condense, one
+`boxqp_small` launch for the fleet, the acceptance rule, the exact rollout,
+the guess update, and a freeze of lanes whose SQP already finished. The
+advance assembles H_b = H0_b + u_b H1_b, takes U_b = exp(-i dt H_b) with one
+`expm_small` launch and propagates rho' = U rho U^H.
+
+All state stays on the plants' device; the loop makes no host copy.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from ..kernels.boxqp import boxqp_accept, boxqp_small
+from ..kernels.expm import expm_small
+from ..models.dmdc import DMDcModel
+from ..ops.bilinear import BilinearModel, model_along_traj
+from ..plants.quantum import QuantumPlant, conjugate, lift_state, step_hamiltonians
+from ..solvers.boxqp import BoxQPParams
+from ..solvers.condense import QPResult, qp_data, qp_finish
+from .driver import (Carry, MPCConfig, SQPState, StepContext, advance, bilinear_model,
+                     context, select, sqp_init, sqp_update_from_qp)
+
+
+class FleetRunner:
+    """Receding-horizon MPC over a lane batch; build once, `run` any number
+    of times. Every steady (single-shot) QP starts from the previous
+    solve's shifted dual and rho."""
+
+    def __init__(self, config: MPCConfig, sat: float, du: Optional[float] = None,
+                 warm_sqp_iters: Sequence[int] = (12,),
+                 steady_qp_params: Optional[BoxQPParams] = None,
+                 expm_taylor_k: int = 18, expm_max_squarings: int = 12):
+        """:param warm_sqp_iters: SQP iterations of each warm step; steps past
+        the tuple's end take its last entry.
+        :param steady_qp_params: QP budget of the steady (single-shot)
+            steps; None = config.qp_params.
+        :param expm_taylor_k, expm_max_squarings: the plant expm's budget
+            (benchfleet sizes it from a norm bound)."""
+        if not warm_sqp_iters or any(int(v) < 1 for v in warm_sqp_iters):
+            raise ValueError(f"warm_sqp_iters={warm_sqp_iters!r}: need >= 1 per warm step")
+        if config.horizon * config.dim_u > 16:
+            raise NotImplementedError(
+                "QPs with more than 16 variables need the large-n kernel, not ported yet")
+        self.config = config
+        self.sat = sat
+        self.du = du
+        self.warm_sqp_iters = tuple(int(v) for v in warm_sqp_iters)
+        self.steady_qp_params = steady_qp_params or config.qp_params
+        self.expm_taylor_k = expm_taylor_k
+        self.expm_max_squarings = expm_max_squarings
+
+    def _sqp_iter(self, s: SQPState, ctx: StepContext, bmodel: BilinearModel, Q_s, R_s,
+                  qp: BoxQPParams, single_shot: bool) -> SQPState:
+        H = self.config.horizon
+        A_s, B_s, D_s = model_along_traj(bmodel, s.Xg[:, :, :H], s.Ug)
+        P, q, lb, ub, w, M = qp_data(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s,
+                                     A_s, B_s, D_s, ctx.u_prev, self.sat, self.du)
+        U_warm = s.Ug.transpose(1, 2).reshape(s.Ug.shape[0], -1)
+        # carried duals seed single-shot (steady) solves only; warm-phase
+        # iterations re-linearize aggressively and run cold
+        z, y, aux = boxqp_small(P, q, lb, ub, x0=U_warm,
+                                y0=s.y if single_shot else None,
+                                rho0=s.rho if single_shot else None,
+                                iters=qp.max_iter, rounds=qp.n_rounds, rho_scale=qp.rho0,
+                                sigma=qp.sigma, alpha=qp.alpha, eps_abs=qp.eps_abs,
+                                eps_rel=qp.eps_rel, acc_abs=qp.accept_abs,
+                                acc_rel=qp.accept_rel)
+        conv = boxqp_accept(aux, qp.eps_abs, qp.eps_rel, qp.accept_abs, qp.accept_rel)
+        X_opt, U_opt, obj = qp_finish(w, M, z.to(P.dtype), ctx.X_ref, ctx.U_ref, Q_s, R_s)
+        res = QPResult(X=X_opt, U=U_opt, obj=obj, converged=conv, y=y, rho=aux.rho)
+        s_new = sqp_update_from_qp(s, res, ctx.X_ref, ctx.U_ref, Q_s, R_s,
+                                   single_shot, self.config.step_tol)
+        return select(s.done, s, s_new)
+
+    def run(self, x0: torch.Tensor, model: DMDcModel, plants: QuantumPlant,
+            X_targ: torch.Tensor, U_targ: torch.Tensor, Q: torch.Tensor,
+            R: torch.Tensor, Qf: torch.Tensor) -> dict:
+        """Run the batched loop on the plants' device.
+
+        :param x0: (dim_e,) shared or (B, dim_e) per-lane initial states.
+        :param plants: lane batch (leading axis B), noiseless (sigma = 0).
+        :return: {"final_x": (B, dim_e) complex, "exit_code": (B,) int32},
+            on the plants' device.
+        """
+        if bool((plants.sigma != 0).any()):
+            raise NotImplementedError("measurement noise (sigma > 0) is not ported yet")
+        cfg = self.config
+        H, dim_u = cfg.horizon, cfg.dim_u
+        B = plants.H0.shape[0]
+        dev, cdtype = plants.H0.device, plants.H0.dtype
+        rdtype = plants.sigma.dtype
+        x0 = x0.to(dev, cdtype)
+        x0 = (x0.expand(B, -1) if x0.dim() == 1 else x0).clone()
+        lx0 = lift_state(plants, x0)
+        carry = Carry(
+            x_cur=x0, x_true=x0.clone(),
+            X_guess=lx0[:, :, None].expand(-1, -1, H + 1).clone(),
+            U_guess=torch.zeros((B, dim_u, H), dtype=rdtype, device=dev),
+            u_last=U_targ[:, 0].to(rdtype).expand(B, -1).clone(),
+            exit_code=torch.zeros(B, dtype=torch.int32, device=dev),
+            done=torch.zeros(B, dtype=torch.bool, device=dev))
+        duals = (torch.zeros((B, H * dim_u), dtype=rdtype, device=dev),
+                 torch.zeros(B, dtype=rdtype, device=dev))
+        Q_s = torch.cat([Q.expand(H, -1, -1), Qf[None]], dim=0)
+        R_s = R.expand(H, -1, -1)
+        bmodel = bilinear_model(model, cfg)
+
+        def plant_step(x_true, u):
+            Us = expm_small((-1j * cfg.dt) * step_hamiltonians(plants, u),
+                            taylor_k=self.expm_taylor_k,
+                            max_squarings=self.expm_max_squarings)
+            return conjugate(Us, x_true)
+
+        for step in range(cfg.n_steps):
+            warm = step <= 1 if cfg.warm_start else True
+            ctx = context(carry, step, cfg, X_targ, U_targ, plants)
+            s = sqp_init(carry, duals)
+            if warm:
+                n_it = self.warm_sqp_iters[min(step, len(self.warm_sqp_iters) - 1)]
+                for _ in range(n_it):
+                    s = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, cfg.qp_params, False)
+            else:
+                s = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, self.steady_qp_params, True)
+            carry, duals = advance(carry, s, step, cfg, ctx, bmodel, model, plants, plant_step)
+        return {"final_x": carry.x_cur, "exit_code": carry.exit_code}

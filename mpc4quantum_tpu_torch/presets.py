@@ -1,0 +1,92 @@
+"""Named scenario presets (counterpart of mpc4quantum_tpu/presets.py).
+
+Ported so far: `not_state`, the flagship fleet workload - an ideal-model
+qubit steered |0> -> |1> on a 1%-detuned plant, dt = 1, H = 10, 20 steps,
+sat = 2 pi 0.1, first-step slew 0.5 sat.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import systems
+from .models.dmdc import DMDcModel, dmdc_from_operator
+from .mpc.driver import MPCConfig
+from .ops.liouville import discretize_homogeneous, vectorize_me
+from .plants.quantum import QuantumPlant, complex_dtype
+from .systems import matrix_units, rx_rotation
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """Everything a fleet run needs, as tensors on one device."""
+
+    name: str
+    x0: torch.Tensor            # (dim_e,) complex initial state
+    model: DMDcModel
+    plant: QuantumPlant         # the nominal plant a lane batch perturbs
+    X_targ: torch.Tensor        # (dim_x, n_steps + H + 1) complex
+    U_targ: torch.Tensor        # (dim_u, n_steps + H)
+    Q: torch.Tensor
+    R: torch.Tensor
+    Qf: torch.Tensor
+    config: MPCConfig
+    sat: float
+    du: Optional[float]
+    target_state: torch.Tensor  # (dim_e,) for the fidelity
+
+
+def scenario_from_arrays(name, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du, target_state,
+                         config: MPCConfig, plant: QuantumPlant, device=None,
+                         dtype: torch.dtype = torch.float64) -> Scenario:
+    """Build a Scenario from numpy/tensor arrays, cast to `dtype` (the real
+    dtype; complex arrays take its complex partner) on `device`."""
+    cdtype = complex_dtype(dtype)
+    cx = lambda a: torch.tensor(np.asarray(a, complex)).to(device, cdtype)
+    re = lambda a: torch.tensor(np.asarray(a, float)).to(device, dtype)
+    A = cx(A)
+    dim_x = A.shape[0]
+    return Scenario(
+        name=name, x0=cx(x0), model=dmdc_from_operator(A, dim_x, dim_x, A.shape[1] - dim_x),
+        plant=plant.to(device, dtype), X_targ=cx(X_targ), U_targ=re(U_targ),
+        Q=cx(Q), R=re(R), Qf=cx(Qf), config=config, sat=float(sat),
+        du=None if du is None else float(du), target_state=cx(target_state))
+
+
+def _model_operator(H_list, dim_s, dt, order) -> torch.Tensor:
+    basis = matrix_units(dim_s)
+    A_cts = [vectorize_me(Hm, basis) for Hm in H_list]
+    return discretize_homogeneous(A_cts, dt, order)
+
+
+def not_state(order: int = 2, detune: float = 0.99, device=None,
+              dtype: torch.dtype = torch.float64) -> Scenario:
+    """Ideal qubit |0> -> |1> on a 1%-detuned plant: dt = 1, H = 10,
+    n_steps = 20, sat = 2 pi 0.1, du = 0.5 sat."""
+    dt, H, n_steps = 1.0, 10, 20
+    sat = 2 * np.pi * 0.1
+    wq = 2 * np.pi * 4
+    qubit = systems.RWAQubit(wQ=wq, wD=wq, wR=wq)
+    A = _model_operator(qubit.H_list, 2, dt, order)
+    plant_qubit = systems.RWAQubit(wQ=wq * detune, wD=wq, wR=wq)
+    plant = QuantumPlant(H0=torch.as_tensor(plant_qubit.H_list[0]),
+                         H1s=torch.as_tensor(np.stack([plant_qubit.H_list[1]])),
+                         sigma=torch.zeros((), dtype=torch.float64))
+    Rx = rx_rotation(1e-4)
+    rho0 = (Rx @ np.diag([1.0, 0.0]).astype(complex) @ Rx.conj().T).flatten()
+    targ = np.diag([0.0, 1.0]).astype(complex).flatten()
+    Q = np.diag([1.0, 0, 0, 1]).astype(complex)
+    return scenario_from_arrays(
+        "not_state", x0=rho0, A=A.numpy(),
+        X_targ=np.tile(targ[:, None], (1, n_steps + H + 1)),
+        U_targ=np.zeros((1, n_steps + H)), Q=Q, R=np.eye(1) * (1e-2 / sat ** 2), Qf=Q,
+        sat=sat, du=0.5 * sat, target_state=targ,
+        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=1, order=order),
+        plant=plant, device=device, dtype=dtype)
+
+
+PRESETS = {"not_state": not_state}

@@ -1,0 +1,44 @@
+"""Small linear-algebra helpers (counterpart of mpc4quantum_tpu/utils/linalg.py)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def cx_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Matmul that accepts one real and one complex operand.
+
+    `torch.matmul` refuses mixed real/complex operands; the complex side is
+    split into two real products instead of casting the real side up, which
+    costs half the FLOPs of a complex product.
+    """
+    if a.is_complex() and not b.is_complex():
+        return torch.complex(a.real @ b, a.imag @ b)
+    if b.is_complex() and not a.is_complex():
+        return torch.complex(a @ b.real, a @ b.imag)
+    return a @ b
+
+
+def gj_inverse(K: torch.Tensor) -> torch.Tensor:
+    """Inverse of a batched (..., n, n) matrix by unpivoted Gauss-Jordan in
+    matrix form: n column-elimination steps of whole-tensor elementwise ops.
+
+    This is the exact elimination order of the box-QP kernel
+    (csrc/boxqp_small.cu), so the plain QP solver follows the kernel's
+    iterates. K = P + (sigma + rho) I is SPD with a rho shift, which keeps
+    the pivot-free elimination stable.
+    """
+    n = K.shape[-1]
+    if n == 1:
+        return 1.0 / K
+    inv = torch.eye(n, dtype=K.dtype, device=K.device).expand(K.shape)
+    rows = torch.arange(n, device=K.device)[:, None]
+    for col in range(n):
+        rowmask = rows == col
+        piv = 1.0 / K[..., col:col + 1, col:col + 1]
+        prow_K = K[..., col:col + 1, :] * piv
+        prow_I = inv[..., col:col + 1, :] * piv
+        fac = K[..., :, col:col + 1]
+        K = torch.where(rowmask, prow_K, K - fac * prow_K)
+        inv = torch.where(rowmask, prow_I, inv - fac * prow_I)
+    return inv

@@ -4,18 +4,23 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels of mpc4quantum_tpu_torch from the
-checkout, holds each against its plain PyTorch version at the shapes of the
-flagship fleet, drives the flagship `not_state` fleet (B = 16384 lanes,
-float32) through `run_hostloop_fleet`, checks its quality gates and its
-kernel launch counts, and holds its first 64 lanes against the float64 plain
-path on the CPU. One JSON line per phase; then the card's name and power
-limit, the per-kernel record, and last {"ok": true, "device": {...}}.
-Any failure raises and exits non-zero. Without a CUDA device it exits 1 and
-prints no result.
+checkout and holds each against its plain PyTorch version at the shapes of
+the fleets that run it: `boxqp_small` (unscaled and Jacobi-scaled) and
+`expm_small` at d = 2 for the flagship, `admm_big` (alone and inside the
+whole `boxqp_big` solve, Gauss-Jordan and Newton-Schulz inverses) and
+`expm_small` at d = 3 for the large-n presets. Then it drives three fleets
+through `run_hostloop_fleet` in float32 - the flagship `not_state`
+(B = 16384), `drag_state` (B = 2048) and `not_state_freq` (B = 1024) -
+checks their quality gates and their kernel launch counts, and holds each
+fleet's first lanes against the float64 plain path on the CPU. One JSON
+line per phase; then the card's name and power limit, the per-kernel
+record, and last {"ok": true, "device": {...}}. Any failure raises and
+exits non-zero. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import subprocess
@@ -30,15 +35,50 @@ DEVICE = "cuda"
 BATCH = 16384
 QP_N = 10
 EXPM_D = 2
-PARITY_LANES = 64
-PARITY_FID_TOL = 1e-4      # |fid_gpu - fid_cpu| per lane, float32 card vs float64 CPU
 QP_TOL = 1e-3              # max |z|, |y| difference, relative to max(1, |ref|), float32
 # relative rho difference: a rebalance multiplies rho by sqrt(prim/dual), and
-# prim = |x - z| near 1e-6 is resolved by float32 to about 1e-2 relative
+# prim = |x - z| near 1e-6 is resolved by float32 to about 1e-2 relative;
+# boxqp_big's solves allow it once per round (the rebalances compound) and
+# only where the plain solve's prim is resolved at all: below
+# UNRESOLVED * max(1, |x|, |z|) prim is float32 rounding, and rho follows it
 RHO_RTOL = 2e-2
-EXPM_TOL = {(12, 0): 1e-5, (18, 12): 5e-3}  # max abs difference of unitary outputs
+UNRESOLVED = 1e-5
+# max abs difference of unitary outputs; (12, 2) covers norms up to 2
+EXPM_TOL = {(12, 0): 1e-5, (18, 12): 5e-3, (12, 2): 1e-5}
+# admm_big against its plain version: iters float32 steps whose row sums run
+# in another order, relative to max(1, |ref|), as QP_TOL for whole solves
+ADMM_TOL = 1e-3
 BORDERLINE = 1e-3          # acceptance flags may differ only this close to a threshold
 TIMING_REPS = 20
+FLEET_REPS = 4             # one warm-up run, then 3 timed runs
+# Fleets: lanes, kernel launches per run, the minimum-fidelity gate, and the
+# lanes held against the float64 CPU path with their per-lane fidelity bound.
+# freq's closed loop branches under float32 rounding (the JAX package's own
+# float32 run ends up to 3.4e-4 from its x64 run, the port's 7.5e-4 over
+# 128 CPU lanes), so its final-fidelity bound is 2e-3 and a 30-step run,
+# before the branching, is held to 1e-5.
+FLEETS = {
+    "not_state": dict(batch=BATCH, fid_min=0.998, parity_lanes=64, parity_tol=1e-4,
+                      launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0}),
+    "drag_state": dict(batch=2048, fid_min=0.98, parity_lanes=64, parity_tol=1e-4,
+                       launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 34}),
+    "not_state_freq": dict(batch=1024, fid_min=0.98, parity_lanes=32, parity_tol=2e-3,
+                           tracking=(30, 1e-5),
+                           launches={"boxqp_small": 0, "expm_small": 100, "admm_big": 114}),
+}
+# admm_big alone: (B, n, iters) of the large-n presets' solves, and cnot's
+# n = 150, which needs more than 48 KB of shared memory
+ADMM_SHAPES = ((2048, 32, 50), (2048, 32, 19), (1024, 50, 40), (256, 150, 50))
+# boxqp_big, whole solves: drag's cold warm-phase and warm-started steady
+# forms (Gauss-Jordan), freq's (Newton-Schulz); the warm form starts from
+# the cold solve's dual and rho
+BIG_FORMS = {
+    "drag": dict(B=2048, n=32, kinv="gj", cold=dict(iters=50, rounds=2),
+                 warm=dict(iters=19, rounds=1, scale=True, acc_abs=4e-3, acc_rel=4e-3)),
+    "freq": dict(B=1024, n=50, kinv="ns", cold=dict(iters=40, rounds=2, ns_iters=20),
+                 warm=dict(iters=40, rounds=1, scale=True, ns_iters=16, acc_abs=4e-3,
+                           acc_rel=4e-3)),
+}
 
 
 def emit(obj) -> None:
@@ -69,6 +109,11 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def rel_err(a, b) -> float:
+    """max |a - b| relative to max(1, max |b|)."""
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
 def phase_toolchain(build) -> dict:
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-1]
@@ -83,11 +128,14 @@ def phase_toolchain(build) -> dict:
 def phase_build(build) -> dict:
     t0 = time.perf_counter()
     build.library()
-    # ptxas's lines for the flagship instantiations: registers, spills, smem
+    # ptxas's lines for the instantiations the fleets run: registers,
+    # spills, shared memory
+    wanted = ("boxqp_small_kernelILi10E", "expm_small_kernelILi2E", "expm_small_kernelILi3E",
+              "admm_big_kernel")
     report, keep = [], False
     for line in build.ptxas_log.splitlines():
         if "Compiling entry function" in line:
-            keep = "boxqp_small_kernelILi10E" in line or "expm_small_kernelILi2E" in line
+            keep = any(w in line for w in wanted)
         if keep:
             report.append(line.replace("ptxas info    :", "").strip())
     rec = {"phase": "build", "seconds": time.perf_counter() - t0,
@@ -96,55 +144,75 @@ def phase_build(build) -> dict:
     return rec
 
 
-def qp_batch(B: int, n: int, seed: int):
-    """Random SPD box QPs, built as tests/test_pallas_qp.py builds them."""
+def qp_batch(B: int, n: int, seed: int, spread: float = 0.0):
+    """Random SPD box QPs, built as tests/test_pallas_qp.py builds them;
+    spread > 0 weights rows and columns by exp(N(0, spread^2)), a diagonal
+    over orders of magnitude as the large-n presets' condensed QPs have."""
     rng = np.random.default_rng(seed)
     G = rng.normal(size=(B, n, n))
     P = np.einsum("bij,bkj->bik", G, G) + 0.5 * np.eye(n)
     q = rng.normal(size=(B, n)) * 2
+    if spread:
+        d = np.exp(rng.normal(scale=spread, size=(B, n)))
+        P, q = P * d[:, :, None] * d[:, None, :], q * d
     lb = -np.abs(rng.normal(size=(B, n)))
     ub = np.abs(rng.normal(size=(B, n)))
     return [torch.tensor(a, dtype=torch.float32, device=DEVICE) for a in (P, q, lb, ub)]
 
 
+def compare_solves(name, kernel_out, plain_out, kw, accept, accept_thresholds,
+                   rho_rtol=RHO_RTOL, rho_resolved_only=False) -> dict:
+    """z, y, rho and acceptance flags of a kernel solve against the plain
+    one; flags may differ only where a residual sits within BORDERLINE of
+    its threshold in the plain solve, and with rho_resolved_only rho only
+    where the plain prim is float32 rounding."""
+    (zk, yk, ak), (zp, yp, ap) = kernel_out, plain_out
+    acc = (1e-6, 1e-6, kw.get("acc_abs", 1e-3), kw.get("acc_rel", 1e-3))
+    fk, fp = accept(ak, *acc), accept(ap, *acc)
+    tol_p, tol_d = accept_thresholds(*ap[2:7], *acc)
+    near = ((ap.prim - tol_p).abs() <= BORDERLINE * tol_p) | ((ap.dual - tol_d).abs() <= BORDERLINE * tol_d)
+    differ = fk != fp
+    drho = (ak.rho - ap.rho).abs() / ap.rho.abs()
+    resolved = ap.prim >= UNRESOLVED * torch.clamp(torch.maximum(ap.xmax, ap.zmax), min=1.0)
+    err = {"max_dz": float((zk - zp).abs().max()), "max_dy": float((yk - yp).abs().max()),
+           "max_drho_rel": float(drho.max()),
+           "max_drho_rel_resolved": float(torch.where(resolved, drho, 0.0).max()),
+           "accepted_kernel": int(fk.sum()), "accepted_plain": int(fp.sum()),
+           "flags_differ": int(differ.sum()),
+           "flags_differ_not_borderline": int((differ & ~near).sum())}
+    require(all(np.isfinite([err["max_dz"], err["max_dy"], err["max_drho_rel"]])),
+            f"{name}: non-finite difference {err}")
+    require(err["max_dz"] <= QP_TOL * max(1.0, float(zp.abs().max()))
+            and err["max_dy"] <= QP_TOL * max(1.0, float(yp.abs().max())),
+            f"{name}: iterates differ from the plain version {err}")
+    rho_key = "max_drho_rel_resolved" if rho_resolved_only else "max_drho_rel"
+    require(err[rho_key] <= rho_rtol, f"{name}: rho differs {err}")
+    require(err["flags_differ_not_borderline"] == 0, f"{name}: acceptance flags differ {err}")
+    return err
+
+
 def phase_boxqp(boxqp_mod, accept_thresholds) -> dict:
+    """boxqp_small at the flagship's shape: its cold warm-phase form, its
+    warm-started steady form, and that form Jacobi-scaled."""
     P, q, lb, ub = qp_batch(BATCH, QP_N, seed=0)
     forms = {"cold_3x12": dict(iters=12, rounds=3),
-             "warm_2x10": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3)}
+             "warm_2x10": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3),
+             "warm_2x10_scaled": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3,
+                                      scale=True)}
     rec = {"phase": "boxqp_small", "B": BATCH, "n": QP_N}
     warm_start = {}
     for name, kw in forms.items():
         call_k = lambda: boxqp_mod.boxqp_small(P, q, lb, ub, **warm_start, **kw)
         call_p = lambda: boxqp_mod.boxqp_small_ref(P, q, lb, ub, **warm_start, **kw)
-        zk, yk, ak = call_k()
-        zp, yp, ap = call_p()
+        out_k, out_p = call_k(), call_p()
         torch.cuda.synchronize()
-        acc = dict(eps_abs=1e-6, eps_rel=1e-6, acc_abs=kw.get("acc_abs", 1e-3),
-                   acc_rel=kw.get("acc_rel", 1e-3))
-        fk = boxqp_mod.boxqp_accept(ak, acc["eps_abs"], acc["eps_rel"], acc["acc_abs"], acc["acc_rel"])
-        fp = boxqp_mod.boxqp_accept(ap, acc["eps_abs"], acc["eps_rel"], acc["acc_abs"], acc["acc_rel"])
-        # a flag may differ only where a residual sits within BORDERLINE of
-        # its threshold in the plain solve
-        tol_p, tol_d = accept_thresholds(*ap[2:7], **acc)
-        near = ((ap.prim - tol_p).abs() <= BORDERLINE * tol_p) | ((ap.dual - tol_d).abs() <= BORDERLINE * tol_d)
-        differ = fk != fp
-        scale_z = max(1.0, float(zp.abs().max()))
-        scale_y = max(1.0, float(yp.abs().max()))
-        err = {"max_dz": float((zk - zp).abs().max()), "max_dy": float((yk - yp).abs().max()),
-               "max_drho_rel": float(((ak.rho - ap.rho).abs() / ap.rho.abs()).max()),
-               "accepted_kernel": int(fk.sum()), "accepted_plain": int(fp.sum()),
-               "flags_differ": int(differ.sum()), "flags_differ_not_borderline": int((differ & ~near).sum()),
-               "kernel_ms": cuda_ms(call_k), "plain_ms": cuda_ms(call_p)}
+        err = compare_solves(f"boxqp_small {name}", out_k, out_p, kw,
+                             boxqp_mod.boxqp_accept, accept_thresholds)
+        err.update(kernel_ms=cuda_ms(call_k), plain_ms=cuda_ms(call_p))
         rec[name] = err
-        require(all(np.isfinite([err["max_dz"], err["max_dy"], err["max_drho_rel"]])),
-                f"boxqp_small {name}: non-finite difference {err}")
-        require(err["max_dz"] <= QP_TOL * scale_z and err["max_dy"] <= QP_TOL * scale_y,
-                f"boxqp_small {name}: iterates differ from the plain version {err}")
-        require(err["max_drho_rel"] <= RHO_RTOL, f"boxqp_small {name}: rho differs {err}")
-        require(err["flags_differ_not_borderline"] == 0,
-                f"boxqp_small {name}: acceptance flags differ {err}")
-        # the warm form starts from the cold solve's dual and rho
-        warm_start = {"y0": yp, "rho0": ap.rho}
+        if name == "cold_3x12":
+            # the warm forms start from the cold solve's dual and rho
+            warm_start = {"y0": out_p[1], "rho0": out_p[2].rho}
     rec["tolerance"] = {"z_y": QP_TOL, "rho_rel": RHO_RTOL, "flag_borderline": BORDERLINE}
     emit(rec)
     return rec
@@ -162,66 +230,149 @@ def expm_batch(B: int, d: int, seed: int, max_norm: float, min_norm: float):
 
 
 def phase_expm(expm_mod) -> dict:
-    rec = {"phase": "expm_small", "B": BATCH, "d": EXPM_D}
-    for (k, sq), (lo, hi) in (((12, 0), (1e-3, 0.8)), ((18, 12), (0.25, 2.0 ** 10))):
-        A = expm_batch(BATCH, EXPM_D, seed=k, max_norm=hi, min_norm=lo)
+    """expm_small: the flagship's d = 2 forms at its batch, and drag's
+    d = 3 at (12, 2) on its batch with the plant's norm range."""
+    rec = {"phase": "expm_small"}
+    cases = (("d2_12_0", BATCH, EXPM_D, 12, 0, 1e-3, 0.8),
+             ("d2_18_12", BATCH, EXPM_D, 18, 12, 0.25, 2.0 ** 10),
+             ("d3_12_2", 2048, 3, 12, 2, 0.05, 2.0))
+    for name, B, d, k, sq, lo, hi in cases:
+        A = expm_batch(B, d, seed=k + d, max_norm=hi, min_norm=lo)
         call_k = lambda: expm_mod.expm_small(A, taylor_k=k, max_squarings=sq)
         call_p = lambda: expm_mod.expm_small_ref(A, taylor_k=k, max_squarings=sq)
         Ek, Ep = call_k(), call_p()
         E64 = expm_mod.expm_small_ref(A.to(torch.complex128), taylor_k=k, max_squarings=sq)
         torch.cuda.synchronize()
-        err = {"norm_range": [lo, hi], "max_abs_err": float((Ek - Ep).abs().max()),
+        err = {"B": B, "d": d, "norm_range": [lo, hi],
+               "max_abs_err": float((Ek - Ep).abs().max()),
                "max_abs_err_vs_f64": float((Ek.to(torch.complex128) - E64).abs().max()),
                "kernel_ms": cuda_ms(call_k), "plain_ms": cuda_ms(call_p)}
-        rec[f"{k}_{sq}"] = err
+        rec[name] = err
         require(np.isfinite(err["max_abs_err"]) and err["max_abs_err"] <= EXPM_TOL[(k, sq)],
-                f"expm_small ({k}, {sq}) differs from the plain version {err}")
+                f"expm_small {name} differs from the plain version {err}")
     rec["tolerance"] = {f"{k}_{sq}": t for (k, sq), t in EXPM_TOL.items()}
     emit(rec)
     return rec
 
 
-def phase_fleet(presets, run_hostloop_fleet, make_scenario_batch, boxqp_mod, expm_mod):
-    """The flagship fleet: one warm-up run, then 3 timed runs, with the
-    kernels' launch counts read around the whole call."""
-    sc = presets.not_state(device=DEVICE, dtype=torch.float32)
-    plants64 = make_scenario_batch(presets.not_state().plant, BATCH,
-                                   generator=torch.Generator().manual_seed(1),
+def phase_admm(admm_mod, gj_inverse) -> dict:
+    """admm_big against admm_iters_ref on SPD batches, K^-1 by Gauss-Jordan,
+    seeded rho and iterates."""
+    rec = {"phase": "admm_big", "tolerance": ADMM_TOL}
+    for B, n, iters in ADMM_SHAPES:
+        P, q, lb, ub = qp_batch(B, n, seed=n + iters)
+        rng = np.random.default_rng(n)
+        rho = torch.tensor(rng.uniform(0.05, 2.0, B) * n, dtype=torch.float32, device=DEVICE)
+        kinv = gj_inverse(P + (1e-6 + rho)[:, None, None] * torch.eye(n, device=DEVICE))
+        x, z, y = (torch.tensor(rng.normal(size=(B, n)) * s, dtype=torch.float32, device=DEVICE)
+                   for s in (0.3, 0.3, 0.5))
+        args = (kinv, q, lb, ub, rho, x, z, y)
+        kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
+        call_k = lambda: admm_mod.admm_big(*args, **kw)
+        call_p = lambda: admm_mod.admm_iters_ref(*args, **kw)
+        out_k, out_p = call_k(), call_p()
+        torch.cuda.synchronize()
+        err = {f"rel_d{v}": rel_err(a, b) for v, a, b in zip("xzy", out_k, out_p)}
+        err.update(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(out_k, out_p)),
+                   smem_bytes=admm_mod.smem_bytes(n), kernel_ms=cuda_ms(call_k),
+                   plain_ms=cuda_ms(call_p))
+        rec[f"B{B}_n{n}_it{iters}"] = err
+        worst = max(err["rel_dx"], err["rel_dz"], err["rel_dy"])
+        require(np.isfinite(worst) and worst <= ADMM_TOL,
+                f"admm_big B={B} n={n} iters={iters} differs from the plain version {err}")
+        require(float((out_p[0] - x).abs().max()) > 1e-3, "admm_big check is vacuous")
+    emit(rec)
+    return rec
+
+
+def phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds) -> dict:
+    """boxqp_big (one admm_big launch per round) against the plain solver,
+    whole solves at the large-n presets' shapes and budgets."""
+    rec = {"phase": "boxqp_big", "tolerance": {"z_y": QP_TOL, "rho_rel_per_round": RHO_RTOL,
+                                               "prim_unresolved": UNRESOLVED,
+                                               "flag_borderline": BORDERLINE}}
+    for preset, form in BIG_FORMS.items():
+        P, q, lb, ub = qp_batch(form["B"], form["n"], seed=form["n"], spread=1.0)
+        warm_start = {}
+        for phase in ("cold", "warm"):
+            kw = dict(form[phase])
+            params = BoxQPParams(max_iter=kw["iters"], n_rounds=kw["rounds"],
+                                 accept_abs=kw.get("acc_abs", 1e-3),
+                                 accept_rel=kw.get("acc_rel", 1e-3), kinv=form["kinv"],
+                                 ns_iters=kw.get("ns_iters", 30), scale=kw.get("scale", False))
+            call_k = lambda: boxqp_mod.boxqp_big(P, q, lb, ub, **warm_start,
+                                                 kinv_method=form["kinv"], **kw)
+            call_p = lambda: solve_boxqp_fixed(P, q, lb, ub, **warm_start, params=params)
+            out_k, out_p = call_k(), call_p()
+            torch.cuda.synchronize()
+            name = f"{preset}_{phase}_{kw['rounds']}x{kw['iters']}"
+            err = compare_solves(f"boxqp_big {name}", out_k, out_p, kw,
+                                 boxqp_mod.boxqp_accept, accept_thresholds,
+                                 rho_rtol=RHO_RTOL * kw["rounds"], rho_resolved_only=True)
+            err.update(B=form["B"], n=form["n"], kinv=form["kinv"],
+                       kernel_ms=cuda_ms(call_k, 5), plain_ms=cuda_ms(call_p, 5))
+            rec[name] = err
+            warm_start = {"y0": out_p[1], "rho0": out_p[2].rho}
+    emit(rec)
+    return rec
+
+
+def phase_fleet(name, presets, run_hostloop_fleet, make_scenario_batch, counters):
+    """One fleet: one warm-up run, then 3 timed runs, with the kernels'
+    launch counts set to 0 just before and read just after the whole call."""
+    spec = FLEETS[name]
+    B = spec["batch"]
+    make = presets.PRESETS[name]
+    sc = make(device=DEVICE, dtype=torch.float32)
+    plants64 = make_scenario_batch(make().plant, B, generator=torch.Generator().manual_seed(1),
                                    dtype=torch.float64)
-    reps = 4
-    boxqp_mod.boxqp_small.launches = 0
-    expm_mod.expm_small.launches = 0
-    metrics, out = run_hostloop_fleet(sc, BATCH, plants=plants64.to(DEVICE, torch.float32),
-                                      reps=reps)
-    launches = {"boxqp_small": boxqp_mod.boxqp_small.launches,
-                "expm_small": expm_mod.expm_small.launches}
+    for fn in counters.values():
+        fn.launches = 0
+    metrics, out = run_hostloop_fleet(sc, B, plants=plants64.to(DEVICE, torch.float32),
+                                      reps=FLEET_REPS)
+    launches = {k: fn.launches for k, fn in counters.items()}
     final_x = out["final_x"]
-    emit({"phase": "fleet", **metrics, "launches": launches, "runs": reps})
-    require(tuple(final_x.shape) == (BATCH, 4) and bool(torch.isfinite(final_x).all()),
-            "fleet final states are not finite (B, 4)")
-    require(launches == {"boxqp_small": 26 * reps, "expm_small": 20 * reps},
-            f"kernel launches per run are not 26 QP / 20 expm: {launches} over {reps} runs")
+    emit({"phase": "fleet", **metrics, "launches": launches, "runs": FLEET_REPS})
+    dim = sc.x0.shape[0]
+    require(tuple(final_x.shape) == (B, dim) and bool(torch.isfinite(final_x).all()),
+            f"{name} fleet final states are not finite ({B}, {dim})")
+    expected = {k: v * FLEET_REPS for k, v in spec["launches"].items()}
+    require(launches == expected,
+            f"{name} kernel launches over {FLEET_REPS} runs: {launches}, expected {expected}")
     require(metrics["completed_frac"] == 1.0 and metrics["qp_fail_frac"] == 0.0,
-            f"fleet lanes failed: {metrics}")
-    require(metrics["fidelity_mean"] >= 0.999 and metrics["fidelity_min"] >= 0.998,
-            f"fleet fidelity below the gates: {metrics}")
+            f"{name} fleet lanes failed: {metrics}")
+    require(metrics["fidelity_mean"] >= 0.999 and metrics["fidelity_min"] >= spec["fid_min"],
+            f"{name} fleet fidelity below the gates: {metrics}")
     return sc, plants64, out, launches
 
 
-def phase_parity(presets, run_hostloop_fleet, fleet_fidelity, sc, plants64, out) -> dict:
+def phase_parity(name, presets, run_hostloop_fleet, fleet_fidelity, sc, plants64, out) -> dict:
     """The first lanes again, through the float64 plain path on the CPU."""
-    sc64 = presets.not_state(device="cpu", dtype=torch.float64)
-    m64, out64 = run_hostloop_fleet(sc64, PARITY_LANES, plants=plants64[:PARITY_LANES])
-    fid_gpu = fleet_fidelity(sc, out["final_x"][:PARITY_LANES])
-    fid_cpu = fleet_fidelity(sc64, out64["final_x"])
-    dfid = float(np.abs(fid_gpu - fid_cpu).max())
-    codes_equal = bool((out["exit_code"][:PARITY_LANES].cpu() == out64["exit_code"]).all())
-    rec = {"phase": "lane_parity", "lanes": PARITY_LANES, "max_abs_dfid": dfid,
-           "bound": PARITY_FID_TOL, "exit_codes_equal": codes_equal,
+    spec = FLEETS[name]
+    lanes, bound = spec["parity_lanes"], spec["parity_tol"]
+    make = presets.PRESETS[name]
+    sc64 = make(device="cpu", dtype=torch.float64)
+    m64, out64 = run_hostloop_fleet(sc64, lanes, plants=plants64[:lanes])
+    dfid = np.abs(fleet_fidelity(sc, out["final_x"][:lanes]) - fleet_fidelity(sc64, out64["final_x"]))
+    codes_equal = bool((out["exit_code"][:lanes].cpu() == out64["exit_code"]).all())
+    rec = {"phase": "lane_parity", "preset": name, "lanes": lanes,
+           "max_abs_dfid": float(dfid.max()), "median_abs_dfid": float(np.median(dfid)),
+           "bound": bound, "exit_codes_equal": codes_equal,
            "cpu_fidelity_mean": m64["fidelity_mean"]}
+    if "tracking" in spec:
+        # the same lanes over the first steps, before float32 rounding can
+        # branch the closed loop
+        steps, tbound = spec["tracking"]
+        cut = lambda s: dataclasses.replace(s, config=dataclasses.replace(s.config, n_steps=steps))
+        _, out_s = run_hostloop_fleet(cut(sc), lanes, plants=plants64[:lanes].to(DEVICE, torch.float32))
+        _, out_s64 = run_hostloop_fleet(cut(sc64), lanes, plants=plants64[:lanes])
+        tfid = float(np.abs(fleet_fidelity(sc, out_s["final_x"])
+                            - fleet_fidelity(sc64, out_s64["final_x"])).max())
+        rec["tracking"] = {"steps": steps, "max_abs_dfid": tfid, "bound": tbound}
+        require(tfid <= tbound, f"{name}: first {steps} steps differ from the float64 CPU path: {rec}")
     emit(rec)
-    require(dfid <= PARITY_FID_TOL and codes_equal,
-            f"first {PARITY_LANES} lanes differ from the float64 CPU path: {rec}")
+    require(float(dfid.max()) <= bound and codes_equal,
+            f"{name}: first {lanes} lanes differ from the float64 CPU path: {rec}")
     return rec
 
 
@@ -233,10 +384,13 @@ def main() -> int:
     from mpc4quantum_tpu_torch import presets
     from mpc4quantum_tpu_torch.benchfleet import fleet_fidelity, run_hostloop_fleet
     from mpc4quantum_tpu_torch.kernels import _build as build
+    from mpc4quantum_tpu_torch.kernels import admm_big as admm_mod
     from mpc4quantum_tpu_torch.kernels import boxqp as boxqp_mod
     from mpc4quantum_tpu_torch.kernels import expm as expm_mod
     from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
-    from mpc4quantum_tpu_torch.solvers.boxqp import accept_thresholds
+    from mpc4quantum_tpu_torch.solvers.boxqp import (BoxQPParams, accept_thresholds,
+                                                     solve_boxqp_fixed)
+    from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -244,24 +398,39 @@ def main() -> int:
     phase_build(build)
     qp = phase_boxqp(boxqp_mod, accept_thresholds)
     ex = phase_expm(expm_mod)
-    sc, plants64, out, launches = phase_fleet(presets, run_hostloop_fleet, make_scenario_batch,
-                                              boxqp_mod, expm_mod)
-    phase_parity(presets, run_hostloop_fleet, fleet_fidelity, sc, plants64, out)
+    ad = phase_admm(admm_mod, gj_inverse)
+    phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds)
+    counters = {"boxqp_small": boxqp_mod.boxqp_small, "expm_small": expm_mod.expm_small,
+                "admm_big": admm_mod.admm_big}
+    total = dict.fromkeys(counters, 0)
+    for name in FLEETS:
+        sc, plants64, out, launches = phase_fleet(name, presets, run_hostloop_fleet,
+                                                  make_scenario_batch, counters)
+        total = {k: total[k] + launches[k] for k in total}
+        phase_parity(name, presets, run_hostloop_fleet, fleet_fidelity, sc, plants64, out)
 
     print(smi_line(), flush=True)
+    qp_forms = ("cold_3x12", "warm_2x10", "warm_2x10_scaled")
+    admm_shapes = [f"B{B}_n{n}_it{it}" for B, n, it in ADMM_SHAPES]
     emit({"kernels": [
         {"name": "boxqp_small", "route": "cuda",
          "source": "mpc4quantum_tpu_torch/csrc/boxqp_small.cu",
          "replaces": "mpc4quantum_tpu/ops/pallas_qp.py:42",
-         "launches": launches["boxqp_small"],
-         "max_abs_err": max(qp[f]["max_dz"] for f in ("cold_3x12", "warm_2x10")),
+         "launches": total["boxqp_small"],
+         "max_abs_err": max(max(qp[f]["max_dz"], qp[f]["max_dy"]) for f in qp_forms),
          "ms": qp["cold_3x12"]["kernel_ms"], "plain_ms": qp["cold_3x12"]["plain_ms"]},
         {"name": "expm_small", "route": "cuda",
          "source": "mpc4quantum_tpu_torch/csrc/expm_small.cu",
          "replaces": "mpc4quantum_tpu/ops/pallas_expm.py:64",
-         "launches": launches["expm_small"],
-         "max_abs_err": max(ex[f]["max_abs_err"] for f in ("12_0", "18_12")),
-         "ms": ex["12_0"]["kernel_ms"], "plain_ms": ex["12_0"]["plain_ms"]},
+         "launches": total["expm_small"],
+         "max_abs_err": max(ex[f]["max_abs_err"] for f in ("d2_12_0", "d2_18_12", "d3_12_2")),
+         "ms": ex["d2_12_0"]["kernel_ms"], "plain_ms": ex["d2_12_0"]["plain_ms"]},
+        {"name": "admm_big", "route": "cuda",
+         "source": "mpc4quantum_tpu_torch/csrc/admm_big.cu",
+         "replaces": "mpc4quantum_tpu/ops/pallas_qp.py:345",
+         "launches": total["admm_big"],
+         "max_abs_err": max(ad[s]["max_abs_err"] for s in admm_shapes),
+         "ms": ad[admm_shapes[0]]["kernel_ms"], "plain_ms": ad[admm_shapes[0]]["plain_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

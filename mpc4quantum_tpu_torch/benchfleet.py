@@ -21,12 +21,28 @@ from .plants.quantum import QuantumPlant, taylor_norm_bound
 from .presets import Scenario
 from .solvers.boxqp import BoxQPParams
 
-# steady-state QP budget (n_rounds, max_iter) under dual warm starting, with
-# acceptance 4e-3 (the JAX package's sweeps; 2x6 collapses the flagship)
-PRESET_STEADY_BUDGET = {"not_state": (2, 10)}
+# The JAX package's swept production settings, per preset. Steady-phase QP
+# under dual warm starting, acceptance 4e-3:
+#   budget (n_rounds, max_iter) - 2x6 collapses the flagship; the large-n
+#       presets run one round (rho is frozen on acceptance in the steady
+#       chain, so a second round recomputed the same inverse);
+#   scale - Jacobi-equilibrate the steady phase only (y crosses the seam
+#       unscaled, rho in the solver's space);
+#   kinv - K-inverse of both phases ("gj" exact; else the library's "ns");
+#   ns_iters / ns_warm - Newton-Schulz budget of the steady / warm phase
+#       (freq's warm phase collapses at 16; moot under "gj").
+PRESET_STEADY_BUDGET = {
+    "not_state": {"budget": (2, 10)},
+    "not_state_freq": {"budget": (1, 40), "scale": True, "ns_iters": 16, "ns_warm": 20},
+    "drag_state": {"budget": (1, 19), "scale": True, "kinv": "gj"},
+}
 # per-warm-step SQP iterations: step 0 needs 7 line-searched iterations from
 # the cold guess, step 1 converges in one
-PRESET_WARM_ITERS = {"not_state": (7, 1)}
+PRESET_WARM_ITERS = {"not_state": (7, 1), "not_state_freq": (7, 1), "drag_state": (7, 1)}
+# warm-phase budget of the large-n presets: (the preset's own default, the
+# swept cut), applied only when the scenario kept its own budget
+PRESET_WARM_BUDGET = {"not_state_freq": ((2, 150), (2, 40)),
+                      "drag_state": ((2, 150), (2, 50))}
 # warm-phase budget of the small presets (n <= 16) that leave qp_params at
 # the library default: three rho rounds of 12 iterations
 SMALL_WARM_BUDGET = (3, 12)
@@ -49,7 +65,10 @@ def expm_budget_for(plants: QuantumPlant, dt: float, sat, budget: str = "auto"):
     if budget != "auto":
         raise ValueError(f"expm_budget={budget!r} is not one of {EXPM_BUDGETS}")
     bound = taylor_norm_bound(plants, dt, sat)
-    return 12, max(0, int(math.ceil(math.log2(max(bound, 1e-12) * 1.3 / 0.8))))
+    squarings = max(0, int(math.ceil(math.log2(max(bound, 1e-12) * 1.3 / 0.8))))
+    # the form certifies itself: the scaled norm is within Taylor 12's range
+    assert bound * 2.0 ** -squarings <= 0.8, (bound, squarings)
+    return 12, squarings
 
 
 def fleet_fidelity(sc: Scenario, final_x: torch.Tensor) -> np.ndarray:
@@ -63,16 +82,25 @@ def make_runner(sc: Scenario, plants: QuantumPlant, expm_budget: str = "auto") -
     """The fleet runner with the preset's tuned budgets."""
     if sc.name not in PRESET_WARM_ITERS:
         raise NotImplementedError(f"preset {sc.name!r} is not ported")
-    qp = sc.config.qp_params
+    tuned = PRESET_STEADY_BUDGET[sc.name]
+    own = sc.config.qp_params
+    qp = own
+    warm_budget = PRESET_WARM_BUDGET.get(sc.name)
+    if warm_budget is not None and (qp.n_rounds, qp.max_iter) == warm_budget[0]:
+        qp = dataclasses.replace(qp, n_rounds=warm_budget[1][0], max_iter=warm_budget[1][1])
     cfg = sc.config
     if cfg.horizon * cfg.dim_u <= 16 and (qp.n_rounds, qp.max_iter) == (
             BoxQPParams.n_rounds, BoxQPParams.max_iter):
         qp = dataclasses.replace(qp, n_rounds=SMALL_WARM_BUDGET[0],
                                  max_iter=SMALL_WARM_BUDGET[1])
+    qp = dataclasses.replace(qp, kinv=tuned.get("kinv", qp.kinv),
+                             ns_iters=tuned.get("ns_warm", tuned.get("ns_iters", qp.ns_iters)))
     cfg = dataclasses.replace(cfg, qp_params=qp)
-    rounds, iters = PRESET_STEADY_BUDGET[sc.name]
+    rounds, iters = tuned["budget"]
     steady = dataclasses.replace(qp, n_rounds=rounds, max_iter=iters,
-                                 accept_abs=STEADY_ACCEPT, accept_rel=STEADY_ACCEPT)
+                                 accept_abs=STEADY_ACCEPT, accept_rel=STEADY_ACCEPT,
+                                 ns_iters=tuned.get("ns_iters", own.ns_iters),
+                                 scale=tuned.get("scale", False) or own.scale)
     taylor_k, max_sq = expm_budget_for(plants, cfg.dt, sc.sat, expm_budget)
     return FleetRunner(cfg, sc.sat, du=sc.du, warm_sqp_iters=PRESET_WARM_ITERS[sc.name],
                        steady_qp_params=steady, expm_taylor_k=taylor_k,
@@ -139,6 +167,8 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[QuantumPlant] 
         "qp_fail_frac": round(float((codes == 2).mean()), 4),
         "steady_budget": f"{steady.n_rounds}x{steady.max_iter}",
         "warm_budget": f"{warm.n_rounds}x{warm.max_iter}",
+        "qp_scale": steady.scale,
+        "qp_kernel": runner.qp_kernel,
         "warm_sqp_iters": list(runner.warm_sqp_iters),
         "expm_budget": [runner.expm_taylor_k, runner.expm_max_squarings],
     }

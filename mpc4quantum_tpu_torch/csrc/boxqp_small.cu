@@ -1,8 +1,8 @@
 // Batched small box-QP solver: one thread per QP (lane), n <= 16.
 //
-// Replaces the Pallas TPU kernel mpc4quantum_tpu/ops/pallas_qp.py::_qp_kernel
-// (the unscaled form; its Jacobi-scaled variant is not ported). Each lane
-// solves  min 1/2 x^T P x + q^T x  s.t.  lb <= x <= ub  by `rounds` rounds of
+// Replaces the Pallas TPU kernel mpc4quantum_tpu/ops/pallas_qp.py::_qp_kernel,
+// in both its forms (the SCALED template flag). Each lane solves
+//   min 1/2 x^T P x + q^T x  s.t.  lb <= x <= ub  by `rounds` rounds of
 //   - an unpivoted Gauss-Jordan inverse of K = P + (sigma + rho) I,
 //   - `iters` relaxed ADMM steps
 //       x = K^-1 (sigma x - q + rho z - y)
@@ -11,10 +11,15 @@
 //   - the residuals, the acceptance test and the OSQP rho rebalance, which
 //     is frozen once the round is accepted,
 // in the same order as the Pallas kernel and the plain version
-// (solvers/boxqp.py::solve_boxqp_fixed).
+// (solvers/boxqp.py::solve_boxqp_fixed). In the scaled form the QP arrives
+// Jacobi-equilibrated (the wrapper scales it, as `boxqp_pallas` does) with
+// its weights d; the residual statistics are then reported in the original
+// coordinates - primal rows times d, dual rows divided by d. d is read from
+// global memory inside the residual block, which runs once per round, and
+// is held in no register array.
 //
 // Layout: structure of arrays, element-major and lane-minor - P is (n*n, B),
-// vectors (n, B), rho0 (B,), aux (8, B) - so consecutive threads read
+// vectors and d (n, B), rho0 (B,), aux (8, B) - so consecutive threads read
 // consecutive addresses.
 //
 // What bounds it on the H100: at the flagship n = 10 a lane needs ~300
@@ -44,13 +49,14 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-template <int N>
+template <int N, bool SCALED>
 __global__ void __launch_bounds__(kThreads)
 boxqp_small_kernel(const float* __restrict__ P, const float* __restrict__ q_in,
                    const float* __restrict__ lb_in, const float* __restrict__ ub_in,
                    const float* __restrict__ x0_in, const float* __restrict__ y0_in,
-                   const float* __restrict__ rho0_in, float* __restrict__ z_out,
-                   float* __restrict__ y_out, float* __restrict__ aux_out, int B,
+                   const float* __restrict__ rho0_in, const float* __restrict__ d_in,
+                   float* __restrict__ z_out, float* __restrict__ y_out,
+                   float* __restrict__ aux_out, int B,
                    int iters, int rounds, float rho_scale, float sigma, float alpha,
                    float eps_abs, float eps_rel, float acc_abs, float acc_rel) {
   extern __shared__ float smem[];
@@ -60,6 +66,7 @@ boxqp_small_kernel(const float* __restrict__ P, const float* __restrict__ q_in,
   float* kinv = smem + threadIdx.x;  // element e of this lane at kinv[e * T]
 #define KI(i, j) kinv[((i) * N + (j)) * T]
 #define PE(i, j) __ldg(P + (size_t)((i) * N + (j)) * B + b)
+#define DE(i) __ldg(d_in + (size_t)(i) * B + b)
 
   float q[N], lb[N], ub[N], x[N], z[N], y[N];
 #pragma unroll
@@ -83,9 +90,11 @@ boxqp_small_kernel(const float* __restrict__ P, const float* __restrict__ q_in,
   const float rho_c = __ldg(rho0_in + b);
   float rho = rho_c > 0.0f ? clip(rho_c, lo, hi) : rho_scale * diag_scale;
 
-  float qmax = fabsf(q[0]);
+  float qmax = SCALED ? __fdividef(fabsf(q[0]), DE(0)) : fabsf(q[0]);
 #pragma unroll
-  for (int i = 1; i < N; ++i) qmax = nan_max(qmax, fabsf(q[i]));
+  for (int i = 1; i < N; ++i) {
+    qmax = nan_max(qmax, SCALED ? __fdividef(fabsf(q[i]), DE(i)) : fabsf(q[i]));
+  }
   float prim = 0.f, dual = 0.f, xmax = 0.f, zmax = 0.f, pxmax = 0.f, ymax = 0.f;
   const float one_m_alpha = 1.0f - alpha;
 
@@ -141,20 +150,34 @@ boxqp_small_kernel(const float* __restrict__ P, const float* __restrict__ q_in,
       float px = PE(i, 0) * x[0];
 #pragma unroll
       for (int j = 1; j < N; ++j) px += PE(i, j) * x[j];
+      float r_prim = fabsf(x[i] - z[i]), r_dual = fabsf(px + q[i] + y[i]);
+      float r_x = fabsf(x[i]), r_z = fabsf(z[i]), r_px = fabsf(px), r_y = fabsf(y[i]);
+      if (SCALED) {
+        // |d v| = d |v| and |v / d| = |v| / d, for d > 0. __fdividef (2 ulp)
+        // has no out-of-line slow path: the IEEE division's call doubled
+        // the spills of the whole kernel
+        const float di = DE(i);
+        r_prim *= di;
+        r_x *= di;
+        r_z *= di;
+        r_dual = __fdividef(r_dual, di);
+        r_px = __fdividef(r_px, di);
+        r_y = __fdividef(r_y, di);
+      }
       if (i == 0) {
-        prim = fabsf(x[0] - z[0]);
-        dual = fabsf(px + q[0] + y[0]);
-        xmax = fabsf(x[0]);
-        zmax = fabsf(z[0]);
-        pxmax = fabsf(px);
-        ymax = fabsf(y[0]);
+        prim = r_prim;
+        dual = r_dual;
+        xmax = r_x;
+        zmax = r_z;
+        pxmax = r_px;
+        ymax = r_y;
       } else {
-        prim = nan_max(prim, fabsf(x[i] - z[i]));
-        dual = nan_max(dual, fabsf(px + q[i] + y[i]));
-        xmax = nan_max(xmax, fabsf(x[i]));
-        zmax = nan_max(zmax, fabsf(z[i]));
-        pxmax = nan_max(pxmax, fabsf(px));
-        ymax = nan_max(ymax, fabsf(y[i]));
+        prim = nan_max(prim, r_prim);
+        dual = nan_max(dual, r_dual);
+        xmax = nan_max(xmax, r_x);
+        zmax = nan_max(zmax, r_z);
+        pxmax = nan_max(pxmax, r_px);
+        ymax = nan_max(ymax, r_y);
       }
     }
     const float pscale = nan_max(xmax, zmax);
@@ -180,22 +203,23 @@ boxqp_small_kernel(const float* __restrict__ P, const float* __restrict__ q_in,
   for (int r = 0; r < kAuxRows; ++r) aux_out[(size_t)r * B + b] = aux[r];
 #undef KI
 #undef PE
+#undef DE
 }
 
-template <int N>
+template <int N, bool SCALED>
 cudaError_t launch(const float* P, const float* q, const float* lb, const float* ub,
-                   const float* x0, const float* y0, const float* rho0, float* z,
-                   float* y, float* aux, int B, int iters, int rounds, float rho_scale,
-                   float sigma, float alpha, float eps_abs, float eps_rel, float acc_abs,
-                   float acc_rel, cudaStream_t stream) {
+                   const float* x0, const float* y0, const float* rho0, const float* d,
+                   float* z, float* y, float* aux, int B, int iters, int rounds,
+                   float rho_scale, float sigma, float alpha, float eps_abs, float eps_rel,
+                   float acc_abs, float acc_rel, cudaStream_t stream) {
   const size_t smem = sizeof(float) * N * N * kThreads;
   // above 48 KB (n >= 14) dynamic shared memory must be opted into
   static const cudaError_t attr = cudaFuncSetAttribute(
-      boxqp_small_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      boxqp_small_kernel<N, SCALED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   const int blocks = (B + kThreads - 1) / kThreads;
-  boxqp_small_kernel<N><<<blocks, kThreads, smem, stream>>>(
-      P, q, lb, ub, x0, y0, rho0, z, y, aux, B, iters, rounds, rho_scale, sigma, alpha,
+  boxqp_small_kernel<N, SCALED><<<blocks, kThreads, smem, stream>>>(
+      P, q, lb, ub, x0, y0, rho0, d, z, y, aux, B, iters, rounds, rho_scale, sigma, alpha,
       eps_abs, eps_rel, acc_abs, acc_rel);
   return cudaGetLastError();
 }
@@ -204,16 +228,21 @@ cudaError_t launch(const float* P, const float* q, const float* lb, const float*
 
 extern "C" int mpc4q_boxqp_small(const float* P, const float* q, const float* lb,
                                  const float* ub, const float* x0, const float* y0,
-                                 const float* rho0, float* z, float* y, float* aux, int B,
-                                 int n, int iters, int rounds, float rho_scale, float sigma,
-                                 float alpha, float eps_abs, float eps_rel, float acc_abs,
-                                 float acc_rel, void* stream) {
+                                 const float* rho0, const float* d, float* z, float* y,
+                                 float* aux, int B, int n, int iters, int rounds,
+                                 float rho_scale, float sigma, float alpha, float eps_abs,
+                                 float eps_rel, float acc_abs, float acc_rel, void* stream) {
   if (B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // d == nullptr selects the unscaled form
 #define CASE(NN)                                                                      \
   case NN:                                                                            \
-    return launch<NN>(P, q, lb, ub, x0, y0, rho0, z, y, aux, B, iters, rounds,        \
-                      rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs, acc_rel, s);
+    return d ? launch<NN, true>(P, q, lb, ub, x0, y0, rho0, d, z, y, aux, B, iters,   \
+                                rounds, rho_scale, sigma, alpha, eps_abs, eps_rel,     \
+                                acc_abs, acc_rel, s)                                   \
+             : launch<NN, false>(P, q, lb, ub, x0, y0, rho0, d, z, y, aux, B, iters,  \
+                                 rounds, rho_scale, sigma, alpha, eps_abs, eps_rel,    \
+                                 acc_abs, acc_rel, s);
   switch (n) {
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
     CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)

@@ -1,30 +1,43 @@
-"""Batched small box-QP solve: the wrapper of the CUDA kernel
-csrc/boxqp_small.cu, its plain PyTorch version, and the acceptance rule.
+"""Batched box-QP solves: the wrapper of the small-n CUDA kernel
+csrc/boxqp_small.cu and its plain PyTorch version, the large-n solve
+`boxqp_big` around the ADMM kernel of kernels/admm_big.py, and the
+acceptance rule.
 
-The kernel replaces mpc4quantum_tpu/ops/pallas_qp.py::_qp_kernel (`boxqp_pallas`
-and `boxqp_accept` there). On a CPU tensor the wrapper runs the plain
-version; on a CUDA tensor it launches the kernel or raises.
+`boxqp_small` replaces mpc4quantum_tpu/ops/pallas_qp.py::_qp_kernel
+(`boxqp_pallas` and `boxqp_accept` there), in its unscaled and its
+Jacobi-scaled form; `boxqp_big` is the host side of `boxqp_pallas_big`. On
+a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
+launch the kernels or raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..solvers.boxqp import BoxQPAux, BoxQPParams, accept_rule, solve_boxqp_fixed
+from ..solvers.boxqp import (BoxQPAux, BoxQPParams, accept_rule, jacobi_scale_boxqp,
+                             solve_boxqp_fixed)
 from . import _build
+from .admm_big import admm_big
 
 MAX_N = 16
+
+
+def _params(iters, rounds, rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs, acc_rel,
+            **kw) -> BoxQPParams:
+    return BoxQPParams(rho0=rho_scale, sigma=sigma, alpha=alpha, eps_abs=eps_abs,
+                       eps_rel=eps_rel, max_iter=iters, n_rounds=rounds,
+                       accept_abs=acc_abs, accept_rel=acc_rel, **kw)
 
 
 def boxqp_small_ref(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int,
                     rounds: int, rho_scale: float = 0.1, sigma: float = 1e-6,
                     alpha: float = 1.6, eps_abs: float = 1e-6, eps_rel: float = 1e-6,
-                    acc_abs: float = 1e-3, acc_rel: float = 1e-3):
-    """Plain version of the kernel: solvers/boxqp.solve_boxqp_fixed on any
-    device and dtype. :return: (z (B, n), y (B, n), BoxQPAux)."""
-    params = BoxQPParams(rho0=rho_scale, sigma=sigma, alpha=alpha, eps_abs=eps_abs,
-                         eps_rel=eps_rel, max_iter=iters, n_rounds=rounds,
-                         accept_abs=acc_abs, accept_rel=acc_rel)
+                    acc_abs: float = 1e-3, acc_rel: float = 1e-3, scale: bool = False):
+    """Plain version of the kernel: solvers/boxqp.solve_boxqp_fixed with the
+    Gauss-Jordan inverse, on any device and dtype.
+    :return: (z (B, n), y (B, n), BoxQPAux)."""
+    params = _params(iters, rounds, rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs,
+                     acc_rel, kinv="gj", scale=scale)
     return solve_boxqp_fixed(P, q, lb, ub, x0=x0, y0=y0, rho0=rho0, params=params)
 
 
@@ -36,38 +49,46 @@ def boxqp_small(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int, rounds
 
     :param P: (B, n, n), n <= 16; q, lb, ub: (B, n).
     :param x0: optional (B, n) warm start; y0: optional (B, n) dual warm
-        start (None = zeros); rho0: optional (B,) penalty warm start, lanes
-        <= 0 take the cold default rho_scale * mean(diag P).
+        start (None = zeros), unscaled; rho0: optional (B,) penalty warm
+        start in the solver's space, lanes <= 0 take the cold default
+        rho_scale * mean(diag P).
     :param iters, rounds: ADMM steps per round and rounds with a rho
         rebalance between them.
+    :param scale: Jacobi-equilibrate each QP (solvers/boxqp.jacobi_scale_boxqp)
+        before the solve; z and y come back unscaled and the statistics in
+        the original coordinates.
     :return: (z (B, n) box-feasible solution, y (B, n) final dual,
         BoxQPAux of (B,) residual statistics and the final rho).
     """
-    if scale:
-        raise NotImplementedError("the Jacobi-scaled box-QP kernel is not ported")
     kw = dict(iters=iters, rounds=rounds, rho_scale=rho_scale, sigma=sigma, alpha=alpha,
               eps_abs=eps_abs, eps_rel=eps_rel, acc_abs=acc_abs, acc_rel=acc_rel)
     if P.device.type == "cpu":
-        return boxqp_small_ref(P, q, lb, ub, x0, y0, rho0, **kw)
+        return boxqp_small_ref(P, q, lb, ub, x0, y0, rho0, scale=scale, **kw)
     if P.device.type != "cuda":
         raise ValueError(f"boxqp_small: unsupported device {P.device}")
     B, n, n2 = P.shape
     if n != n2 or not 1 <= n <= MAX_N:
         raise ValueError(f"boxqp_small: P must be (B, n, n) with n <= {MAX_N}, got {tuple(P.shape)}")
-
-    def soa(t, shape, name):
-        if t.device != P.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+    for t, name, shape in ((P, "P", (B, n, n)), (q, "q", (B, n)), (lb, "lb", (B, n)),
+                           (ub, "ub", (B, n)), (x0, "x0", (B, n)), (y0, "y0", (B, n)),
+                           (rho0, "rho0", (B,))):
+        if t is not None and (t.device != P.device or t.dtype != torch.float32
+                              or tuple(t.shape) != shape):
             raise ValueError(f"boxqp_small: {name} must be float32 {shape} on {P.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        return t.reshape(shape[0], -1).T.contiguous()
-
-    Ps = soa(0.5 * (P + P.transpose(1, 2)), (B, n, n), "P")
-    q_, lb_, ub_ = (soa(t, (B, n), name) for t, name in ((q, "q"), (lb, "lb"), (ub, "ub")))
+    P = 0.5 * (P + P.transpose(1, 2))
+    d = None
+    if scale:
+        # equilibrated outside the kernel, as boxqp_pallas does
+        P, q, lb, ub, x0, y0, d = jacobi_scale_boxqp(P, q, lb, ub, x0, y0)
+    soa = lambda t: t.reshape(B, -1).T.contiguous()
     zeros = torch.zeros((n, B), dtype=torch.float32, device=P.device)
-    x0_ = zeros if x0 is None else soa(x0, (B, n), "x0")
-    y0_ = zeros if y0 is None else soa(y0, (B, n), "y0")
+    x0_ = zeros if x0 is None else soa(x0)
+    y0_ = zeros if y0 is None else soa(y0)
     rho0_ = (torch.zeros(B, dtype=torch.float32, device=P.device) if rho0 is None
-             else soa(rho0, (B,), "rho0").reshape(B))
+             else rho0.contiguous())
+    Ps, q_, lb_, ub_ = soa(P), soa(q), soa(lb), soa(ub)
+    d_ = None if d is None else soa(d)
     z = torch.empty((n, B), dtype=torch.float32, device=P.device)
     y = torch.empty((n, B), dtype=torch.float32, device=P.device)
     aux = torch.empty((len(BoxQPAux._fields), B), dtype=torch.float32, device=P.device)
@@ -75,15 +96,39 @@ def boxqp_small(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int, rounds
     stream = torch.cuda.current_stream(P.device).cuda_stream
     rc = lib.mpc4q_boxqp_small(
         Ps.data_ptr(), q_.data_ptr(), lb_.data_ptr(), ub_.data_ptr(), x0_.data_ptr(),
-        y0_.data_ptr(), rho0_.data_ptr(), z.data_ptr(), y.data_ptr(), aux.data_ptr(),
-        B, n, int(iters), int(rounds), rho_scale, sigma, alpha, eps_abs, eps_rel,
-        acc_abs, acc_rel, stream)
+        y0_.data_ptr(), rho0_.data_ptr(), None if d_ is None else d_.data_ptr(),
+        z.data_ptr(), y.data_ptr(), aux.data_ptr(), B, n, int(iters), int(rounds),
+        rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs, acc_rel, stream)
     _build.check(rc, "boxqp_small")
     boxqp_small.launches += 1
-    return z.T, y.T, BoxQPAux(*aux.unbind(0))
+    z, y = z.T, y.T
+    if d is not None:
+        z, y = d * z, y / d
+    return z, y, BoxQPAux(*aux.unbind(0))
 
 
 boxqp_small.launches = 0
+
+
+def boxqp_big(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int, rounds: int,
+              rho_scale: float = 0.1, sigma: float = 1e-6, alpha: float = 1.6,
+              eps_abs: float = 1e-6, eps_rel: float = 1e-6, acc_abs: float = 1e-3,
+              acc_rel: float = 1e-3, scale: bool = False, kinv_method: str = "ns",
+              ns_iters: int = 30, kinv0=None, lqr_data=None):
+    """Solve B box QPs of any size up to admm_big.MAX_N: the host side of
+    `boxqp_pallas_big`, batched over lanes. Each round forms K = P +
+    (sigma + rho) I, inverts it in plain torch (`kinv_method` "gj" or "ns"
+    with `ns_iters`), runs `iters` ADMM steps in one `admm_big` launch, and
+    takes the residuals, the acceptance test and the rho rebalance.
+
+    Arguments and return value as `boxqp_small`; the returned rho stays in
+    the solver's space. `kinv0` and `lqr_data` (the reference's K-inverse
+    carry and Riccati inverse) are not ported and raise.
+    """
+    params = _params(iters, rounds, rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs,
+                     acc_rel, kinv=kinv_method, ns_iters=ns_iters, scale=scale)
+    return solve_boxqp_fixed(P, q, lb, ub, x0=x0, y0=y0, rho0=rho0, params=params,
+                             kinv0=kinv0, lqr_data=lqr_data, admm=admm_big)
 
 
 def boxqp_accept(aux: BoxQPAux, eps_abs: float, eps_rel: float,

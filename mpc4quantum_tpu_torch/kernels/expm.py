@@ -18,8 +18,14 @@ SIZES = (2, 3, 4)
 
 def expm_small_ref(A: torch.Tensor, taylor_k: int = 18, max_squarings: int = 12) -> torch.Tensor:
     """Plain version of the kernel: ops/expm.expm_taylor in the same form -
-    no scaling or squaring at max_squarings = 0 (the caller certifies
-    ||A||_1 <= 1), else per-matrix squarings up to max_squarings."""
+    no scaling or squaring at max_squarings = 0, else per-matrix squarings up
+    to max_squarings.
+
+    :raises ValueError: at max_squarings = 0 when some ||A||_1 > 1, which
+        breaks the caller's certificate (the kernel does not check it).
+    """
+    if max_squarings == 0 and bool((A.abs().sum(dim=-2).amax(dim=-1) > 1.0).any()):
+        raise ValueError("expm_small: max_squarings = 0 needs ||A||_1 <= 1 for every matrix")
     return expm_taylor(A, order=taylor_k, max_squarings=max_squarings,
                        fixed_squarings=0 if max_squarings == 0 else None)
 

@@ -1,16 +1,18 @@
 """Fleet MPC runner: the receding-horizon loop for a batch of lanes, with
-the whole fleet's box QPs solved by one kernel launch per SQP iteration and
-the plant propagators by one kernel launch per step (the main-path
-semantics of mpc4quantum_tpu/mpc/hostloop.py `HostLoopMPC.run` with
-qp_impl="pallas" and plant_impl="pallas").
+the whole fleet's box QPs solved by one kernel launch per SQP iteration
+(per rho round at n > 16) and the plant propagators by one kernel launch per
+step (the main-path semantics of mpc4quantum_tpu/mpc/hostloop.py
+`HostLoopMPC.run` with qp_impl="pallas" and plant_impl="pallas").
 
 Schedule per MPC step:
   - warm steps (step <= 1 with warm_start): `warm_sqp_iters[step]` line-
     searched SQP iterations, each a cold QP solve (y0 = 0, rho0 = 0);
   - steady steps: one single-shot SQP iteration whose QP starts from the
     previous solve's shifted dual and rho.
-One SQP iteration: linearize along each lane's guess, condense, one
-`boxqp_small` launch for the fleet, the acceptance rule, the exact rollout,
+One SQP iteration: linearize along each lane's guess, condense, the box-QP
+solve chosen by n = H * dim_u as the reference chooses it - one
+`boxqp_small` launch at n <= 16, else `boxqp_big` (a K-inverse and one
+`admm_big` launch per rho round) - the acceptance rule, the exact rollout,
 the guess update, and a freeze of lanes whose SQP already finished. The
 advance assembles H_b = H0_b + u_b H1_b, takes U_b = exp(-i dt H_b) with one
 `expm_small` launch and propagates rho' = U rho U^H.
@@ -24,7 +26,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..kernels.boxqp import boxqp_accept, boxqp_small
+from ..kernels.boxqp import MAX_N as SMALL_MAX_N, boxqp_accept, boxqp_big, boxqp_small
 from ..kernels.expm import expm_small
 from ..models.dmdc import DMDcModel
 from ..ops.bilinear import BilinearModel, model_along_traj
@@ -52,9 +54,6 @@ class FleetRunner:
             (benchfleet sizes it from a norm bound)."""
         if not warm_sqp_iters or any(int(v) < 1 for v in warm_sqp_iters):
             raise ValueError(f"warm_sqp_iters={warm_sqp_iters!r}: need >= 1 per warm step")
-        if config.horizon * config.dim_u > 16:
-            raise NotImplementedError(
-                "QPs with more than 16 variables need the large-n kernel, not ported yet")
         self.config = config
         self.sat = sat
         self.du = du
@@ -62,6 +61,7 @@ class FleetRunner:
         self.steady_qp_params = steady_qp_params or config.qp_params
         self.expm_taylor_k = expm_taylor_k
         self.expm_max_squarings = expm_max_squarings
+        self.qp_kernel = "small" if config.horizon * config.dim_u <= SMALL_MAX_N else "big"
 
     def _sqp_iter(self, s: SQPState, ctx: StepContext, bmodel: BilinearModel, Q_s, R_s,
                   qp: BoxQPParams, single_shot: bool) -> SQPState:
@@ -70,15 +70,19 @@ class FleetRunner:
         P, q, lb, ub, w, M = qp_data(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s,
                                      A_s, B_s, D_s, ctx.u_prev, self.sat, self.du)
         U_warm = s.Ug.transpose(1, 2).reshape(s.Ug.shape[0], -1)
+        kw = dict(iters=qp.max_iter, rounds=qp.n_rounds, rho_scale=qp.rho0, sigma=qp.sigma,
+                  alpha=qp.alpha, eps_abs=qp.eps_abs, eps_rel=qp.eps_rel,
+                  acc_abs=qp.accept_abs, acc_rel=qp.accept_rel, scale=qp.scale)
+        if self.qp_kernel == "small":
+            solve = boxqp_small
+        else:
+            solve = boxqp_big
+            kw.update(kinv_method=qp.kinv, ns_iters=qp.ns_iters)
         # carried duals seed single-shot (steady) solves only; warm-phase
-        # iterations re-linearize aggressively and run cold
-        z, y, aux = boxqp_small(P, q, lb, ub, x0=U_warm,
-                                y0=s.y if single_shot else None,
-                                rho0=s.rho if single_shot else None,
-                                iters=qp.max_iter, rounds=qp.n_rounds, rho_scale=qp.rho0,
-                                sigma=qp.sigma, alpha=qp.alpha, eps_abs=qp.eps_abs,
-                                eps_rel=qp.eps_rel, acc_abs=qp.accept_abs,
-                                acc_rel=qp.accept_rel)
+        # iterations re-linearize aggressively and run cold. y crosses the
+        # warm/steady seam unscaled, rho in the solver's space.
+        z, y, aux = solve(P, q, lb, ub, x0=U_warm, y0=s.y if single_shot else None,
+                          rho0=s.rho if single_shot else None, **kw)
         conv = boxqp_accept(aux, qp.eps_abs, qp.eps_rel, qp.accept_abs, qp.accept_rel)
         X_opt, U_opt, obj = qp_finish(w, M, z.to(P.dtype), ctx.X_ref, ctx.U_ref, Q_s, R_s)
         res = QPResult(X=X_opt, U=U_opt, obj=obj, converged=conv, y=y, rho=aux.rho)

@@ -1,8 +1,14 @@
 """Named scenario presets (counterpart of mpc4quantum_tpu/presets.py).
 
-Ported so far: `not_state`, the flagship fleet workload - an ideal-model
-qubit steered |0> -> |1> on a 1%-detuned plant, dt = 1, H = 10, 20 steps,
-sat = 2 pi 0.1, first-step slew 0.5 sat.
+Ported so far:
+  - `not_state`, the flagship fleet workload: an ideal-model qubit steered
+    |0> -> |1> on a 1%-detuned plant, dt = 1, H = 10, 20 steps,
+    sat = 2 pi 0.1, first-step slew 0.5 sat (QP n = 10);
+  - `not_state_freq`: the same qubit measured every 5th step, dt = 0.2,
+    H = 50, 100 steps, slew 0.1 sat (QP n = 50);
+  - `drag_state`: a 3-level transmon |0> -> |1> with a leakage-weighted
+    cost, X and Y drives, dt = 0.25, H = 16, 20 steps, sat = 2 pi 0.25
+    (QP n = 32).
 """
 
 from __future__ import annotations
@@ -63,12 +69,9 @@ def _model_operator(H_list, dim_s, dt, order) -> torch.Tensor:
     return discretize_homogeneous(A_cts, dt, order)
 
 
-def not_state(order: int = 2, detune: float = 0.99, device=None,
-              dtype: torch.dtype = torch.float64) -> Scenario:
-    """Ideal qubit |0> -> |1> on a 1%-detuned plant: dt = 1, H = 10,
-    n_steps = 20, sat = 2 pi 0.1, du = 0.5 sat."""
-    dt, H, n_steps = 1.0, 10, 20
-    sat = 2 * np.pi * 0.1
+def _qubit_not(detune: float, dt: float, order: int):
+    """Ideal-model qubit and its detuned plant, started at Rx(1e-4)|0><0|
+    and steered to |1><1|: (A, plant, rho0, target, Q)."""
     wq = 2 * np.pi * 4
     qubit = systems.RWAQubit(wQ=wq, wD=wq, wR=wq)
     A = _model_operator(qubit.H_list, 2, dt, order)
@@ -80,13 +83,74 @@ def not_state(order: int = 2, detune: float = 0.99, device=None,
     rho0 = (Rx @ np.diag([1.0, 0.0]).astype(complex) @ Rx.conj().T).flatten()
     targ = np.diag([0.0, 1.0]).astype(complex).flatten()
     Q = np.diag([1.0, 0, 0, 1]).astype(complex)
+    return A, plant, rho0, targ, Q
+
+
+def _targets(targ, dim_u, n_steps, H):
+    return np.tile(targ[:, None], (1, n_steps + H + 1)), np.zeros((dim_u, n_steps + H))
+
+
+def not_state(order: int = 2, detune: float = 0.99, device=None,
+              dtype: torch.dtype = torch.float64) -> Scenario:
+    """Ideal qubit |0> -> |1> on a 1%-detuned plant: dt = 1, H = 10,
+    n_steps = 20, sat = 2 pi 0.1, du = 0.5 sat."""
+    dt, H, n_steps = 1.0, 10, 20
+    sat = 2 * np.pi * 0.1
+    A, plant, rho0, targ, Q = _qubit_not(detune, dt, order)
+    X_targ, U_targ = _targets(targ, 1, n_steps, H)
     return scenario_from_arrays(
-        "not_state", x0=rho0, A=A.numpy(),
-        X_targ=np.tile(targ[:, None], (1, n_steps + H + 1)),
-        U_targ=np.zeros((1, n_steps + H)), Q=Q, R=np.eye(1) * (1e-2 / sat ** 2), Qf=Q,
-        sat=sat, du=0.5 * sat, target_state=targ,
+        "not_state", x0=rho0, A=A.numpy(), X_targ=X_targ, U_targ=U_targ, Q=Q,
+        R=np.eye(1) * (1e-2 / sat ** 2), Qf=Q, sat=sat, du=0.5 * sat, target_state=targ,
         config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=1, order=order),
         plant=plant, device=device, dtype=dtype)
 
 
-PRESETS = {"not_state": not_state}
+def not_state_freq(order: int = 1, detune: float = 0.99, device=None,
+                   dtype: torch.dtype = torch.float64) -> Scenario:
+    """The NOT-state qubit measured every 5th step (measure_freq = 5):
+    dt = 0.2, H = 50, n_steps = 100, sat = 2 pi 0.1, du = 0.1 sat."""
+    dt, H, n_steps = 0.2, 50, 100
+    sat = 2 * np.pi * 0.1
+    A, plant, rho0, targ, Q = _qubit_not(detune, dt, order)
+    X_targ, U_targ = _targets(targ, 1, n_steps, H)
+    return scenario_from_arrays(
+        "not_state_freq", x0=rho0, A=A.numpy(), X_targ=X_targ, U_targ=U_targ, Q=Q,
+        R=np.eye(1) * 1e-2, Qf=Q, sat=sat, du=0.1 * sat, target_state=targ,
+        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=1, order=order,
+                         measure_freq=5),
+        plant=plant, device=device, dtype=dtype)
+
+
+def drag_state(order: int = 1, device=None, dtype: torch.dtype = torch.float64) -> Scenario:
+    """3-level transmon |0> -> |1> with a leakage-penalized cost, which
+    recovers DRAG-like pulses: dt = 0.25, H = 16, n_steps = 20,
+    sat = 2 pi 0.25, anharmonicity -2 pi 0.1 / dt, du = 0.5 sat."""
+    dt, H, n_steps = 0.25, 16, 20
+    sat = 2 * np.pi * 0.25
+    transmon = systems.RWATransmon(alpha=-2 * np.pi * 0.1 / dt)
+    A = _model_operator(transmon.H_list, 3, dt, order)
+    plant = QuantumPlant(H0=torch.as_tensor(transmon.H_list[0]),
+                         H1s=torch.as_tensor(np.stack(transmon.H_list[1:])),
+                         sigma=torch.zeros((), dtype=torch.float64))
+    # the qubit block of rho0 is perturbed, as the flagship's is
+    Rx = rx_rotation(1e-4)
+    rho0 = np.zeros((3, 3), dtype=complex)
+    rho0[0, 0] = 1.0
+    rho0[:2, :2] = Rx.conj().T @ rho0[:2, :2] @ Rx
+    targ = np.zeros((3, 3), dtype=complex)
+    targ[1, 1] = 1.0
+    targ = targ.flatten()
+    # populations of |0> and |1> weighted; |2> is free but targeted at 0
+    Qd = np.zeros(9)
+    Qd[0] = Qd[4] = 1.0
+    Q = np.diag(Qd).astype(complex)
+    X_targ, U_targ = _targets(targ, 2, n_steps, H)
+    return scenario_from_arrays(
+        "drag_state", x0=rho0.flatten(), A=A.numpy(), X_targ=X_targ, U_targ=U_targ, Q=Q,
+        R=np.eye(2) * (1e-3 / sat ** 2), Qf=Q, sat=sat, du=0.5 * sat, target_state=targ,
+        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=2, order=order),
+        plant=plant, device=device, dtype=dtype)
+
+
+PRESETS = {"not_state": not_state, "not_state_freq": not_state_freq,
+           "drag_state": drag_state}

@@ -1,8 +1,9 @@
 """Physical system definitions used by the ported presets, as plain numpy
 arrays (counterpart of mpc4quantum_tpu/systems.py).
 
-Only the pieces the `not_state` preset needs are here: the Pauli matrices,
-the |i><j| measurement basis, the x rotation and the RWA qubit.
+Only the pieces the ported presets need are here: the Pauli matrices, the
+ladder operators, the |i><j| measurement basis, the x rotation, the RWA
+qubit and the 3-level RWA transmon.
 """
 
 from __future__ import annotations
@@ -15,6 +16,20 @@ SX = np.array([[0, 1], [1, 0]], dtype=complex)
 SY = np.array([[0, -1j], [1j, 0]], dtype=complex)
 SZ = np.array([[1, 0], [0, -1]], dtype=complex)
 I2 = np.eye(2, dtype=complex)
+
+
+def destroy(n: int) -> np.ndarray:
+    return np.diag(np.sqrt(np.arange(1, n)), 1).astype(complex)
+
+
+def create(n: int) -> np.ndarray:
+    return destroy(n).conj().T
+
+
+def basis_proj(n: int, k: int) -> np.ndarray:
+    e = np.zeros((n, n), dtype=complex)
+    e[k, k] = 1.0
+    return e
 
 
 def matrix_units(d: int) -> list[np.ndarray]:
@@ -50,3 +65,20 @@ class RWAQubit:
     @property
     def H_list(self):
         return [0.5 * (self.wQ - self.wR) * SZ, 0.5 * SX]
+
+
+@dataclasses.dataclass(frozen=True)
+class RWATransmon:
+    """3-level transmon driven on resonance: H0 = alpha |2><2|, X and Y
+    quadrature drives."""
+
+    alpha: float
+
+    dim_s = 3
+    dim_u = 2
+
+    @property
+    def H_list(self):
+        HX = 0.5 * (create(3) + destroy(3))
+        HY = 0.5j * (create(3) - destroy(3))
+        return [self.alpha * basis_proj(3, 2), HX, HY]

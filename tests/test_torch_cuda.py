@@ -11,8 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from mpc4quantum_tpu_torch.kernels.boxqp import boxqp_accept, boxqp_small, boxqp_small_ref
+from mpc4quantum_tpu_torch.kernels.admm_big import MAX_N as ADMM_MAX_N, admm_big, admm_iters_ref
+from mpc4quantum_tpu_torch.kernels.boxqp import (boxqp_accept, boxqp_big, boxqp_small,
+                                                 boxqp_small_ref)
 from mpc4quantum_tpu_torch.kernels.expm import expm_small, expm_small_ref
+from mpc4quantum_tpu_torch.solvers.boxqp import BoxQPParams, solve_boxqp_fixed
+from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +27,19 @@ def cuda():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def qp_batch(B, n, seed, device, spread=0.0):
+    """SPD box QPs in float32 on `device`; spread > 0 spreads the diagonal
+    over orders of magnitude, where Jacobi scaling matters."""
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(B, n, n))
+    P = np.einsum("bij,bkj->bik", G, G) / max(1, n // 10) + 0.5 * np.eye(n)
+    d = np.exp(rng.normal(scale=spread, size=(B, n)))
+    P = P * d[:, :, None] * d[:, None, :]
+    q = rng.normal(size=(B, n)) * 2 * d
+    lb, ub = -np.abs(rng.normal(size=(B, n))), np.abs(rng.normal(size=(B, n)))
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in (P, q, lb, ub)]
 
 
 @pytest.mark.parametrize("n", [1, 4, 10, 15, 16])
@@ -41,6 +58,55 @@ def test_boxqp_kernel_matches_plain(cuda, n):
     torch.testing.assert_close(zk, zp, rtol=0, atol=1e-3)
     torch.testing.assert_close(yk, yp, rtol=0, atol=1e-3 * max(1.0, float(yp.abs().max())))
     assert bool((boxqp_accept(ak, 1e-6, 1e-6, 1e-3, 1e-3) == boxqp_accept(ap, 1e-6, 1e-6, 1e-3, 1e-3)).all())
+
+
+@pytest.mark.parametrize("n", [4, 10, 16])
+def test_boxqp_kernel_scaled_matches_plain(cuda, n):
+    B = 300
+    P, q, lb, ub = qp_batch(B, n, seed=n, device=cuda, spread=1.0)
+    zk, yk, ak = boxqp_small(P, q, lb, ub, iters=10, rounds=2, scale=True)
+    zp, yp, ap = boxqp_small_ref(P, q, lb, ub, iters=10, rounds=2, scale=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(zk, zp, rtol=0, atol=1e-3 * max(1.0, float(zp.abs().max())))
+    torch.testing.assert_close(yk, yp, rtol=0, atol=1e-3 * max(1.0, float(yp.abs().max())))
+    torch.testing.assert_close(ak.prim, ap.prim, rtol=1e-2, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [17, 32, 50, 150])
+def test_admm_kernel_matches_plain(cuda, n):
+    """One block per lane, n rows rounded up to whole warps; n = 150 takes
+    the path above 48 KB of shared memory."""
+    B = 300
+    P, q, lb, ub = qp_batch(B, n, seed=n, device=cuda)
+    rng = np.random.default_rng(n + 1)
+    rho = torch.tensor(rng.uniform(0.05, 2.0, B), dtype=torch.float32, device=cuda)
+    kinv = gj_inverse(P + (1e-6 + rho)[:, None, None] * torch.eye(n, device=cuda))
+    x, z, y = (torch.tensor(rng.normal(size=(B, n)) * s, dtype=torch.float32, device=cuda)
+               for s in (0.3, 0.3, 0.5))
+    before = admm_big.launches
+    out_k = admm_big(kinv, q, lb, ub, rho, x, z, y, iters=50, sigma=1e-6, alpha=1.6)
+    out_p = admm_iters_ref(kinv, q, lb, ub, rho, x, z, y, iters=50, sigma=1e-6, alpha=1.6)
+    torch.cuda.synchronize()
+    assert admm_big.launches == before + 1
+    for k, p in zip(out_k, out_p):
+        torch.testing.assert_close(k, p, rtol=0, atol=1e-4 * max(1.0, float(p.abs().max())))
+
+
+@pytest.mark.parametrize("kinv", ["gj", "ns"])
+def test_boxqp_big_matches_plain_solver(cuda, kinv):
+    B, n = 300, 32
+    P, q, lb, ub = qp_batch(B, n, seed=7, device=cuda, spread=1.0)
+    kw = dict(iters=40, rounds=2, scale=True, kinv_method=kinv, ns_iters=20)
+    zk, yk, ak = boxqp_big(P, q, lb, ub, **kw)
+    zp, yp, ap = solve_boxqp_fixed(P, q, lb, ub, params=BoxQPParams(
+        max_iter=40, n_rounds=2, scale=True, kinv=kinv, ns_iters=20))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(zk, zp, rtol=0, atol=1e-3 * max(1.0, float(zp.abs().max())))
+    # each of the 2 rho rebalances may move rho by 2e-2 relative where prim
+    # is resolved in float32; below 1e-5 it is rounding (chip_smoke.py)
+    resolved = ap.prim >= 1e-5 * torch.clamp(torch.maximum(ap.xmax, ap.zmax), min=1.0)
+    assert bool(resolved.any())
+    torch.testing.assert_close(ak.rho[resolved], ap.rho[resolved], rtol=4e-2, atol=0)
 
 
 @pytest.mark.parametrize("d", [2, 3, 4])
@@ -67,3 +133,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         boxqp_small(P, v, v, v, iters=1, rounds=1)
     with pytest.raises(ValueError, match="float32"):
         boxqp_small(P[:, :4, :4].double(), v[:, :4], v[:, :4], v[:, :4], iters=1, rounds=1)
+    n = ADMM_MAX_N + 1
+    K = torch.eye(n, device=cuda).expand(2, n, n).contiguous()
+    w, r = torch.zeros(2, n, device=cuda), torch.ones(2, device=cuda)
+    with pytest.raises(ValueError, match=f"n <= {ADMM_MAX_N}"):
+        admm_big(K, w, w, w, r, w, w, w, iters=1, sigma=1e-6, alpha=1.6)
+    with pytest.raises(ValueError, match="contiguous"):
+        admm_big(P.transpose(1, 2), v, v, v, r, v, v, v, iters=1, sigma=1e-6, alpha=1.6)

@@ -2,11 +2,18 @@
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
 and chip_smoke.py hold them against these plain versions there). Here:
-  - boxqp_small_ref against the vmapped JAX solve_boxqp_fixed with the
-    Gauss-Jordan K-inverse (kinv="gj"), the documented iterate-for-iterate
-    mirror of the Pallas QP kernel, in float64 at tolerance 1e-10;
+  - boxqp_small_ref, unscaled and Jacobi-scaled, against the vmapped JAX
+    solve_boxqp_fixed with the Gauss-Jordan K-inverse (kinv="gj"), the
+    documented iterate-for-iterate mirror of the Pallas QP kernel, in float64
+    at tolerance 1e-10; the scaled form also against the Pallas kernel in
+    interpret mode, in float32;
+  - admm_iters_ref against the large-n Pallas ADMM kernel in interpret mode,
+    in float32;
+  - boxqp_big, ns_inverse and jacobi_scale_boxqp against their JAX
+    counterparts in float64;
   - expm_small_ref against the Pallas expm kernel run in interpret mode, in
-    complex128 at tolerance 1e-10 relative to the largest entry;
+    complex128 at tolerance 1e-10 relative to the largest entry, and its
+    norm guard at max_squarings = 0;
   - the wrappers take the plain version on CPU tensors and count no launch.
 """
 
@@ -17,11 +24,17 @@ import jax
 import jax.numpy as jnp
 
 from mpc4quantum_tpu.ops.pallas_expm import expm_pallas
+from mpc4quantum_tpu.ops.pallas_qp import _admm_iters_lanes, boxqp_pallas
 from mpc4quantum_tpu.solvers.boxqp import BoxQPParams as JBoxQPParams, solve_boxqp_fixed
+from mpc4quantum_tpu.solvers.boxqp import jacobi_scale_boxqp as jax_jacobi_scale
+from mpc4quantum_tpu.solvers.boxqp import ns_inverse as jax_ns_inverse
 
 from mpc4quantum_tpu_torch.kernels import _build
-from mpc4quantum_tpu_torch.kernels.boxqp import boxqp_accept, boxqp_small, boxqp_small_ref
+from mpc4quantum_tpu_torch.kernels.admm_big import admm_big, admm_iters_ref
+from mpc4quantum_tpu_torch.kernels.boxqp import (boxqp_accept, boxqp_big, boxqp_small,
+                                                 boxqp_small_ref)
 from mpc4quantum_tpu_torch.kernels.expm import expm_small, expm_small_ref
+from mpc4quantum_tpu_torch.solvers.boxqp import jacobi_scale_boxqp, ns_inverse
 
 TOL = 1e-10
 
@@ -37,16 +50,58 @@ def make_batch(B, n, seed):
     return P, q, lb, ub
 
 
-# (iters, rounds, acceptance, warm start): the flagship's cold warm-phase
-# form and its dual-warm-started steady form
-FORMS = {"cold_3x12": (12, 3, 1e-3, False), "warm_2x10": (10, 2, 4e-3, True)}
+def spread_batch(B, n, seed, spread=1.0):
+    """SPD box QPs whose diagonal spans orders of magnitude (exp(N(0,
+    spread^2)) row weights), where Jacobi scaling changes the iterates."""
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(B, n, n))
+    P = np.einsum("bij,bkj->bik", G, G) / n + 0.5 * np.eye(n)
+    d = np.exp(rng.normal(scale=spread, size=(B, n)))
+    P = P * d[:, :, None] * d[:, None, :]
+    q = rng.normal(size=(B, n)) * d
+    lb = -np.abs(rng.normal(size=(B, n)))
+    ub = np.abs(rng.normal(size=(B, n)))
+    return P, q, lb, ub
+
+
+def warm_start(B, n, seed):
+    """x0, y0 and a carried rho0 whose lane 0 keeps the cold sentinel 0."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, n)) * 0.3, rng.normal(size=(B, n)) * 0.5,
+            np.concatenate([[0.0], rng.uniform(0.5, 5.0, B - 1)]))
+
+
+def jax_solve(P, q, lb, ub, x0, y0, rho0, params):
+    """Vmapped JAX solve_boxqp_fixed; None warm starts become the cold
+    defaults (zeros)."""
+    B, n = q.shape
+    return jax.vmap(lambda P, q, lb, ub, x0, y0, r0: solve_boxqp_fixed(
+        P, q, lb, ub, x0=x0, params=params, y0=y0, rho0=r0))(
+        *map(jnp.asarray, (P, q, lb, ub, np.zeros((B, n)) if x0 is None else x0,
+                           np.zeros((B, n)) if y0 is None else y0,
+                           np.zeros(B) if rho0 is None else rho0)))
+
+
+def assert_matches_jax(z, y, aux, ref, acc, tol):
+    for ours, theirs in ((z, ref.x), (y, ref.y), (aux.rho, ref.rho),
+                         (aux.prim, ref.prim_res), (aux.dual, ref.dual_res)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=0, atol=tol)
+    conv = boxqp_accept(aux, 1e-6, 1e-6, acc, acc)
+    np.testing.assert_array_equal(conv.numpy(), np.asarray(ref.converged))
+
+
+# (iters, rounds, acceptance, warm start, scale): the flagship's cold
+# warm-phase form, its dual-warm-started steady form, and that form
+# Jacobi-scaled
+FORMS = {"cold_3x12": (12, 3, 1e-3, False, False), "warm_2x10": (10, 2, 4e-3, True, False),
+         "warm_2x10_scaled": (10, 2, 4e-3, True, True)}
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
 def test_boxqp_ref_matches_jax_solve_boxqp_fixed(form):
-    iters, rounds, acc, warm = FORMS[form]
+    iters, rounds, acc, warm, scale = FORMS[form]
     B, n = 8, 10
-    P, q, lb, ub = make_batch(B, n, seed=1)
+    P, q, lb, ub = spread_batch(B, n, seed=1) if scale else make_batch(B, n, seed=1)
     rng = np.random.default_rng(7)
     x0 = rng.normal(size=(B, n)) * 0.3
     y0 = rng.normal(size=(B, n)) * 0.5 if warm else None
@@ -54,22 +109,117 @@ def test_boxqp_ref_matches_jax_solve_boxqp_fixed(form):
     rho0 = np.concatenate([[0.0], rng.uniform(0.5, 5.0, B - 1)]) if warm else None
 
     params = JBoxQPParams(max_iter=iters, n_rounds=rounds, accept_abs=acc, accept_rel=acc,
-                          kinv="gj", unroll=False)
-    ref = jax.vmap(lambda P, q, lb, ub, x0, y0, r0: solve_boxqp_fixed(
-        P, q, lb, ub, x0=x0, params=params, y0=y0, rho0=r0))(
-        *map(jnp.asarray, (P, q, lb, ub, x0,
-                           np.zeros((B, n)) if y0 is None else y0,
-                           np.zeros(B) if rho0 is None else rho0)))
+                          kinv="gj", unroll=False, scale=scale)
+    ref = jax_solve(P, q, lb, ub, x0, y0, rho0, params)
     t = lambda a: None if a is None else torch.tensor(a)
     z, y, aux = boxqp_small_ref(t(P), t(q), t(lb), t(ub), t(x0), t(y0), t(rho0),
-                                iters=iters, rounds=rounds, acc_abs=acc, acc_rel=acc)
-    conv = boxqp_accept(aux, 1e-6, 1e-6, acc, acc)
-    for ours, theirs in ((z, ref.x), (y, ref.y), (aux.rho, ref.rho),
-                         (aux.prim, ref.prim_res), (aux.dual, ref.dual_res)):
-        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=0, atol=TOL)
-    np.testing.assert_array_equal(conv.numpy(), np.asarray(ref.converged))
-    # the comparison is not vacuous: box constraints bind on some lanes
-    assert bool(((z == t(lb)) | (z == t(ub))).any())
+                                iters=iters, rounds=rounds, acc_abs=acc, acc_rel=acc,
+                                scale=scale)
+    assert_matches_jax(z, y, aux, ref, acc, TOL)
+    # the comparison is not vacuous: box constraints bind on some lanes (the
+    # scaled form unscales z, so a bound holds there to rounding)
+    assert bool((((z - t(lb)).abs() < 1e-12) | ((z - t(ub)).abs() < 1e-12)).any())
+
+
+def test_boxqp_small_ref_scaled_matches_pallas_interpret():
+    """The scaled form against the Pallas kernel itself, in float32 on both
+    sides: 2e-5 on z and the primal residual, 2e-4 on y and the dual one
+    (the JAX package's own tolerances for the kernel against its mirror;
+    the sums run in different orders). A tiny budget bounds the unrolled
+    kernel's interpret-mode compile."""
+    B, n, iters, rounds = 8, 4, 4, 2
+    P, q, lb, ub = (a.astype(np.float32) for a in spread_batch(B, n, seed=5))
+    x0, y0, rho0 = (a.astype(np.float32) for a in warm_start(B, n, seed=6))
+    zk, aux_k = boxqp_pallas(*map(jnp.asarray, (P, q, lb, ub)), x0=jnp.asarray(x0),
+                             y0=jnp.asarray(y0), rho0=jnp.asarray(rho0), iters=iters,
+                             rounds=rounds, interpret=True, return_aux=True, scale=True,
+                             tile_b=128, sublanes=1)
+    t = torch.tensor
+    z, y, aux = boxqp_small_ref(t(P), t(q), t(lb), t(ub), t(x0), t(y0), t(rho0),
+                                iters=iters, rounds=rounds, scale=True)
+    for ours, theirs, tol in ((z, zk, 2e-5), (y, aux_k.y, 2e-4), (aux.prim, aux_k.prim, 2e-5),
+                              (aux.dual, aux_k.dual, 2e-4)):
+        scale = max(1.0, float(np.abs(np.asarray(theirs)).max()))
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=0, atol=tol * scale)
+    np.testing.assert_allclose(aux.rho.numpy(), np.asarray(aux_k.rho), rtol=1e-3)
+
+
+@pytest.mark.parametrize("n", [32, 50])
+def test_admm_iters_ref_matches_pallas_interpret(n):
+    """The large-n ADMM kernel's plain version against the Pallas kernel
+    itself, float32 on both sides, within 1e-5 relative to max(1, |ref|):
+    the row sums run in different orders. The kernel wants lanes last and
+    padded to 128 lanes; the pad lanes are set as boxqp_pallas_big sets
+    them (identity inverse, q = 0, box [-1, 1], zero iterates)."""
+    B, Bp, iters, sigma, alpha = 8, 128, 50, 1e-6, 1.6
+    P, q, lb, ub = make_batch(B, n, seed=n)
+    P = P / n
+    rng = np.random.default_rng(n + 1)
+    rho = rng.uniform(0.05, 2.0, B)
+    kinv = np.linalg.inv(P + (sigma + rho)[:, None, None] * np.eye(n))
+    x, z, y = (rng.normal(size=(B, n)) * s for s in (0.3, 0.3, 0.5))
+    f32 = lambda a: np.asarray(a, np.float32)
+    pad = lambda a, fill: np.concatenate([a, np.full((Bp - B,) + a.shape[1:], fill)])
+    kinv_p = np.concatenate([kinv, np.broadcast_to(np.eye(n), (Bp - B, n, n))])
+    lanes = lambda a, fill: jnp.asarray(f32(pad(a, fill)).T)
+    ref = _admm_iters_lanes(jnp.asarray(f32(kinv_p)), lanes(q, 0.0), lanes(lb, -1.0),
+                            lanes(ub, 1.0), jnp.asarray(f32(pad(rho, 0.1))[None, :]),
+                            lanes(x, 0.0), lanes(z, 0.0), lanes(y, 0.0), iters=iters,
+                            sigma=sigma, alpha=alpha, interpret=True)
+    t = lambda a: torch.tensor(f32(a))
+    ours = admm_iters_ref(t(kinv), t(q), t(lb), t(ub), t(rho), t(x), t(z), t(y),
+                          iters=iters, sigma=sigma, alpha=alpha)
+    for o, r in zip(ours, ref):
+        r = np.asarray(r)[:, :B].T
+        np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=1e-5 * max(1.0, np.abs(r).max()))
+    # not vacuous: the box binds and the iterates moved
+    assert bool(((ours[1] == t(lb)) | (ours[1] == t(ub))).any())
+    assert float((ours[0] - t(x)).abs().max()) > 0.1
+
+
+def test_ns_inverse_matches_jax():
+    rng = np.random.default_rng(3)
+    B, n = 4, 24
+    G = rng.normal(size=(B, n, n))
+    K = np.einsum("bij,bkj->bik", G, G) / n + 0.3 * np.eye(n)
+    ours = ns_inverse(torch.tensor(K), iters=20).numpy()
+    np.testing.assert_allclose(ours, np.asarray(jax_ns_inverse(jnp.asarray(K), iters=20)),
+                               rtol=0, atol=1e-12)
+    # and it is an inverse at that budget
+    np.testing.assert_allclose(ours @ K, np.broadcast_to(np.eye(n), K.shape), atol=1e-8)
+
+
+def test_jacobi_scale_matches_jax():
+    P, q, lb, ub = spread_batch(4, 12, seed=4)
+    x0, y0, _ = warm_start(4, 12, seed=5)
+    ours = jacobi_scale_boxqp(*map(torch.tensor, (P, q, lb, ub, x0, y0)))
+    theirs = jax_jacobi_scale(*map(jnp.asarray, (P, q, lb, ub, x0, y0)))
+    for o, t in zip(ours, theirs):
+        np.testing.assert_allclose(o.numpy(), np.asarray(t), rtol=1e-14, atol=0)
+    np.testing.assert_allclose(torch.diagonal(ours[0], dim1=1, dim2=2).numpy(), 1.0, rtol=1e-14)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("scale", [False, True], ids=["unscaled", "scaled"])
+@pytest.mark.parametrize("kinv", ["gj", "ns"])
+def test_boxqp_big_matches_jax_solve_boxqp_fixed(kinv, scale, warm):
+    """boxqp_big (the host side of the large-n kernel, with admm_big's plain
+    version on the CPU) against the vmapped JAX solve_boxqp_fixed in float64
+    at 1e-10, both inverse forms, scaled and not, cold and warm-started."""
+    B, n, iters, rounds, acc = 6, 24, 30, 2, 4e-3
+    P, q, lb, ub = spread_batch(B, n, seed=11)
+    x0, y0, rho0 = warm_start(B, n, seed=12) if warm else (None, None, None)
+    params = JBoxQPParams(max_iter=iters, n_rounds=rounds, accept_abs=acc, accept_rel=acc,
+                          kinv=kinv, ns_iters=30, unroll=False, scale=scale)
+    ref = jax_solve(P, q, lb, ub, x0, y0, rho0, params)
+    t = lambda a: None if a is None else torch.tensor(a)
+    admm_big.launches = 0
+    z, y, aux = boxqp_big(t(P), t(q), t(lb), t(ub), t(x0), t(y0), t(rho0), iters=iters,
+                          rounds=rounds, acc_abs=acc, acc_rel=acc, scale=scale,
+                          kinv_method=kinv, ns_iters=30)
+    assert_matches_jax(z, y, aux, ref, acc, TOL)
+    assert admm_big.launches == 0
+    assert bool((((z - t(lb)).abs() < 1e-12) | ((z - t(ub)).abs() < 1e-12)).any())
 
 
 @pytest.mark.parametrize("taylor_k,max_squarings,norm_lo,norm_hi", [
@@ -94,25 +244,56 @@ def test_expm_ref_matches_pallas_interpret(taylor_k, max_squarings, norm_lo, nor
 
 
 def test_wrappers_take_the_plain_version_on_cpu():
-    boxqp_small.launches = expm_small.launches = 0
+    boxqp_small.launches = expm_small.launches = admm_big.launches = 0
     P, q, lb, ub = (torch.tensor(a) for a in make_batch(4, 6, seed=2))
-    kw = dict(iters=5, rounds=2)
-    for a, b in zip(boxqp_small(P, q, lb, ub, **kw), boxqp_small_ref(P, q, lb, ub, **kw)):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for scale in (False, True):
+        kw = dict(iters=5, rounds=2, scale=scale)
+        for a, b in zip(boxqp_small(P, q, lb, ub, **kw), boxqp_small_ref(P, q, lb, ub, **kw)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
     A = torch.randn(5, 2, 2, dtype=torch.complex128, generator=torch.Generator().manual_seed(0))
+    A = A * (0.5 / A.abs().sum(dim=-2).amax())
     torch.testing.assert_close(expm_small(A, 12, 0), expm_small_ref(A, 12, 0), rtol=0, atol=0)
-    assert boxqp_small.launches == 0 and expm_small.launches == 0
+    kinv = torch.linalg.inv(P + torch.eye(6))
+    args = (kinv, q, lb, ub, torch.ones(4), q, q, q)
+    for a, b in zip(admm_big(*args, iters=3, sigma=1e-6, alpha=1.6),
+                    admm_iters_ref(*args, iters=3, sigma=1e-6, alpha=1.6)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    boxqp_big(P, q, lb, ub, iters=5, rounds=2, kinv_method="gj")
+    assert boxqp_small.launches == 0 and expm_small.launches == 0 and admm_big.launches == 0
 
 
 def test_wrappers_raise_instead_of_falling_back():
     P, q, lb, ub = (torch.tensor(a) for a in make_batch(2, 4, seed=3))
-    with pytest.raises(NotImplementedError, match="Jacobi-scaled"):
-        boxqp_small(P, q, lb, ub, iters=2, rounds=1, scale=True)
     meta = lambda t: t.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         boxqp_small(meta(P), meta(q), meta(lb), meta(ub), iters=2, rounds=1)
     with pytest.raises(ValueError, match="unsupported device"):
         expm_small(torch.zeros(2, 2, 2, dtype=torch.complex64, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        admm_big(meta(P), *(meta(t) for t in (q, lb, ub, q[:, 0], q, q, q)), iters=1,
+                 sigma=1e-6, alpha=1.6)
+    # what is not ported raises, naming it
+    with pytest.raises(NotImplementedError, match="kinv0"):
+        boxqp_big(P, q, lb, ub, iters=2, rounds=1, kinv0=P)
+    with pytest.raises(NotImplementedError, match="riccati"):
+        boxqp_big(P, q, lb, ub, iters=2, rounds=1, kinv_method="riccati")
+    with pytest.raises(NotImplementedError, match="warm-started Newton-Schulz"):
+        ns_inverse(P, iters=2, X0=P)
+
+
+def test_expm_norm_guard_at_zero_squarings():
+    """(12, 0) is the certified form: ||A||_1 <= 1 for every matrix. A
+    matrix past it would come back silently non-unitary, so the plain
+    version refuses it; the any-norm form takes it."""
+    rng = np.random.default_rng(2)
+    G = rng.normal(size=(3, 2, 2)) + 1j * rng.normal(size=(3, 2, 2))
+    A = -0.5j * (G + np.conj(np.swapaxes(G, 1, 2)))
+    A = torch.tensor(A * (3.0 / np.abs(A).sum(axis=1).max(axis=1))[:, None, None])
+    with pytest.raises(ValueError, match="max_squarings = 0"):
+        expm_small(A, taylor_k=12, max_squarings=0)
+    E = expm_small(A, taylor_k=18, max_squarings=12)
+    eye = torch.eye(2, dtype=E.dtype).expand_as(E)
+    torch.testing.assert_close(E @ E.conj().transpose(1, 2), eye, rtol=0, atol=1e-12)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -6,36 +6,52 @@ JAX object.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .mpc.driver import MPCConfig
+from .plants.base import Plant
+from .plants.lindblad import LindbladPlant
 from .plants.quantum import QuantumPlant
+from .plants.synthesis import SynthesisPlant
 from .presets import Scenario, scenario_from_arrays
 from .solvers.boxqp import BoxQPParams
 
+PLANT_KINDS = (QuantumPlant, SynthesisPlant, LindbladPlant)
 
-def _plant(H0, H1s, sigma) -> QuantumPlant:
-    return QuantumPlant(H0=torch.tensor(np.asarray(H0, complex)),
-                        H1s=torch.tensor(np.asarray(H1s, complex)),
-                        sigma=torch.tensor(np.asarray(sigma, float)))
+
+def plant_from_numpy(fields: dict) -> Plant:
+    """The plant kind whose field names are exactly the keys of `fields`
+    (H0, H1s, sigma: quantum; H0, H1s: synthesis; AH0, AD, A1s, sigma:
+    Lindblad), in float64 / complex128 on the CPU."""
+    for kind in PLANT_KINDS:
+        names = [f.name for f in dataclasses.fields(kind)]
+        if set(names) == set(fields):
+            return kind(**{k: torch.tensor(np.asarray(fields[k], complex if k != "sigma" else float))
+                           for k in names})
+    raise ValueError(f"no plant kind has the fields {sorted(fields)}")
 
 
 def scenario_from_numpy(name: str, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du,
-                        target_state, config: dict, plant, plants, device=None,
-                        dtype: torch.dtype = torch.float64) -> tuple[Scenario, QuantumPlant]:
+                        target_state, config: dict, plant: dict, plants: dict, exit_below=None,
+                        device=None, dtype: torch.dtype = torch.float64) -> tuple[Scenario, Plant]:
     """:param A: the DMDc operator [A_x | A_u] (dim_x, dim_x * L).
     :param config: MPCConfig fields as numbers, with "qp_params" a dict of
         BoxQPParams fields.
-    :param plant: nominal (H0 (d, d), H1s (dim_u, d, d), sigma ()).
-    :param plants: lane batch (H0 (B, d, d), H1s (B, dim_u, d, d), sigma (B,)).
+    :param plant: the nominal plant's fields by name (plant_from_numpy),
+        e.g. {"H0": (d, d), "H1s": (dim_u, d, d), "sigma": ()}.
+    :param plants: the lane batch's fields, each with a leading axis B.
+    :param exit_below: None, or (target (dim_e,), threshold): the
+        reference's distance exit (presets.DistanceExit) as its numbers.
     :param dtype: real dtype of the result; complex arrays take its partner.
-    :return: (Scenario, QuantumPlant lane batch) on `device`.
+    :return: (Scenario, plant lane batch) on `device`.
     """
     cfg = dict(config)
     cfg["qp_params"] = BoxQPParams(**cfg.get("qp_params", {}))
     sc = scenario_from_arrays(
         name, x0=x0, A=A, X_targ=X_targ, U_targ=U_targ, Q=Q, R=R, Qf=Qf, sat=sat, du=du,
-        target_state=target_state, config=MPCConfig(**cfg), plant=_plant(*plant),
-        device=device, dtype=dtype)
-    return sc, _plant(*plants).to(device, dtype)
+        target_state=target_state, config=MPCConfig(**cfg), plant=plant_from_numpy(plant),
+        exit_below=exit_below, device=device, dtype=dtype)
+    return sc, plant_from_numpy(plants).to(device, dtype)

@@ -31,6 +31,14 @@
 // Gauss-Jordan elimination runs in place on that n^2 block (the [K | I]
 // augmented form gives the same values). The kernel is latency-bound; the
 // lane count is the parallelism.
+//
+// P's loads do not depend on the round, so the compiler hoists all n^2 of
+// them, values and 64-bit addresses, out of the round loop. From n = 11 up
+// that overflows the register file: at n = 15 ptxas fell back to 32
+// registers and 6 KB of spill stores, at twice the time. There an empty asm
+// that "changes" P's pointer at the top of each round keeps the loads inside
+// the round (n = 15: 255 registers, 1.4 KB of spill stores). The n <= 10
+// instances are built as before.
 
 #include <cuda_runtime.h>
 
@@ -65,9 +73,10 @@ boxqp_small_kernel(const float* __restrict__ P, const float* __restrict__ q_in,
   const int T = blockDim.x;
   float* kinv = smem + threadIdx.x;  // element e of this lane at kinv[e * T]
 #define KI(i, j) kinv[((i) * N + (j)) * T]
-#define PE(i, j) __ldg(P + (size_t)((i) * N + (j)) * B + b)
+#define PE(i, j) __ldg(Pp + (size_t)((i) * N + (j)) * B + b)
 #define DE(i) __ldg(d_in + (size_t)(i) * B + b)
 
+  const float* Pp = P;
   float q[N], lb[N], ub[N], x[N], z[N], y[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -99,6 +108,7 @@ boxqp_small_kernel(const float* __restrict__ P, const float* __restrict__ q_in,
   const float one_m_alpha = 1.0f - alpha;
 
   for (int rnd = 0; rnd < rounds; ++rnd) {
+    if constexpr (N > 10) asm volatile("" : "+l"(Pp));
     // K^-1 by in-place unpivoted Gauss-Jordan on K = P + (sigma + rho) I
 #pragma unroll
     for (int i = 0; i < N; ++i) {

@@ -10,21 +10,26 @@ Reference behaviour kept on purpose:
   - the QP dual carried to the next step drops the applied step's block and
     duplicates the last one (the receding-horizon shift of the guesses);
   - lanes that are done keep their state, guesses and duals frozen;
-  - exit codes are data: 0 completed, 2 QP failure, 3 non-finite
-    objective (1, an exit condition met, belongs to presets not ported yet).
+  - exit codes are data: 0 completed, 1 the scenario's exit condition met,
+    2 QP failure, 3 non-finite objective; the exit condition reads the
+    current state, not the next one (the reference's not_gate condition
+    reads its second argument), so it fires one step after the threshold
+    is crossed;
+  - the loop runs every step whatever the lanes' state: a lane that is done
+    stays frozen (the reference host loop has no early break).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..models.dmdc import DMDcModel, predict
 from ..ops.library import krtimes
 from ..ops.bilinear import BilinearModel
-from ..plants.quantum import QuantumPlant, lift_state, proj_state
+from ..plants.base import Plant
 from ..solvers.boxqp import BoxQPParams
 from ..solvers.condense import QPResult, objective_value
 
@@ -95,14 +100,14 @@ def bilinear_model(model: DMDcModel, config: MPCConfig) -> BilinearModel:
 
 
 def context(carry: Carry, step: int, config: MPCConfig, X_targ, U_targ,
-            plants: QuantumPlant) -> StepContext:
+            plants: Plant) -> StepContext:
     """Per-step quantities shared by the SQP iterations and the advance."""
     H = config.horizon
     start = max(step - 1, 0)
     X_ref = X_targ[:, start:start + H + 1]
     U_ref = U_targ[:, start:start + H]
     u_prev = carry.u_last if step > 1 else U_ref[:, 0].expand_as(carry.u_last)
-    return StepContext(X_ref, U_ref, lift_state(plants, carry.x_cur), u_prev)
+    return StepContext(X_ref, U_ref, plants.lift(carry.x_cur), u_prev)
 
 
 def sqp_init(carry: Carry, duals) -> SQPState:
@@ -177,12 +182,15 @@ def sqp_update_from_qp(s: SQPState, res: QPResult, X_ref, U_ref, Q_s, R_s,
 
 def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
             ctx: StepContext, bmodel: BilinearModel, model: DMDcModel,
-            plants: QuantumPlant, plant_step: Callable):
-    """Apply each lane's first control to the plant, observe, close the loop
-    and shift the guesses and duals. Observation is noiseless and there is
-    no exit condition: exit codes are 0 or a QP failure's 2 / 3.
+            plants: Plant, plant_step: Callable, exit_condition: Optional[Callable] = None):
+    """Apply each lane's first control to the plant, observe, close the loop,
+    shift the guesses and duals and book the exits. Observation is
+    noiseless. A lane's new code is its failed step's 2 / 3, else 1 where
+    the exit condition holds, else 0; a lane that is done keeps its code.
 
     :param plant_step: (x_true (B, dim_e), u (B, dim_u)) -> next plant state.
+    :param exit_condition: None, or (x_next, x_cur, u) -> (B,) bool,
+        evaluated on every lane; a lane where it holds is done.
     :return: (carry_new, duals_out) with duals_out = (y, rho) for the next
         step's warm start.
     """
@@ -199,7 +207,10 @@ def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
         # between measurements the loop closes through the model
         lift_u = bmodel.lift_u(u_apply.T)                          # (Lm, B)
         ux = krtimes(lift_u, ctx.lift_x.T)                          # (Lm*dim_x, B)
-        x_next = proj_state(plants, predict(model, ctx.lift_x.T, ux).T)
+        x_next = plants.proj(predict(model, ctx.lift_x.T, ux).T)
+    cond_exit = (exit_condition(x_next, carry.x_cur, u_apply) if exit_condition is not None
+                 else torch.zeros_like(done))
+    new_code = torch.where(step_failed, s.code, cond_exit.to(s.code.dtype))
 
     keep = lambda old, new: torch.where(_lane(done, old), old, new)
     hold = lambda old, new: torch.where(_lane(step_failed, old), old, new)
@@ -210,8 +221,8 @@ def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
         keep(carry.X_guess, shift(s.Xg)),
         keep(carry.U_guess, shift(s.Ug)),
         keep(carry.u_last, hold(carry.u_last, u_apply)),
-        keep(carry.exit_code, torch.where(step_failed, s.code, torch.zeros_like(s.code))),
-        done | step_failed,
+        keep(carry.exit_code, new_code),
+        done | step_failed | cond_exit,
     )
     y_shift = torch.cat([s.y[:, dim_u:], s.y[:, -dim_u:]], dim=1)
     return carry_new, (keep(s.y, y_shift), s.rho)

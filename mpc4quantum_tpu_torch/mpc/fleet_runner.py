@@ -14,23 +14,25 @@ solve chosen by n = H * dim_u as the reference chooses it - one
 `boxqp_small` launch at n <= 16, else `boxqp_big` (a K-inverse and one
 `admm_big` launch per rho round) - the acceptance rule, the exact rollout,
 the guess update, and a freeze of lanes whose SQP already finished. The
-advance assembles H_b = H0_b + u_b H1_b, takes U_b = exp(-i dt H_b) with one
-`expm_small` launch and propagates rho' = U rho U^H.
+advance takes one exact plant step per lane (`plants.step`: the step's
+propagator from one `expm_small` launch, then rho' = U rho U^H, or
+P' = kron(U, U^*) P in process space, or x' = exp(dt A(u)) x on an open
+system) and books the scenario's exit condition. Every step runs for every
+lane: lanes that are done stay frozen.
 
 All state stays on the plants' device; the loop makes no host copy.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..kernels.boxqp import MAX_N as SMALL_MAX_N, boxqp_accept, boxqp_big, boxqp_small
-from ..kernels.expm import expm_small
 from ..models.dmdc import DMDcModel
 from ..ops.bilinear import BilinearModel, model_along_traj
-from ..plants.quantum import QuantumPlant, conjugate, lift_state, step_hamiltonians
+from ..plants.base import Plant
 from ..solvers.boxqp import BoxQPParams
 from ..solvers.condense import QPResult, qp_data, qp_finish
 from .driver import (Carry, MPCConfig, SQPState, StepContext, advance, bilinear_model,
@@ -45,13 +47,17 @@ class FleetRunner:
     def __init__(self, config: MPCConfig, sat: float, du: Optional[float] = None,
                  warm_sqp_iters: Sequence[int] = (12,),
                  steady_qp_params: Optional[BoxQPParams] = None,
-                 expm_taylor_k: int = 18, expm_max_squarings: int = 12):
+                 expm_taylor_k: int = 18, expm_max_squarings: int = 12,
+                 exit_condition: Optional[Callable] = None):
         """:param warm_sqp_iters: SQP iterations of each warm step; steps past
         the tuple's end take its last entry.
         :param steady_qp_params: QP budget of the steady (single-shot)
             steps; None = config.qp_params.
         :param expm_taylor_k, expm_max_squarings: the plant expm's budget
-            (benchfleet sizes it from a norm bound)."""
+            (benchfleet sizes it from a norm bound).
+        :param exit_condition: None, or the scenario's batched
+            (x_next, x_cur, u) -> (B,) bool; a lane where it holds ends
+            with exit code 1."""
         if not warm_sqp_iters or any(int(v) < 1 for v in warm_sqp_iters):
             raise ValueError(f"warm_sqp_iters={warm_sqp_iters!r}: need >= 1 per warm step")
         self.config = config
@@ -61,6 +67,7 @@ class FleetRunner:
         self.steady_qp_params = steady_qp_params or config.qp_params
         self.expm_taylor_k = expm_taylor_k
         self.expm_max_squarings = expm_max_squarings
+        self.exit_condition = exit_condition
         self.qp_kernel = "small" if config.horizon * config.dim_u <= SMALL_MAX_N else "big"
 
     def _sqp_iter(self, s: SQPState, ctx: StepContext, bmodel: BilinearModel, Q_s, R_s,
@@ -90,26 +97,26 @@ class FleetRunner:
                                    single_shot, self.config.step_tol)
         return select(s.done, s, s_new)
 
-    def run(self, x0: torch.Tensor, model: DMDcModel, plants: QuantumPlant,
+    def run(self, x0: torch.Tensor, model: DMDcModel, plants: Plant,
             X_targ: torch.Tensor, U_targ: torch.Tensor, Q: torch.Tensor,
             R: torch.Tensor, Qf: torch.Tensor) -> dict:
         """Run the batched loop on the plants' device.
 
         :param x0: (dim_e,) shared or (B, dim_e) per-lane initial states.
-        :param plants: lane batch (leading axis B), noiseless (sigma = 0).
+        :param plants: lane batch (leading axis B) of any plant kind,
+            noiseless (sigma = 0, or no sigma at all).
         :return: {"final_x": (B, dim_e) complex, "exit_code": (B,) int32},
             on the plants' device.
         """
-        if bool((plants.sigma != 0).any()):
+        sigma = getattr(plants, "sigma", None)
+        if sigma is not None and bool((sigma != 0).any()):
             raise NotImplementedError("measurement noise (sigma > 0) is not ported yet")
         cfg = self.config
         H, dim_u = cfg.horizon, cfg.dim_u
-        B = plants.H0.shape[0]
-        dev, cdtype = plants.H0.device, plants.H0.dtype
-        rdtype = plants.sigma.dtype
-        x0 = x0.to(dev, cdtype)
+        B, dev, rdtype = plants.lanes, plants.device, plants.real_dtype
+        x0 = x0.to(dev, plants.dtype)
         x0 = (x0.expand(B, -1) if x0.dim() == 1 else x0).clone()
-        lx0 = lift_state(plants, x0)
+        lx0 = plants.lift(x0)
         carry = Carry(
             x_cur=x0, x_true=x0.clone(),
             X_guess=lx0[:, :, None].expand(-1, -1, H + 1).clone(),
@@ -124,10 +131,7 @@ class FleetRunner:
         bmodel = bilinear_model(model, cfg)
 
         def plant_step(x_true, u):
-            Us = expm_small((-1j * cfg.dt) * step_hamiltonians(plants, u),
-                            taylor_k=self.expm_taylor_k,
-                            max_squarings=self.expm_max_squarings)
-            return conjugate(Us, x_true)
+            return plants.step(x_true, u, cfg.dt, self.expm_taylor_k, self.expm_max_squarings)
 
         for step in range(cfg.n_steps):
             warm = step <= 1 if cfg.warm_start else True
@@ -139,5 +143,6 @@ class FleetRunner:
                     s = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, cfg.qp_params, False)
             else:
                 s = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, self.steady_qp_params, True)
-            carry, duals = advance(carry, s, step, cfg, ctx, bmodel, model, plants, plant_step)
+            carry, duals = advance(carry, s, step, cfg, ctx, bmodel, model, plants, plant_step,
+                                   self.exit_condition)
         return {"final_x": carry.x_cur, "exit_code": carry.exit_code}

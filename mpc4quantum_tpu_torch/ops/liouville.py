@@ -4,7 +4,9 @@ mpc4quantum_tpu/ops/liouville.py).
 `drho/dt = -i[H0 + sum_i u_i H1_i, rho]` projected onto a measurement basis
 gives `dx/dt = (A0 + sum_i u_i A_i) x`; the order-k Dyson/Taylor expansion
 of one step then gives the discrete model `x+ = [A | N] [x ; f(u) (kr) x]`.
-Both run once at scenario build, in complex128 by default.
+The Lindblad generators add the dissipators of an open system to A0 on
+row-major vec(rho). All run once at scenario build, in complex128 by
+default.
 """
 
 from __future__ import annotations
@@ -32,6 +34,32 @@ def vectorize_me(H, measure_list, dtype=torch.complex128) -> torch.Tensor:
     H = torch.as_tensor(H, dtype=dtype)
     comm = torch.einsum("ab,kbc->kac", H, basis) - torch.einsum("kab,bc->kac", basis, H)
     return -1j * torch.einsum("jab,kab->jk", basis.conj(), comm)
+
+
+def liouville_generator(H, dtype=torch.complex128) -> torch.Tensor:
+    """-i[H, .] on row-major vec(rho): A = -i (H (x) I - I (x) H^T), the
+    matrix-unit `vectorize_me` in O(d^2)."""
+    H = torch.as_tensor(H, dtype=dtype)
+    eye = torch.eye(H.shape[0], dtype=dtype)
+    return -1j * (torch.kron(H, eye) - torch.kron(eye, H.T.contiguous()))
+
+
+def dissipator(L, dtype=torch.complex128) -> torch.Tensor:
+    """D[L] rho = L rho L^dag - 1/2 {L^dag L, rho} on row-major vec(rho):
+    L (x) conj(L) - 1/2 ((L^dag L) (x) I + I (x) (L^dag L)^T)."""
+    L = torch.as_tensor(L, dtype=dtype)
+    eye = torch.eye(L.shape[0], dtype=dtype)
+    LdL = L.conj().T @ L
+    return torch.kron(L, L.conj()) - 0.5 * (torch.kron(LdL, eye)
+                                            + torch.kron(eye, LdL.T.contiguous()))
+
+
+def lindblad_generator(H, c_ops=(), dtype=torch.complex128) -> torch.Tensor:
+    """The Lindbladian -i(H (x) I - I (x) H^T) + sum_k D[L_k] (row-major vec)."""
+    A = liouville_generator(H, dtype)
+    for L in c_ops:
+        A = A + dissipator(L, dtype)
+    return A
 
 
 def discretize_homogeneous(A_cts_list, dt, order: int,

@@ -3,18 +3,22 @@ mpc4quantum_tpu/parallel/fleet.py `make_scenario_batch`)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
-from ..plants.quantum import QuantumPlant
+from ..plants.base import Plant
+from ..plants.lindblad import LindbladPlant
 
 
-def make_scenario_batch(base_plant: QuantumPlant, n: int, detune_scale: float = 0.01,
+def make_scenario_batch(base_plant: Plant, n: int, detune_scale: float = 0.01,
                         generator: Optional[torch.Generator] = None,
-                        device=None, dtype: torch.dtype = torch.float64) -> QuantumPlant:
-    """n plants with drift H0 (1 + eps), eps ~ N(0, detune_scale^2); the
-    drive is left as it is.
+                        device=None, dtype: torch.dtype = torch.float64) -> Plant:
+    """n plants with the coherent drift scaled by (1 + eps),
+    eps ~ N(0, detune_scale^2): H0 of a quantum or synthesis plant, AH0 of
+    a Lindblad plant, whose dissipator AD stays physical. The drive is left
+    as it is.
 
     The draws are made in float64 by a CPU generator and only then moved to
     `device` in `dtype` (the real dtype), so one seed gives the same plants
@@ -23,11 +27,12 @@ def make_scenario_batch(base_plant: QuantumPlant, n: int, detune_scale: float = 
     """
     generator = generator if generator is not None else torch.Generator().manual_seed(1)
     eps = detune_scale * torch.randn(n, generator=generator, dtype=torch.float64)
-    H0 = base_plant.H0.to("cpu", torch.complex128)
-    H1s = base_plant.H1s.to("cpu", torch.complex128)
-    batch = QuantumPlant(
-        H0=H0 * (1.0 + eps)[:, None, None],
-        H1s=H1s.expand(n, -1, -1, -1).clone(),
-        sigma=base_plant.sigma.to("cpu", torch.float64).expand(n).clone(),
-    )
-    return batch.to(device, dtype)
+
+    def lanes(t: torch.Tensor) -> torch.Tensor:
+        t = t.to("cpu", torch.complex128 if t.is_complex() else torch.float64)
+        return t.expand(n, *t.shape).clone()
+
+    fields = {f.name: lanes(getattr(base_plant, f.name)) for f in dataclasses.fields(base_plant)}
+    drift = "AH0" if isinstance(base_plant, LindbladPlant) else "H0"
+    fields[drift] = fields[drift] * (1.0 + eps)[:, None, None]
+    return type(base_plant)(**fields).to(device, dtype)

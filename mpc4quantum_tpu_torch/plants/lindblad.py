@@ -1,0 +1,80 @@
+"""Open-system (Lindblad) plant: dissipative master-equation propagation
+in Liouville space (counterpart of mpc4quantum_tpu/plants/lindblad.py),
+batched over lanes.
+
+    d rho/dt = -i[H0 + sum_i u_i H1_i, rho] + sum_k D[L_k] rho
+
+is propagated by exact ZOH exponentiation of the (non-unitary) Liouvillian,
+x+ = exp(dt (A0 + sum_i u_i A_i)) x with x = vec(rho) (row-major). The
+exponential of the d^2 x d^2 generator comes from one `expm_small` launch
+(d = 2 gives 4 x 4), where the reference runs an XLA Taylor chain: the same
+function. The control generators stay Hamiltonian; the dissipators live in
+the drift.
+
+Not ported (not on the fleet path): `lindblad_simulate` and measurement
+noise (the fleet runner refuses sigma > 0).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..kernels.expm import expm_small
+from ..ops.liouville import lindblad_generator, liouville_generator
+from .base import Plant, box_norm_bound
+
+
+@dataclasses.dataclass(frozen=True)
+class LindbladPlant(Plant):
+    """Dissipative bilinear plant over vec(rho) (identity lift and proj).
+    The Hamiltonian drift and the dissipator are kept apart, so a detuning
+    sweep scales the coherent part and leaves the decay physical. On a lane
+    batch: AH0 (B, d^2, d^2) drift -i[H0, .], AD (B, d^2, d^2) the summed
+    dissipators, A1s (B, dim_u, d^2, d^2) control generators, sigma (B,)
+    measurement-noise scale."""
+
+    AH0: torch.Tensor
+    AD: torch.Tensor
+    A1s: torch.Tensor
+    sigma: torch.Tensor
+
+    @classmethod
+    def create(cls, H0, H1s, c_ops=(), sigma: float = 0.0) -> "LindbladPlant":
+        """From (d, d) Hamiltonians and collapse operators L_k, in complex128."""
+        return cls(AH0=liouville_generator(H0),
+                   AD=lindblad_generator(np.zeros_like(np.asarray(H0)), c_ops),
+                   A1s=torch.stack([liouville_generator(H) for H in H1s]),
+                   sigma=torch.tensor(float(sigma), dtype=torch.float64))
+
+    @property
+    def A0(self) -> torch.Tensor:
+        """The full drift Lindbladian."""
+        return self.AH0 + self.AD
+
+    @property
+    def dim_s(self) -> int:
+        return math.isqrt(self.AH0.shape[-1])
+
+    @property
+    def dim_u(self) -> int:
+        return self.A1s.shape[-3]
+
+    def step(self, x, u, dt: float, taylor_k: int, max_squarings: int) -> torch.Tensor:
+        """x' = exp(dt A(u)) x per lane, the exponential from one
+        `expm_small` launch at d^2."""
+        A = self.A0 + torch.sum(u[:, :, None, None] * self.A1s, dim=1)
+        E = expm_small(dt * A, taylor_k=taylor_k, max_squarings=max_squarings)
+        return (E @ x.to(E.dtype)[..., None])[..., 0]
+
+    def norm_bound(self, dt: float, sat) -> float:
+        return lindblad_norm_bound(self, dt, sat)
+
+
+def lindblad_norm_bound(plant: LindbladPlant, dt: float, sat) -> float:
+    """Worst-case ||dt A(u)||_1 over the control box |u| <= sat, over every
+    lane of a batch: the Liouvillian analogue of taylor_norm_bound."""
+    return box_norm_bound(plant.A0, plant.A1s, dt, sat)

@@ -9,14 +9,15 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
+from ..kernels.expm import expm_small
 from ..ops.expm import expm_taylor
+from .base import Plant, box_norm_bound
 
 
 @dataclasses.dataclass(frozen=True)
-class QuantumPlant:
+class QuantumPlant(Plant):
     """d rho/dt = -i[H0 + sum_i u_i H1_i, rho]. A lane batch carries a
     leading axis on every field: H0 (B, d, d), H1s (B, dim_u, d, d),
     sigma (B,) measurement-noise scale."""
@@ -33,35 +34,25 @@ class QuantumPlant:
     def dim_u(self) -> int:
         return self.H1s.shape[-3]
 
-    def to(self, device=None, dtype=None) -> "QuantumPlant":
-        """Move to a device; `dtype` is the real dtype (float32/float64)."""
-        cdtype = None if dtype is None else complex_dtype(dtype)
-        return QuantumPlant(H0=self.H0.to(device, cdtype),
-                            H1s=self.H1s.to(device, cdtype),
-                            sigma=self.sigma.to(device, dtype))
+    def step(self, x, u, dt: float, taylor_k: int, max_squarings: int) -> torch.Tensor:
+        """rho' = U rho U^H per lane."""
+        return conjugate(step_unitaries(self, u, dt, taylor_k, max_squarings), x)
 
-    def __getitem__(self, idx) -> "QuantumPlant":
-        """Lane slice of a batch."""
-        return QuantumPlant(H0=self.H0[idx], H1s=self.H1s[idx], sigma=self.sigma[idx])
+    def norm_bound(self, dt: float, sat) -> float:
+        return taylor_norm_bound(self, dt, sat)
 
 
-def complex_dtype(real_dtype: torch.dtype) -> torch.dtype:
-    return torch.complex128 if real_dtype == torch.float64 else torch.complex64
-
-
-def lift_state(plant: QuantumPlant, x: torch.Tensor) -> torch.Tensor:
-    """Experiment state -> model space (identity adapter)."""
-    return x
-
-
-def proj_state(plant: QuantumPlant, z: torch.Tensor) -> torch.Tensor:
-    """Model space -> experiment state (identity adapter)."""
-    return z
-
-
-def step_hamiltonians(plant: QuantumPlant, u: torch.Tensor) -> torch.Tensor:
+def step_hamiltonians(plant, u: torch.Tensor) -> torch.Tensor:
     """H_b = H0_b + sum_i u_bi H1_bi for u (B, dim_u): (B, d, d)."""
     return plant.H0 + torch.sum(u[:, :, None, None] * plant.H1s, dim=1)
+
+
+def step_unitaries(plant, u: torch.Tensor, dt: float, taylor_k: int,
+                   max_squarings: int) -> torch.Tensor:
+    """U_b = exp(-i dt H_b) from one `expm_small` launch at d; any plant
+    with H0 and H1s (quantum, synthesis)."""
+    return expm_small((-1j * dt) * step_hamiltonians(plant, u), taylor_k=taylor_k,
+                      max_squarings=max_squarings)
 
 
 def conjugate(U: torch.Tensor, rho_vec: torch.Tensor) -> torch.Tensor:
@@ -80,12 +71,8 @@ def quantum_step_taylor(plant: QuantumPlant, rho_vec: torch.Tensor, u: torch.Ten
     return conjugate(U, rho_vec)
 
 
-def taylor_norm_bound(plant: QuantumPlant, dt: float, sat) -> float:
+def taylor_norm_bound(plant, dt: float, sat) -> float:
     """Worst-case ||dt H(u)||_1 over the control box |u| <= sat, taken over
-    every lane of a batch: sizes the expm's Taylor degree and squarings."""
-    one_norm = lambda M: float(np.max(np.sum(np.abs(M), axis=-2)))
-    H0 = plant.H0.detach().cpu().numpy()
-    H1s = plant.H1s.detach().cpu().numpy()
-    sat_v = np.broadcast_to(np.asarray(sat, float), (H1s.shape[-3],))
-    return abs(float(dt)) * (one_norm(H0) + sum(s * one_norm(H1s[..., k, :, :])
-                                                 for k, s in enumerate(sat_v)))
+    every lane of a batch: sizes the expm's Taylor degree and squarings.
+    Any plant with H0 and H1s (quantum, synthesis)."""
+    return box_norm_bound(plant.H0, plant.H1s, dt, sat)

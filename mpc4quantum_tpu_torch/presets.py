@@ -8,13 +8,18 @@ Ported so far:
     H = 50, 100 steps, slew 0.1 sat (QP n = 50);
   - `drag_state`: a 3-level transmon |0> -> |1> with a leakage-weighted
     cost, X and Y drives, dt = 0.25, H = 16, 20 steps, sat = 2 pi 0.25
-    (QP n = 32).
+    (QP n = 32);
+  - `not_gate`: NOT-gate synthesis in process space (dim 16), dt = 0.05,
+    H = 15, sat 1, slew 0.25, exit once the process cost is below 1e-2
+    (QP n = 15);
+  - `lindblad_state`: the flagship's state preparation on an open system
+    (amplitude damping sqrt(gamma) sigma_- in model and plant; QP n = 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -22,9 +27,13 @@ import torch
 from . import systems
 from .models.dmdc import DMDcModel, dmdc_from_operator
 from .mpc.driver import MPCConfig
-from .ops.liouville import discretize_homogeneous, vectorize_me
-from .plants.quantum import QuantumPlant, complex_dtype
-from .systems import matrix_units, rx_rotation
+from .ops.liouville import (discretize_homogeneous, lindblad_generator, liouville_generator,
+                            vectorize_me)
+from .plants.base import Plant, complex_dtype
+from .plants.lindblad import LindbladPlant
+from .plants.quantum import QuantumPlant
+from .plants.synthesis import SynthesisPlant, lift_unitary
+from .systems import SX, matrix_units, rx_rotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +43,7 @@ class Scenario:
     name: str
     x0: torch.Tensor            # (dim_e,) complex initial state
     model: DMDcModel
-    plant: QuantumPlant         # the nominal plant a lane batch perturbs
+    plant: Plant                # the nominal plant a lane batch perturbs
     X_targ: torch.Tensor        # (dim_x, n_steps + H + 1) complex
     U_targ: torch.Tensor        # (dim_u, n_steps + H)
     Q: torch.Tensor
@@ -44,13 +53,34 @@ class Scenario:
     sat: float
     du: Optional[float]
     target_state: torch.Tensor  # (dim_e,) for the fidelity
+    # batched (x_next, x_cur, u) -> (B,) bool; None = run every step
+    exit_condition: Optional[Callable] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DistanceExit:
+    """Exit once the *current* state is close to a target:
+    ||x_cur - target||^2 < threshold, per lane. The next state is not read:
+    the reference's not_gate condition reads its second argument, so a lane
+    exits one step after it crosses the threshold."""
+
+    target: torch.Tensor        # (dim_e,) complex, on the scenario's device
+    threshold: float
+
+    def __call__(self, x_next, x_cur, u) -> torch.Tensor:
+        d = x_cur - self.target
+        return (d.conj() * d).real.sum(dim=-1) < self.threshold
 
 
 def scenario_from_arrays(name, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du, target_state,
-                         config: MPCConfig, plant: QuantumPlant, device=None,
+                         config: MPCConfig, plant: Plant, exit_below=None, device=None,
                          dtype: torch.dtype = torch.float64) -> Scenario:
     """Build a Scenario from numpy/tensor arrays, cast to `dtype` (the real
-    dtype; complex arrays take its complex partner) on `device`."""
+    dtype; complex arrays take its complex partner) on `device`.
+
+    :param exit_below: None, or (target (dim_e,), threshold) of a
+        DistanceExit condition.
+    """
     cdtype = complex_dtype(dtype)
     cx = lambda a: torch.tensor(np.asarray(a, complex)).to(device, cdtype)
     re = lambda a: torch.tensor(np.asarray(a, float)).to(device, dtype)
@@ -60,7 +90,9 @@ def scenario_from_arrays(name, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du, targ
         name=name, x0=cx(x0), model=dmdc_from_operator(A, dim_x, dim_x, A.shape[1] - dim_x),
         plant=plant.to(device, dtype), X_targ=cx(X_targ), U_targ=re(U_targ),
         Q=cx(Q), R=re(R), Qf=cx(Qf), config=config, sat=float(sat),
-        du=None if du is None else float(du), target_state=cx(target_state))
+        du=None if du is None else float(du), target_state=cx(target_state),
+        exit_condition=None if exit_below is None else DistanceExit(cx(exit_below[0]),
+                                                                    float(exit_below[1])))
 
 
 def _model_operator(H_list, dim_s, dt, order) -> torch.Tensor:
@@ -152,5 +184,63 @@ def drag_state(order: int = 1, device=None, dtype: torch.dtype = torch.float64) 
         plant=plant, device=device, dtype=dtype)
 
 
+def not_gate(order: int = 1, n_steps: int = 50, device=None,
+             dtype: torch.dtype = torch.float64) -> Scenario:
+    """NOT-gate synthesis in process-matrix space (dim 16): dt = 0.05,
+    H = 15, sat = 1, du = 0.25, benchmark control 0.5, Qf = 10 Q, exit
+    once the process cost ||P - P_target||^2 < 1e-2.
+
+    At the reference's n_steps = 50 the largest reachable rotation is
+    sat n dt = 2.5 rad < pi, so the gate cannot complete and the exit never
+    fires; the fleet runs n_steps = 90. The drift is 0 (wQ = wR), so a
+    detuning sweep leaves every lane the same."""
+    dt, H = 0.05, 15
+    sat, du = 1.0, 0.25
+    w = np.pi
+    H0, H1 = systems.RWAQubit(wQ=w, wD=w, wR=w).H_list
+    # process-space generators kron(-i(kron(h, I) - kron(I, h^*)), I_4)
+    I2, I4 = np.eye(2), np.eye(4)
+    A_cts = [np.kron(-1j * (np.kron(h, I2) - np.kron(I2, h.conj())), I4) for h in (H0, H1)]
+    A = discretize_homogeneous(A_cts, dt, order)
+    plant = SynthesisPlant(H0=torch.as_tensor(H0), H1s=torch.as_tensor(np.stack([H1])))
+    p0 = lift_unitary(torch.as_tensor(rx_rotation(1e-3).flatten()))
+    pf = lift_unitary(torch.as_tensor(SX.flatten()))
+    X_targ, _ = _targets(pf.numpy(), 1, n_steps, H)
+    Q = np.eye(16, dtype=complex)
+    return scenario_from_arrays(
+        "not_gate", x0=p0.numpy(), A=A.numpy(), X_targ=X_targ,
+        U_targ=np.full((1, n_steps + H), 0.5), Q=Q, R=np.eye(1) * 1e-2, Qf=10.0 * Q, sat=sat,
+        du=du, target_state=pf.numpy(), exit_below=(pf.numpy(), 1e-2),
+        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=1, order=order),
+        plant=plant, device=device, dtype=dtype)
+
+
+def lindblad_state(order: int = 2, detune: float = 0.99, gamma: float = 0.005, device=None,
+                   dtype: torch.dtype = torch.float64) -> Scenario:
+    """T1-limited qubit |0> -> |1>: the flagship's workload on an open
+    system, amplitude damping L = sqrt(gamma) sigma_- in both the model (the
+    order-k discretization of the Lindbladian drift) and the plant; dt = 1,
+    H = 10, n_steps = 20, sat = 2 pi 0.1, du = 0.5 sat."""
+    dt, H, n_steps = 1.0, 10, 20
+    sat = 2 * np.pi * 0.1
+    wq = 2 * np.pi * 4
+    qubit = systems.RWAQubit(wQ=wq, wD=wq, wR=wq)
+    c_ops = [np.sqrt(gamma) * np.array([[0.0, 1.0], [0.0, 0.0]], complex)]
+    A = discretize_homogeneous([lindblad_generator(qubit.H_list[0], c_ops),
+                                liouville_generator(qubit.H_list[1])], dt, order)
+    plant_qubit = systems.RWAQubit(wQ=wq * detune, wD=wq, wR=wq)
+    plant = LindbladPlant.create(plant_qubit.H_list[0], [plant_qubit.H_list[1]], c_ops=c_ops)
+    Rx = rx_rotation(1e-4)
+    rho0 = (Rx @ np.diag([1.0, 0.0]).astype(complex) @ Rx.conj().T).flatten()
+    targ = np.diag([0.0, 1.0]).astype(complex).flatten()
+    X_targ, U_targ = _targets(targ, 1, n_steps, H)
+    Q = np.diag([1.0, 0, 0, 1]).astype(complex)
+    return scenario_from_arrays(
+        "lindblad_state", x0=rho0, A=A.numpy(), X_targ=X_targ, U_targ=U_targ, Q=Q,
+        R=np.eye(1) * (1e-2 / sat ** 2), Qf=Q, sat=sat, du=0.5 * sat, target_state=targ,
+        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=1, order=order),
+        plant=plant, device=device, dtype=dtype)
+
+
 PRESETS = {"not_state": not_state, "not_state_freq": not_state_freq,
-           "drag_state": drag_state}
+           "drag_state": drag_state, "not_gate": not_gate, "lindblad_state": lindblad_state}

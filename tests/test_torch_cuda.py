@@ -124,6 +124,66 @@ def test_expm_kernel_matches_plain(cuda, d, taylor_k, max_squarings):
     torch.testing.assert_close(Ek, Ep, rtol=0, atol=1e-5 if max_squarings == 0 else 1e-4)
 
 
+def test_boxqp_kernel_n15_warm_form_matches_plain(cuda):
+    """not_gate's shape: n = 15 (57.6 KB of shared memory a block), its cold
+    3x12 form and the steady 2x10 form started from the cold dual and rho."""
+    B, n = 1024, 15
+    P, q, lb, ub = qp_batch(B, n, seed=15, device=cuda)
+    _, y0, a0 = boxqp_small_ref(P, q, lb, ub, iters=12, rounds=3)
+    kw = dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3)
+    zk, yk, ak = boxqp_small(P, q, lb, ub, y0=y0, rho0=a0.rho, **kw)
+    zp, yp, ap = boxqp_small_ref(P, q, lb, ub, y0=y0, rho0=a0.rho, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(zk, zp, rtol=0, atol=1e-3 * max(1.0, float(zp.abs().max())))
+    torch.testing.assert_close(yk, yp, rtol=0, atol=1e-3 * max(1.0, float(yp.abs().max())))
+    assert bool((boxqp_accept(ak, 1e-6, 1e-6, 4e-3, 4e-3)
+                 == boxqp_accept(ap, 1e-6, 1e-6, 4e-3, 4e-3)).all())
+
+
+def test_expm_kernel_d4_liouvillian_matches_plain(cuda):
+    """lindblad's form: non-normal 4 x 4 generators dt (A0 + u A1) with an
+    amplitude-damping dissipator, 1-norms in [0.05, 1.6], at (12, 1): both
+    the 0- and the 1-squaring branch, against the float32 and the float64
+    plain versions."""
+    from mpc4quantum_tpu_torch.plants.lindblad import LindbladPlant
+
+    B = 1024
+    rng = np.random.default_rng(4)
+    plant = LindbladPlant.create(np.diag([0.3, -0.3]), [0.5 * np.eye(2)[::-1]],
+                                 c_ops=[0.3 * np.eye(2, k=1)])
+    u = torch.tensor(rng.uniform(-1, 1, size=(B, 1, 1)))
+    A = plant.A0 + u * plant.A1s[0]
+    norms = torch.tensor(np.exp(rng.uniform(np.log(0.05), np.log(1.6), size=B)))
+    A = A * (norms / A.abs().sum(dim=-2).amax(dim=-1))[:, None, None]
+    assert 0 < int((norms > 1).sum()) < B
+    A32 = A.to(cuda, torch.complex64)
+    Ek = expm_small(A32, 12, 1)
+    torch.testing.assert_close(Ek, expm_small_ref(A32, 12, 1), rtol=0, atol=1e-5)
+    E64 = expm_small_ref(A32.to(torch.complex128), 12, 1)
+    torch.testing.assert_close(Ek.to(torch.complex128), E64, rtol=0, atol=1e-5)
+
+
+def test_plant_steps_on_the_card_match_the_cpu(cuda):
+    """The synthesis and Lindblad steps of a float32 fleet on the card
+    against the float64 plain steps on the CPU."""
+    from mpc4quantum_tpu_torch import presets
+    from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
+
+    rng = np.random.default_rng(9)
+    for make, budget in ((presets.not_gate, (12, 0)), (presets.lindblad_state, (12, 1))):
+        sc = make()
+        plants = make_scenario_batch(sc.plant, 256)
+        dim = sc.x0.shape[0]
+        x = torch.tensor(rng.normal(size=(256, dim)) + 1j * rng.normal(size=(256, dim)))
+        u = torch.tensor(rng.uniform(-sc.sat, sc.sat, size=(256, 1)))
+        before = expm_small.launches
+        out = plants.to(cuda, torch.float32).step(x.to(cuda, torch.complex64),
+                                                  u.to(cuda, torch.float32), sc.config.dt, *budget)
+        ref = plants.step(x, u, sc.config.dt, *budget)
+        assert expm_small.launches == before + 1
+        torch.testing.assert_close(out.cpu().to(torch.complex128), ref, rtol=0, atol=1e-5)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="complex64"):
         expm_small(torch.zeros(4, 5, 5, dtype=torch.complex64, device=cuda))

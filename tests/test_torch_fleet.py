@@ -72,8 +72,8 @@ def port_scenario(sc, plants, dtype):
         sc.name, x0=a(sc.x0), A=a(sc.model.A), X_targ=a(sc.X_targ), U_targ=a(sc.U_targ),
         Q=a(sc.Q), R=a(sc.R), Qf=a(sc.Qf), sat=sc.sat, du=sc.du,
         target_state=a(sc.target_state), config=config,
-        plant=(a(sc.plant.H0), a(sc.plant.H1s), a(sc.plant.sigma)),
-        plants=(a(plants.H0), a(plants.H1s), a(plants.sigma)), dtype=dtype)
+        plant={k: a(getattr(sc.plant, k)) for k in ("H0", "H1s", "sigma")},
+        plants={k: a(getattr(plants, k)) for k in ("H0", "H1s", "sigma")}, dtype=dtype)
 
 
 def test_fleet_float64_matches_jax(reference):

@@ -4,21 +4,29 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels of mpc4quantum_tpu_torch from the
-checkout and holds each against its plain PyTorch version at the shapes of
-the fleets that run it: `boxqp_small` (unscaled and Jacobi-scaled) and
-`expm_small` at d = 2 for the flagship, `boxqp_small` at n = 15 for
-`not_gate`, `expm_small` at d = 4 on non-normal Liouvillians for
-`lindblad_state`, `admm_big` (alone and inside the whole `boxqp_big` solve,
+checkout (ptxas must report no spills in the instances the fleets run) and
+holds each against its plain PyTorch version at the shapes of the fleets
+that run it: `boxqp_small` (unscaled and Jacobi-scaled) and `expm_small` at
+d = 2 for the flagship, `boxqp_small` at n = 15 for `not_gate`,
+`expm_small` at d = 4 on non-normal Liouvillians for `lindblad_state`,
+`admm_big` (alone, up to n = 239, and inside the whole `boxqp_big` solve,
 Gauss-Jordan and Newton-Schulz inverses) and `expm_small` at d = 3 for the
-large-n presets. Then it drives five fleets through `run_hostloop_fleet` in
-float32 - the flagship `not_state` (B = 16384), `not_gate` (B = 1024, 90
-steps, every lane exits early), `lindblad_state` (B = 16384),
-`drag_state` (B = 2048) and `not_state_freq` (B = 1024) - checks their
-quality gates and their kernel launch counts, and holds each fleet's first
-lanes against the float64 plain path on the CPU. One JSON line per phase;
-then the card's name and power limit, the per-kernel record, and last
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero.
-Without a CUDA device it exits 1 and prints no result.
+large-n presets. Each kernel phase gives the wrapper's time (CUDA events),
+the call's device time without the host's dispatch (a CUDA graph of 20
+calls, replayed), the plain version's time, the bound - the larger of the
+work's operations over the card's float32 peak and its bytes over the
+memory rate - and for `expm_small` the time of `torch.linalg.matrix_exp`
+on the same input; a `boxqp_small` solve must put exactly one kernel on
+the card (the nodes of a CUDA graph captured from it). Then it drives
+five fleets through `run_hostloop_fleet`, built with no device argument
+(so on the card, in float32) - the flagship `not_state` (B = 16384),
+`not_gate` (B = 1024, 90 steps, every lane exits early), `lindblad_state`
+(B = 16384), `drag_state` (B = 2048) and `not_state_freq` (B = 1024) -
+checks their quality gates and their kernel launch counts, and holds each
+fleet's first lanes against the float64 plain path on the CPU. One JSON
+line per phase; then the card's name and power limit, the per-kernel
+record, and last {"ok": true, "device": {...}}. Any failure raises and
+exits non-zero. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -98,9 +107,16 @@ FLEETS = {
                            parity_tol=2e-3, tracking=(30, 1e-5),
                            launches={"boxqp_small": 0, "expm_small": 100, "admm_big": 114}),
 }
-# admm_big alone: (B, n, iters) of the large-n presets' solves, and cnot's
-# n = 150, which needs more than 48 KB of shared memory
-ADMM_SHAPES = ((2048, 32, 50), (2048, 32, 19), (1024, 50, 40), (256, 150, 50))
+# admm_big alone: (B, n, iters) of the large-n presets' solves, cnot's
+# n = 150 (rows split over 4 threads) and the largest n the kernel takes
+# (part of each row in shared memory)
+ADMM_SHAPES = ((2048, 32, 50), (2048, 32, 19), (1024, 50, 40), (256, 150, 50), (256, 239, 50))
+# the bound's peaks: one H100 SXM at its 700 W limit (NVIDIA's data sheet),
+# float32 outside the tensor cores and device memory
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# ptxas must report no spill stores or loads in these instances
+NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel")
 # boxqp_big, whole solves: drag's cold warm-phase and warm-started steady
 # forms (Gauss-Jordan), freq's (Newton-Schulz); the warm form starts from
 # the cold solve's dual and rho
@@ -135,6 +151,38 @@ def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_us(fn, reps: int = TIMING_REPS) -> float:
+    """Microseconds of one fn() on the card without the host's dispatch:
+    `reps` calls captured in a CUDA graph after a warm-up, one replay timed
+    by CUDA events, divided by `reps`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) * 1e3 / reps
+
+
+def bound(work) -> dict:
+    """The least time the card could take for work = (flops, bytes): the
+    larger of the operations over the float32 peak and the bytes over the
+    memory rate, and which of the two it is."""
+    flops, nbytes = work
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return {"flops": flops, "bytes": nbytes, "bound_us": max(t_ops, t_bytes) * 1e6,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -157,23 +205,43 @@ def phase_toolchain(build) -> dict:
     return rec
 
 
+def ptxas_entries(log: str) -> dict:
+    """ptxas -v's report by function: registers of each entry function, and
+    the stack and spill stores and loads of each function ptxas lists."""
+    entries, entry, props = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            entries.setdefault(entry, {})
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+        elif (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                             r"(\d+) bytes spill loads", line)) and props:
+            entries.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            entries[entry]["registers"] = int(m.group(1))
+    return entries
+
+
 def phase_build(build) -> dict:
     t0 = time.perf_counter()
     build.library()
-    # ptxas's lines for the instantiations the fleets run: registers,
-    # spills, shared memory
+    seconds = time.perf_counter() - t0
+    require(build.ptxas_log, "no ptxas report beside the kernel library")
+    # the instantiations the fleets run and every admm_big instance
     wanted = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "expm_small_kernelILi2E",
               "expm_small_kernelILi3E", "expm_small_kernelILi4E", "admm_big_kernel")
-    report, keep = [], False
-    for line in build.ptxas_log.splitlines():
-        if "Compiling entry function" in line:
-            keep = any(w in line for w in wanted)
-        if keep:
-            report.append(line.replace("ptxas info    :", "").strip())
-    rec = {"phase": "build", "seconds": time.perf_counter() - t0,
-           "nvcc_seconds": build.build_seconds, "ptxas": report}
-    emit(rec)
-    return rec
+    report = {name: rec for name, rec in ptxas_entries(build.ptxas_log).items()
+              if any(w in name for w in wanted)}
+    emit({"phase": "build", "seconds": seconds, "nvcc_seconds": build.build_seconds,
+          "ptxas": report})
+    checked = {name: rec for name, rec in report.items() if any(w in name for w in NO_SPILL)}
+    require(len(checked) == 4 + 5, f"expected 4 boxqp_small and 5 admm_big instances: {checked}")
+    spilled = {name: rec for name, rec in checked.items()
+               if rec.get("spill_stores", -1) != 0 or rec.get("spill_loads", -1) != 0}
+    require(not spilled, f"spills in {spilled}")
+    return report
 
 
 def qp_batch(B: int, n: int, seed: int, spread: float = 0.0):
@@ -223,12 +291,14 @@ def compare_solves(name, kernel_out, plain_out, kw, accept, accept_thresholds,
     return err
 
 
-def phase_boxqp(boxqp_mod, accept_thresholds, n: int) -> dict:
+def phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, n: int) -> dict:
     """boxqp_small at a fleet's shape (QP_FORMS): its cold warm-phase form,
-    its warm-started steady form, and at n = 10 that form Jacobi-scaled."""
+    its warm-started steady form, and at n = 10 that form Jacobi-scaled.
+    Each solve is one kernel on the card and nothing else (the node types
+    of a CUDA graph captured from it)."""
     B, forms = QP_FORMS[n]
     P, q, lb, ub = qp_batch(B, n, seed=0 if n == 10 else n)
-    rec = {"phase": "boxqp_small", "B": B, "n": n}
+    rec = {"phase": "boxqp_small", "B": B, "n": n, "gpu": smi_line()}
     warm_start = {}
     for name, kw in forms.items():
         call_k = lambda: boxqp_mod.boxqp_small(P, q, lb, ub, **warm_start, **kw)
@@ -237,7 +307,14 @@ def phase_boxqp(boxqp_mod, accept_thresholds, n: int) -> dict:
         torch.cuda.synchronize()
         err = compare_solves(f"boxqp_small n={n} {name}", out_k, out_p, kw,
                              boxqp_mod.boxqp_accept, accept_thresholds)
-        err.update(kernel_ms=cuda_ms(call_k), plain_ms=cuda_ms(call_p))
+        nodes = graph_node_types(call_k)
+        require(nodes == [0], f"boxqp_small n={n} {name}: one solve put {nodes} on the card "
+                              "(graph node types), not one kernel")
+        work = boxqp_mod.boxqp_small_work(B, n, kw["iters"], kw["rounds"], x0=False,
+                                          y0=bool(warm_start), rho0=bool(warm_start))
+        err.update(graph_nodes=nodes, kernel_ms=cuda_ms(call_k), device_us=graph_us(call_k),
+                   **bound(work),
+                   plain_ms=cuda_ms(call_p))
         rec[name] = err
         if name == "cold_3x12":
             # the warm forms start from the cold solve's dual and rho
@@ -283,7 +360,7 @@ def phase_expm(expm_mod) -> dict:
     (12, 2) on its batch with the plant's norm range, and lindblad's d = 4
     at (12, 1) on non-normal Liouvillians across the 0- and 1-squaring
     branches."""
-    rec = {"phase": "expm_small"}
+    rec = {"phase": "expm_small", "gpu": smi_line()}
     cases = (("d2_12_0", BATCH, EXPM_D, 12, 0, 1e-3, 0.8),
              ("d2_18_12", BATCH, EXPM_D, 18, 12, 0.25, 2.0 ** 10),
              ("d3_12_2", 2048, 3, 12, 2, 0.05, 2.0),
@@ -293,13 +370,20 @@ def phase_expm(expm_mod) -> dict:
              else expm_batch(B, d, seed=k + d, max_norm=hi, min_norm=lo))
         call_k = lambda: expm_mod.expm_small(A, taylor_k=k, max_squarings=sq)
         call_p = lambda: expm_mod.expm_small_ref(A, taylor_k=k, max_squarings=sq)
+        call_l = lambda: torch.linalg.matrix_exp(A)
         Ek, Ep = call_k(), call_p()
         E64 = expm_mod.expm_small_ref(A.to(torch.complex128), taylor_k=k, max_squarings=sq)
         torch.cuda.synchronize()
+        # the squarings this input takes, for the work count
+        norm1 = A.abs().sum(dim=-2).amax(dim=-1)
+        squarings = int(torch.clamp(torch.ceil(torch.log2(torch.clamp(norm1, min=1.0))),
+                                    0, sq).sum()) if sq else 0
         err = {"B": B, "d": d, "norm_range": [lo, hi],
                "max_abs_err": float((Ek - Ep).abs().max()),
                "max_abs_err_vs_f64": float((Ek.to(torch.complex128) - E64).abs().max()),
-               "kernel_ms": cuda_ms(call_k), "plain_ms": cuda_ms(call_p)}
+               "kernel_ms": cuda_ms(call_k), "device_us": graph_us(call_k),
+               **bound(expm_mod.expm_small_work(B, d, k, squarings)),
+               "plain_ms": cuda_ms(call_p), "library_ms": cuda_ms(call_l)}
         rec[name] = err
         require(np.isfinite(err["max_abs_err"]) and err["max_abs_err"] <= EXPM_TOL[(k, sq)],
                 f"expm_small {name} differs from the plain version {err}")
@@ -317,7 +401,7 @@ def phase_expm(expm_mod) -> dict:
 def phase_admm(admm_mod, gj_inverse) -> dict:
     """admm_big against admm_iters_ref on SPD batches, K^-1 by Gauss-Jordan,
     seeded rho and iterates."""
-    rec = {"phase": "admm_big", "tolerance": ADMM_TOL}
+    rec = {"phase": "admm_big", "tolerance": ADMM_TOL, "gpu": smi_line()}
     for B, n, iters in ADMM_SHAPES:
         P, q, lb, ub = qp_batch(B, n, seed=n + iters)
         rng = np.random.default_rng(n)
@@ -333,8 +417,8 @@ def phase_admm(admm_mod, gj_inverse) -> dict:
         torch.cuda.synchronize()
         err = {f"rel_d{v}": rel_err(a, b) for v, a, b in zip("xzy", out_k, out_p)}
         err.update(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(out_k, out_p)),
-                   smem_bytes=admm_mod.smem_bytes(n), kernel_ms=cuda_ms(call_k),
-                   plain_ms=cuda_ms(call_p))
+                   kernel_ms=cuda_ms(call_k), device_us=graph_us(call_k),
+                   **bound(admm_mod.admm_big_work(B, n, iters)), plain_ms=cuda_ms(call_p))
         rec[f"B{B}_n{n}_it{iters}"] = err
         worst = max(err["rel_dx"], err["rel_dz"], err["rel_dy"])
         require(np.isfinite(worst) and worst <= ADMM_TOL,
@@ -382,9 +466,11 @@ def phase_fleet(name, presets, run_hostloop_fleet, make_scenario_batch, counters
     spec = FLEETS[name]
     B = spec["batch"]
     make = fleet_preset(presets, name)
-    sc = make(device=DEVICE, dtype=torch.float32)
-    plants64 = make_scenario_batch(make().plant, B, generator=torch.Generator().manual_seed(1),
-                                   dtype=torch.float64)
+    sc = make()  # no device argument: on the card, in float32
+    require(sc.x0.device.type == DEVICE and sc.plant.real_dtype == torch.float32,
+            f"{name}: a preset built without a device is on {sc.x0.device}, {sc.plant.real_dtype}")
+    plants64 = make_scenario_batch(make(device="cpu", dtype=torch.float64).plant, B,
+                                   generator=torch.Generator().manual_seed(1))
     for fn in counters.values():
         fn.launches = 0
     metrics, out = run_hostloop_fleet(sc, B, plants=plants64.to(DEVICE, torch.float32),
@@ -453,6 +539,7 @@ def main() -> int:
     from mpc4quantum_tpu_torch import presets
     from mpc4quantum_tpu_torch.benchfleet import fleet_fidelity, run_hostloop_fleet
     from mpc4quantum_tpu_torch.kernels import _build as build
+    from mpc4quantum_tpu_torch.kernels._graph import graph_node_types
     from mpc4quantum_tpu_torch.kernels import admm_big as admm_mod
     from mpc4quantum_tpu_torch.kernels import boxqp as boxqp_mod
     from mpc4quantum_tpu_torch.kernels import expm as expm_mod
@@ -465,7 +552,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_toolchain(build)
     phase_build(build)
-    qp = {n: phase_boxqp(boxqp_mod, accept_thresholds, n) for n in QP_FORMS}
+    qp = {n: phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, n) for n in QP_FORMS}
     ex = phase_expm(expm_mod)
     ad = phase_admm(admm_mod, gj_inverse)
     phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds)
@@ -478,30 +565,27 @@ def main() -> int:
         total = {k: total[k] + launches[k] for k in total}
         phase_parity(name, presets, run_hostloop_fleet, fleet_fidelity, sc, plants64, out)
 
-    print(smi_line(), flush=True)
-    admm_shapes = [f"B{B}_n{n}_it{it}" for B, n, it in ADMM_SHAPES]
-    emit({"kernels": [
-        {"name": "boxqp_small", "route": "cuda",
-         "source": "mpc4quantum_tpu_torch/csrc/boxqp_small.cu",
-         "replaces": "mpc4quantum_tpu/ops/pallas_qp.py:42",
-         "launches": total["boxqp_small"],
-         "max_abs_err": max(max(qp[n][f]["max_dz"], qp[n][f]["max_dy"])
-                            for n, (_, forms) in QP_FORMS.items() for f in forms),
-         "ms": qp[10]["cold_3x12"]["kernel_ms"], "plain_ms": qp[10]["cold_3x12"]["plain_ms"]},
-        {"name": "expm_small", "route": "cuda",
-         "source": "mpc4quantum_tpu_torch/csrc/expm_small.cu",
-         "replaces": "mpc4quantum_tpu/ops/pallas_expm.py:64",
-         "launches": total["expm_small"],
-         "max_abs_err": max(ex[f]["max_abs_err"]
-                            for f in ("d2_12_0", "d2_18_12", "d3_12_2", "d4_12_1")),
-         "ms": ex["d2_12_0"]["kernel_ms"], "plain_ms": ex["d2_12_0"]["plain_ms"]},
-        {"name": "admm_big", "route": "cuda",
-         "source": "mpc4quantum_tpu_torch/csrc/admm_big.cu",
-         "replaces": "mpc4quantum_tpu/ops/pallas_qp.py:345",
-         "launches": total["admm_big"],
-         "max_abs_err": max(ad[s]["max_abs_err"] for s in admm_shapes),
-         "ms": ad[admm_shapes[0]]["kernel_ms"], "plain_ms": ad[admm_shapes[0]]["plain_ms"]},
-    ]})
+    gpu = smi_line()
+    print(gpu, flush=True)
+    # each kernel's runs over all its checked shapes; the first is the one
+    # the line reports (the flagship's cold QP and expm, drag's
+    # 50-iteration ADMM), every shape is in the phase lines above
+    qp_runs = [qp[n][f] for n, (_, forms) in QP_FORMS.items() for f in forms]
+    ex_runs = [ex[f] for f in ("d2_12_0", "d2_18_12", "d3_12_2", "d4_12_1")]
+    ad_runs = [ad[f"B{B}_n{n}_it{it}"] for B, n, it in ADMM_SHAPES]
+    kernels = (("boxqp_small", "mpc4quantum_tpu/ops/pallas_qp.py:42", qp_runs,
+                max(max(r["max_dz"], r["max_dy"]) for r in qp_runs)),
+               ("expm_small", "mpc4quantum_tpu/ops/pallas_expm.py:64", ex_runs,
+                max(r["max_abs_err"] for r in ex_runs)),
+               ("admm_big", "mpc4quantum_tpu/ops/pallas_qp.py:345", ad_runs,
+                max(r["max_abs_err"] for r in ad_runs)))
+    emit({"gpu": gpu, "kernels": [
+        {"name": name, "route": "cuda", "source": f"mpc4quantum_tpu_torch/csrc/{name}.cu",
+         "replaces": replaces, "launches": total[name], "max_abs_err": err,
+         "ms": rep["kernel_ms"], "device_ms": rep["device_us"] / 1e3, "plain_ms": rep["plain_ms"],
+         "bound_ms": rep["bound_us"] / 1e3, "bound_us": rep["bound_us"],
+         "bound_by": rep["bound_by"], "library_ms": rep.get("library_ms")}
+        for name, replaces, (rep, *_), err in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

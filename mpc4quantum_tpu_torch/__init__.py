@@ -7,12 +7,14 @@ of perturbed plants. The modules mirror the JAX package (`ops/`,
 CUDA kernels (`kernels/`, sources in `csrc/`) on the card and as their plain
 PyTorch versions on the CPU. This package never imports JAX.
 
-Quick start:
+Quick start, on the card (float32):
 
     from mpc4quantum_tpu_torch import presets, run_hostloop_fleet
-    import torch
-    sc = presets.not_state(device="cuda", dtype=torch.float32)
+    sc = presets.not_state()
     metrics, out = run_hostloop_fleet(sc, batch=16384, reps=4)
+
+On the CPU, through the kernels' plain versions: presets.not_state(device="cpu")
+(float64 there).
 """
 
 from . import presets

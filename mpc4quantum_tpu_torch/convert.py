@@ -7,6 +7,7 @@ JAX object.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -16,7 +17,7 @@ from .plants.base import Plant
 from .plants.lindblad import LindbladPlant
 from .plants.quantum import QuantumPlant
 from .plants.synthesis import SynthesisPlant
-from .presets import Scenario, scenario_from_arrays
+from .presets import Scenario, default_dtype, scenario_from_arrays
 from .solvers.boxqp import BoxQPParams
 
 PLANT_KINDS = (QuantumPlant, SynthesisPlant, LindbladPlant)
@@ -36,7 +37,8 @@ def plant_from_numpy(fields: dict) -> Plant:
 
 def scenario_from_numpy(name: str, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du,
                         target_state, config: dict, plant: dict, plants: dict, exit_below=None,
-                        device=None, dtype: torch.dtype = torch.float64) -> tuple[Scenario, Plant]:
+                        device="cuda", dtype: Optional[torch.dtype] = None
+                        ) -> tuple[Scenario, Plant]:
     """:param A: the DMDc operator [A_x | A_u] (dim_x, dim_x * L).
     :param config: MPCConfig fields as numbers, with "qp_params" a dict of
         BoxQPParams fields.
@@ -45,9 +47,13 @@ def scenario_from_numpy(name: str, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du,
     :param plants: the lane batch's fields, each with a leading axis B.
     :param exit_below: None, or (target (dim_e,), threshold): the
         reference's distance exit (presets.DistanceExit) as its numbers.
-    :param dtype: real dtype of the result; complex arrays take its partner.
+    :param device: the card unless the caller asks for the CPU.
+    :param dtype: real dtype of the result (presets.default_dtype when
+        None: float32 on the card, float64 on the CPU); complex arrays take
+        its partner.
     :return: (Scenario, plant lane batch) on `device`.
     """
+    dtype = default_dtype(device, dtype)
     cfg = dict(config)
     cfg["qp_params"] = BoxQPParams(**cfg.get("qp_params", {}))
     sc = scenario_from_arrays(

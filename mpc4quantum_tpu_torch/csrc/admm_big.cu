@@ -1,5 +1,5 @@
-// Relaxed-ADMM iterations of a batch of box QPs from a precomputed K^-1:
-// one thread block per QP (lane), any n up to 239.
+// Relaxed-ADMM iterations of a batch of box QPs from a precomputed K^-1,
+// any n up to 239, with each thread's part of a K^-1 row in registers.
 //
 // Replaces the Pallas TPU kernel
 // mpc4quantum_tpu/ops/pallas_qp.py::_admm_loop_kernel (dispatched by
@@ -14,24 +14,56 @@
 // Layout: K^-1 (B, n, n) row-major as the inverse functions return it,
 // vectors (B, n), rho (B,): a lane's data is contiguous.
 //
-// What bounds it on the H100: each iteration is a serial chain of n FMAs
-// per row over the lane's n x n K^-1 - a latency chain over on-chip data,
-// not a stream of bytes (the inverse is read from device memory once per
-// launch). The design gives each lane one block and each row one thread
-// (x_i, z_i, y_i, q_i, lb_i, ub_i in registers), so the n rows run in
-// parallel and the lanes fill the SMs; K^-1 sits in dynamic shared memory
-// column-major with an odd column stride, so at a fixed column neighbouring
-// threads read neighbouring words, and the transposing load is free of bank
-// conflicts too. The right-hand side is exchanged through a shared vector,
-// double-buffered so each iteration needs one barrier. The row sum runs in
-// column order 0..n-1, the order of the Pallas column loop.
+// Work per lane, FMA = 2 flops: iters (2n^2 + 8n) flops against
+// 4 (n^2 + 9n + 1) bytes; at not_state_freq's n = 50, 40 iterations,
+// B = 1024, 221 MFLOP (3.3 us at 67 TFLOP/s) and 12.1 MB (3.6 us at 3.35 TB/s).
+//
+// Design. The first port kept K^-1 in shared memory and loaded two shared
+// words for each FMA (the K^-1 entry and the rhs entry): the shared-load
+// issue rate set its pace. Here thread (i, p) holds part p of row i of K^-1
+// in registers, loaded once a launch, and reads the rhs vector from shared
+// memory as float4 broadcasts: one shared load per 4 FMAs.
+// - Register arrays need a compile-time length: the kernel is a template on
+//   the column capacity C of a part and the parts S of a row. A row of n
+//   columns splits into S parts of L = round4(ceil(n / S)) columns; part p
+//   sums columns [p L, p L + L) and the S partial sums of a row combine by
+//   __shfl_xor_sync. Instances: n <= 32 (C 32, S 1, a lane is one warp and
+//   four lanes share a block, synchronised by __syncwarp), n <= 64 (64, 1),
+//   n <= 128 (64, 2), n <= 160 (40, 4); no thread holds more than 64 row
+//   registers.
+// - Above n = 160 a whole K^-1 does not fit the register file next to the
+//   threads' other registers (at n = 239 it alone is 228 KB of the SM's
+//   256 KB): the (32, 4) instance keeps C = 32 columns of each part in
+//   registers and the rest of the part, up to 28 columns, in shared memory,
+//   laid out [column][thread] so neighbouring threads read neighbouring
+//   words.
+// - A warp lane (n <= 32) reads its K^-1 into shared memory in order and
+//   takes its rows from there: a thread reading its own row from device
+//   memory touches a new sector on every load, 32 sectors a warp-wide load.
+//   With one lane a block (n > 32) the threads read their rows directly:
+//   there the staged copy, which no other work of the block overlaps,
+//   measured slower (PERF.md).
+// - A whole row (S = 1) sums its columns in order 0..n-1, the order of the
+//   Pallas column loop and of the first port. A split row sums each part in
+//   column order and adds the parts pairwise, (p0 + p1) + (p2 + p3): another
+//   rounding order, within float32 rounding of the plain version.
+// - The rhs vector is double-buffered in shared memory with one barrier an
+//   iteration. A part's columns start at p * PL, PL >= max(L, C) with
+//   PL / 4 odd, so the S parts' float4 reads fall on distinct banks; each
+//   thread sums all C register columns (those past L are zeros on both
+//   sides), so the loop has no branch and its loads issue ahead of the
+//   FMA chain.
+// - No tensor cores: each lane has one right-hand side an iteration and the
+//   iterations are serial, and wgmma would need TF32 or bf16 operands,
+//   whose ~3 digits the ADMM's 1e-6 tolerances cannot take.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxN = 239;            // K^-1 and the rhs fit 227 KB
+constexpr int kMaxN = 239;
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
 
 // NaN-propagating max, min and clip, matching jnp.maximum / jnp.minimum:
 // fmaxf / fminf drop a NaN, and a NaN lane must never read as converged
@@ -43,38 +75,92 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || b != b) ? a + b : (a < b ? a : b);
 }
 
-__host__ __device__ __forceinline__ int col_stride(int n) { return n | 1; }
-
-__host__ __device__ __forceinline__ size_t smem_bytes(int n) {
-  return sizeof(float) * ((size_t)n * col_stride(n) + 2 * (size_t)n);
+// the part length L of a row of n columns in S parts, and a part's stride
+// in the rhs vector: room for all C register columns, m / 4 odd so S <= 4
+// parts read distinct banks
+__host__ __device__ __forceinline__ int part_len(int n, int S) {
+  return ((n + S - 1) / S + 3) / 4 * 4;
+}
+__host__ __device__ __forceinline__ int part_stride(int L, int C) {
+  const int m = L > C ? L : C;
+  return (m / 4) % 2 ? m : m + 4;
 }
 
-__global__ void admm_big_kernel(const float* __restrict__ kinv,
-                                const float* __restrict__ q_in,
-                                const float* __restrict__ lb_in,
-                                const float* __restrict__ ub_in,
-                                const float* __restrict__ rho_in,
-                                const float* __restrict__ x_in,
-                                const float* __restrict__ z_in,
-                                const float* __restrict__ y_in,
-                                float* __restrict__ x_out, float* __restrict__ z_out,
-                                float* __restrict__ y_out, int n, int iters, float sigma,
-                                float alpha) {
-  extern __shared__ float smem[];
-  const int ld = col_stride(n);
-  float* kcol = smem;           // kcol[j * ld + i] = K^-1[i, j]
-  float* rhs = smem + n * ld;   // two buffers of n
-  const size_t lane = blockIdx.x;
-  const float* kin = kinv + lane * n * n;
-  // coalesced read of the row-major inverse, stored column-major
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int r = e / n;
-    kcol[(e - r * n) * ld + r] = __ldg(kin + e);
-  }
+// the floats of a lane's shared region: the two rhs buffers of `vec`
+// floats, or the staged n x ld K^-1 where that is larger, rounded up to
+// whole float4s so every lane's buffers stay 16-byte aligned
+__host__ __device__ __forceinline__ int lane_region(int n, int ld, int vec, bool staged) {
+  const int floats = staged && n * ld > 2 * vec ? n * ld : 2 * vec;
+  return (floats + 3) / 4 * 4;
+}
 
-  const int i = threadIdx.x;
-  const bool own = i < n;  // threads past n only keep the barriers
-  const size_t at = lane * n + i;
+// the threads of a block of an instance at its largest n, NMAX
+__host__ __device__ constexpr int max_threads(int S, int LANES, int NMAX) {
+  return LANES > 1 ? 32 * LANES : (NMAX * S + 31) / 32 * 32;
+}
+
+template <int C, int S, int LANES, bool TAIL, int NMAX>
+__global__ void __launch_bounds__(max_threads(S, LANES, NMAX))
+admm_big_kernel(const float* __restrict__ kinv, const float* __restrict__ q_in,
+                const float* __restrict__ lb_in, const float* __restrict__ ub_in,
+                const float* __restrict__ rho_in, const float* __restrict__ x_in,
+                const float* __restrict__ z_in, const float* __restrict__ y_in,
+                float* __restrict__ x_out, float* __restrict__ z_out,
+                float* __restrict__ y_out, int B, int n, int iters, float sigma,
+                float alpha) {
+  extern __shared__ __align__(16) float smem[];
+  const int L = part_len(n, S), PL = part_stride(L, C);
+  const int tail = TAIL ? L - C : 0;      // columns of a part past the registers
+  const int T = blockDim.x / LANES;       // threads of a lane
+  const int slot = threadIdx.x / T;
+  const int t = threadIdx.x - slot * T;
+  const size_t lane = (size_t)blockIdx.x * LANES + slot;
+  if (LANES > 1 && lane >= (size_t)B) return;  // whole warps: no block barrier in this form
+  auto sync = [] {
+    if constexpr (LANES > 1) __syncwarp(); else __syncthreads();
+  };
+  // a lane's region: first the staged K^-1 (warp lanes), then the two rhs
+  // buffers of S * PL; the TAIL form's columns after all lanes
+  const int ld = n | 1;
+  const int region = lane_region(n, ld, S * PL, LANES > 1);
+  float* rhs = smem + slot * region;
+  float* tailk = smem + LANES * region;  // tailk[c * T + t]
+
+  const int i = t / S, p = t % S;
+  const bool own = i < n;  // threads past the last row hold zeros and keep the barriers
+  const int col0 = p * L;
+  const float* klane = kinv + lane * n * n;
+  float kr[C];
+  if constexpr (LANES == 1) {
+    // each thread reads its row part from device memory
+    const float* krow = klane + (size_t)(own ? i : 0) * n;
+#pragma unroll
+    for (int k = 0; k < C; ++k) kr[k] = (own && k < L && col0 + k < n) ? __ldg(krow + col0 + k) : 0.0f;
+    if (TAIL) {
+      for (int c = 0; c < tail; ++c) {
+        const int col = col0 + C + c;
+        tailk[c * T + t] = (own && col < n) ? __ldg(krow + col) : 0.0f;
+      }
+    }
+  } else {
+    // a warp lane stages its K^-1 through shared memory: coalesced reads of
+    // the n x n block, then each thread takes its row from rows of odd
+    // stride ld (no bank conflicts); the stage is the rhs buffers' space
+    float* stage = rhs;
+#pragma unroll 8
+    for (int e = t; e < n * n; e += T) {
+      const int r = e / n;
+      stage[r * ld + e - r * n] = __ldg(klane + e);
+    }
+    sync();
+    const float* srow = stage + (own ? i : 0) * ld + col0;
+#pragma unroll
+    for (int k = 0; k < C; ++k) kr[k] = (own && k < L && col0 + k < n) ? srow[k] : 0.0f;
+    sync();
+  }
+  for (int e = t; e < 2 * S * PL; e += T) rhs[e] = 0.0f;
+  const int pos = (i / L) * PL + i % L;  // row i's entry in the rhs vector
+  const size_t at = lane * n + (own ? i : 0);
   float q = 0.f, lb = 0.f, ub = 0.f, x = 0.f, z = 0.f, y = 0.f;
   if (own) {
     q = __ldg(q_in + at);
@@ -86,30 +172,76 @@ __global__ void admm_big_kernel(const float* __restrict__ kinv,
   }
   const float rho = __ldg(rho_in + lane);
   const float one_m_alpha = 1.0f - alpha;
-  const float* col = kcol + i;
-  __syncthreads();
+  sync();
 
   for (int it = 0; it < iters; ++it) {
-    float* v = rhs + (it & 1) * n;
-    if (own) v[i] = sigma * x - q + rho * z - y;
-    __syncthreads();
-    if (own) {
-      float acc = col[0] * v[0];
-#pragma unroll 8
-      for (int j = 1; j < n; ++j) acc += col[j * ld] * v[j];
-      x = acc;
-      const float z_arg = alpha * x + one_m_alpha * z;
-      const float z_new = nan_min(nan_max(z_arg + y / rho, lb), ub);
-      y = y + rho * (z_arg - z_new);
-      z = z_new;
+    float* v = rhs + (it & 1) * S * PL;
+    if (own && p == 0) v[pos] = sigma * x - q + rho * z - y;
+    sync();
+    const float* vp = v + p * PL;
+    const float4* v4 = reinterpret_cast<const float4*>(vp);
+    // all C columns, those past the part's L zeros in kr and in v: no
+    // branch between the loads, so they issue ahead of the FMA chain
+    float acc = 0.0f;
+#pragma unroll
+    for (int k4 = 0; k4 < C / 4; ++k4) {
+      const float4 r = v4[k4];
+      if (k4 == 0) acc = kr[0] * r.x; else acc += kr[4 * k4] * r.x;
+      acc += kr[4 * k4 + 1] * r.y;
+      acc += kr[4 * k4 + 2] * r.z;
+      acc += kr[4 * k4 + 3] * r.w;
     }
+    if (TAIL) {
+      for (int c = 0; c < tail; ++c) acc += tailk[c * T + t] * vp[C + c];
+    }
+#pragma unroll
+    for (int m = 1; m < S; m <<= 1) acc += __shfl_xor_sync(kFull, acc, m);
+    x = acc;
+    const float z_arg = alpha * x + one_m_alpha * z;
+    const float z_new = nan_min(nan_max(z_arg + y / rho, lb), ub);
+    y = y + rho * (z_arg - z_new);
+    z = z_new;
   }
 
-  if (own) {
+  if (own && p == 0) {
     x_out[at] = x;
     z_out[at] = z;
     y_out[at] = y;
   }
+}
+
+// dynamic shared memory of an instance at size n, and its threads a lane
+template <int C, int S, int LANES, bool TAIL>
+size_t smem_bytes(int n, int* threads) {
+  const int L = part_len(n, S), PL = part_stride(L, C);
+  const int T = LANES > 1 ? 32 : (n * S + 31) / 32 * 32;
+  if (threads) *threads = T;
+  const int tail = TAIL ? L - C : 0;
+  return sizeof(float) *
+         ((size_t)LANES * lane_region(n, n | 1, S * PL, LANES > 1) + (size_t)tail * T);
+}
+
+template <int C, int S, int LANES, bool TAIL, int NMAX>
+cudaError_t launch(const float* kinv, const float* q, const float* lb, const float* ub,
+                   const float* rho, const float* x, const float* z, const float* y,
+                   float* x_out, float* z_out, float* y_out, int B, int n, int iters,
+                   float sigma, float alpha, cudaStream_t stream) {
+  int T = 0;
+  const size_t smem = smem_bytes<C, S, LANES, TAIL>(n, &T);
+  auto kernel = admm_big_kernel<C, S, LANES, TAIL, NMAX>;
+  // above 48 KB dynamic shared memory must be opted into: once an instance,
+  // for its largest n (the need grows with n), so a launch makes no other
+  // API call and can be captured in a CUDA graph
+  static const size_t smem_max = smem_bytes<C, S, LANES, TAIL>(NMAX, nullptr);
+  static const cudaError_t attr =
+      smem_max > kDefaultSmem
+          ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max)
+          : cudaSuccess;
+  if (attr != cudaSuccess) return attr;
+  if (smem > smem_max) return cudaErrorInvalidValue;
+  kernel<<<(B + LANES - 1) / LANES, T * LANES, smem, stream>>>(
+      kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, B, n, iters, sigma, alpha);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -121,15 +253,12 @@ extern "C" int mpc4q_admm_big(const float* kinv, const float* q, const float* lb
                               float alpha, void* stream) {
   if (n < 1 || n > kMaxN || iters < 0) return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
-  const size_t smem = smem_bytes(n);
-  if (smem > kDefaultSmem) {
-    // above 48 KB (n >= 110) dynamic shared memory must be opted into
-    const cudaError_t attr = cudaFuncSetAttribute(
-        admm_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (attr != cudaSuccess) return attr;
-  }
-  const int threads = (n + 31) / 32 * 32;
-  admm_big_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, n, iters, sigma, alpha);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ARGS kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, B, n, iters, sigma, alpha, s
+  if (n <= 32) return launch<32, 1, 4, false, 32>(ARGS);
+  if (n <= 64) return launch<64, 1, 1, false, 64>(ARGS);
+  if (n <= 128) return launch<64, 2, 1, false, 128>(ARGS);
+  if (n <= 160) return launch<40, 4, 1, false, 160>(ARGS);
+  return launch<32, 4, 1, true, kMaxN>(ARGS);
+#undef ARGS
 }

@@ -9,8 +9,9 @@ shared library with a plain C interface, loaded with ctypes:
     nvcc -shared -o build/mpc4q_torch_kernels-<hash>.so build/*-<hash>.o
 
 The library's name carries a hash of the sources and flags, so an edited
-source is rebuilt. It is written to `build/` at the repository root. A
-missing nvcc or a failed build raises; there is no fallback.
+source is rebuilt. It is written to `build/` at the repository root, with
+ptxas's report (registers, spills) beside it. A missing nvcc or a failed
+build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -32,9 +33,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # P, q, lb, ub, x0, y0, rho0, d, z, y, aux, B, n, iters, rounds,
+    # P, q, lb, ub, x0, y0, rho0, z, y, aux, B, n, iters, rounds, scaled,
     # rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs, acc_rel, stream
-    "mpc4q_boxqp_small": [_P] * 11 + [_I] * 4 + [_F] * 7 + [_P],
+    "mpc4q_boxqp_small": [_P] * 10 + [_I] * 5 + [_F] * 7 + [_P],
     # ar, ai, out_r, out_i, B, d, taylor_k, max_squarings, stream
     "mpc4q_expm_small": [_P] * 4 + [_I] * 4 + [_P],
     # kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, B, n, iters,
@@ -44,7 +45,7 @@ _SIGNATURES = {
 
 _lib = None
 build_seconds = None  # wall time of the nvcc runs of this process, if any
-ptxas_log = ""        # their -Xptxas -v report: registers, shared memory, spills
+ptxas_log = ""        # the library's -Xptxas -v report: registers, shared memory, spills
 
 
 def _nvcc() -> str:
@@ -89,6 +90,7 @@ def library() -> ctypes.CDLL:
         digest.update(path.read_bytes())
     tag = digest.hexdigest()[:16]
     out = _BUILD / f"mpc4q_torch_kernels-{tag}.so"
+    report_path = out.with_suffix(".ptxas.log")
     if not out.exists():
         nvcc = _nvcc()
         _BUILD.mkdir(parents=True, exist_ok=True)
@@ -102,8 +104,9 @@ def library() -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
         build_seconds = time.perf_counter() - t0
-        ptxas_log = report
+        report_path.write_text(report)
         os.replace(tmp, out)
+    ptxas_log = report_path.read_text() if report_path.exists() else ""
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -15,14 +15,18 @@ import torch
 from ..solvers.boxqp import admm_iters
 from . import _build
 
-# the largest n whose K^-1 (with its odd column stride) and the two rhs
-# buffers fit the 227 KB of shared memory a block may use
+# the largest n the kernel takes (cnot_state's n = 150 is the largest preset)
 MAX_N = 239
 
 
-def smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one block at size n (csrc/admm_big.cu)."""
-    return 4 * (n * (n | 1) + 2 * n)
+def admm_big_work(B: int, n: int, iters: int):
+    """The work of one `admm_big` call, counted from its shapes (FMA = 2
+    flops): per lane iters (2n^2 + 8n) flops and 4 (n^2 + 9n + 1) bytes -
+    K^-1, q, lb, ub, x, z, y and rho read once, x, z and y written once.
+
+    :return: (flops, bytes).
+    """
+    return B * iters * (2 * n * n + 8 * n), 4 * B * (n * n + 9 * n + 1)
 
 
 def admm_iters_ref(kinv, q, lb, ub, rho, x, z, y, *, iters: int, sigma: float,

@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..solvers.boxqp import (BoxQPAux, BoxQPParams, accept_rule, jacobi_scale_boxqp,
-                             solve_boxqp_fixed)
+from ..solvers.boxqp import BoxQPAux, BoxQPParams, accept_rule, solve_boxqp_fixed
 from . import _build
 from .admm_big import admm_big
 
@@ -27,6 +26,23 @@ def _params(iters, rounds, rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs, a
     return BoxQPParams(rho0=rho_scale, sigma=sigma, alpha=alpha, eps_abs=eps_abs,
                        eps_rel=eps_rel, max_iter=iters, n_rounds=rounds,
                        accept_abs=acc_abs, accept_rel=acc_rel, **kw)
+
+
+def boxqp_small_work(B: int, n: int, iters: int, rounds: int, *, x0: bool = True,
+                     y0: bool = True, rho0: bool = True):
+    """The work of one `boxqp_small` call, counted from its shapes (FMA = 2
+    flops): per lane rounds * (2n^3 Gauss-Jordan + iters (2n^2 + 8n) ADMM
+    + 2n^2 + 12n residuals) flops, and 4 (n^2 + 7n + 9) bytes: P, q, lb, ub,
+    x0, y0 and rho0 read once, z, y and the 8 aux rows written once, less
+    4n (4 for rho0) for each warm start the call leaves out. The scaled
+    form reads no more (the kernel forms d itself); its equilibration,
+    ~2n^2 + 8n flops, is not counted.
+
+    :return: (flops, bytes).
+    """
+    flops = rounds * (2 * n ** 3 + iters * (2 * n ** 2 + 8 * n) + 2 * n ** 2 + 12 * n)
+    words = n * n + 5 * n + 8 + n * (bool(x0) + bool(y0)) + bool(rho0)
+    return B * flops, 4 * B * words
 
 
 def boxqp_small_ref(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int,
@@ -76,34 +92,23 @@ def boxqp_small(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int, rounds
                               or tuple(t.shape) != shape):
             raise ValueError(f"boxqp_small: {name} must be float32 {shape} on {P.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    P = 0.5 * (P + P.transpose(1, 2))
-    d = None
-    if scale:
-        # equilibrated outside the kernel, as boxqp_pallas does
-        P, q, lb, ub, x0, y0, d = jacobi_scale_boxqp(P, q, lb, ub, x0, y0)
-    soa = lambda t: t.reshape(B, -1).T.contiguous()
-    zeros = torch.zeros((n, B), dtype=torch.float32, device=P.device)
-    x0_ = zeros if x0 is None else soa(x0)
-    y0_ = zeros if y0 is None else soa(y0)
-    rho0_ = (torch.zeros(B, dtype=torch.float32, device=P.device) if rho0 is None
-             else rho0.contiguous())
-    Ps, q_, lb_, ub_ = soa(P), soa(q), soa(lb), soa(ub)
-    d_ = None if d is None else soa(d)
-    z = torch.empty((n, B), dtype=torch.float32, device=P.device)
-    y = torch.empty((n, B), dtype=torch.float32, device=P.device)
+    # the kernel symmetrizes, scales and unscales itself: one launch a solve.
+    # contiguous() is a no-op on the runner's tensors; the copies it makes of
+    # others stay referenced here until the launch is queued
+    P, q, lb, ub, x0, y0, rho0 = (None if t is None else t.contiguous()
+                                  for t in (P, q, lb, ub, x0, y0, rho0))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    z = torch.empty((B, n), dtype=torch.float32, device=P.device)
+    y = torch.empty((B, n), dtype=torch.float32, device=P.device)
     aux = torch.empty((len(BoxQPAux._fields), B), dtype=torch.float32, device=P.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(P.device).cuda_stream
     rc = lib.mpc4q_boxqp_small(
-        Ps.data_ptr(), q_.data_ptr(), lb_.data_ptr(), ub_.data_ptr(), x0_.data_ptr(),
-        y0_.data_ptr(), rho0_.data_ptr(), None if d_ is None else d_.data_ptr(),
-        z.data_ptr(), y.data_ptr(), aux.data_ptr(), B, n, int(iters), int(rounds),
-        rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs, acc_rel, stream)
+        ptr(P), ptr(q), ptr(lb), ptr(ub), ptr(x0), ptr(y0), ptr(rho0), z.data_ptr(),
+        y.data_ptr(), aux.data_ptr(), B, n, int(iters), int(rounds), int(scale), rho_scale,
+        sigma, alpha, eps_abs, eps_rel, acc_abs, acc_rel, stream)
     _build.check(rc, "boxqp_small")
     boxqp_small.launches += 1
-    z, y = z.T, y.T
-    if d is not None:
-        z, y = d * z, y / d
     return z, y, BoxQPAux(*aux.unbind(0))
 
 

@@ -16,6 +16,18 @@ from . import _build
 SIZES = (2, 3, 4)
 
 
+def expm_small_work(B: int, d: int, taylor_k: int, squarings: int = 0):
+    """The work of one `expm_small` call, counted from its shapes: per
+    matrix taylor_k (8d^3 + 2d^2) flops of Horner Taylor (a complex FMA is 8
+    flops) and 16 d^2 bytes (complex64 in and out), plus 8d^3 flops for
+    each of the `squarings` the call's matrices take in all (0 at
+    max_squarings = 0). The norm and the scaling are not counted.
+
+    :return: (flops, bytes).
+    """
+    return B * taylor_k * (8 * d ** 3 + 2 * d * d) + squarings * 8 * d ** 3, 16 * d * d * B
+
+
 def expm_small_ref(A: torch.Tensor, taylor_k: int = 18, max_squarings: int = 12) -> torch.Tensor:
     """Plain version of the kernel: ops/expm.expm_taylor in the same form -
     no scaling or squaring at max_squarings = 0, else per-matrix squarings up

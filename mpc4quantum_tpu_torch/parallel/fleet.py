@@ -14,16 +14,17 @@ from ..plants.lindblad import LindbladPlant
 
 def make_scenario_batch(base_plant: Plant, n: int, detune_scale: float = 0.01,
                         generator: Optional[torch.Generator] = None,
-                        device=None, dtype: torch.dtype = torch.float64) -> Plant:
+                        device=None, dtype: Optional[torch.dtype] = None) -> Plant:
     """n plants with the coherent drift scaled by (1 + eps),
     eps ~ N(0, detune_scale^2): H0 of a quantum or synthesis plant, AH0 of
     a Lindblad plant, whose dissipator AD stays physical. The drive is left
     as it is.
 
     The draws are made in float64 by a CPU generator and only then moved to
-    `device` in `dtype` (the real dtype), so one seed gives the same plants
-    on the CPU and on the card. `torch.Generator` and `jax.random` give
-    different numbers from one seed; parity tests pass JAX-drawn plants in.
+    `device` in `dtype` (the real dtype; by default the base plant's device
+    and dtype), so one seed gives the same plants on the CPU and on the
+    card. `torch.Generator` and `jax.random` give different numbers from
+    one seed; parity tests pass JAX-drawn plants in.
     """
     generator = generator if generator is not None else torch.Generator().manual_seed(1)
     eps = detune_scale * torch.randn(n, generator=generator, dtype=torch.float64)
@@ -35,4 +36,6 @@ def make_scenario_batch(base_plant: Plant, n: int, detune_scale: float = 0.01,
     fields = {f.name: lanes(getattr(base_plant, f.name)) for f in dataclasses.fields(base_plant)}
     drift = "AH0" if isinstance(base_plant, LindbladPlant) else "H0"
     fields[drift] = fields[drift] * (1.0 + eps)[:, None, None]
-    return type(base_plant)(**fields).to(device, dtype)
+    return type(base_plant)(**fields).to(
+        base_plant.device if device is None else device,
+        base_plant.real_dtype if dtype is None else dtype)

@@ -14,6 +14,10 @@ Ported so far:
     (QP n = 15);
   - `lindblad_state`: the flagship's state preparation on an open system
     (amplitude damping sqrt(gamma) sigma_- in model and plant; QP n = 10).
+
+Every preset builds its tensors on the card (`device="cuda"`, float32)
+unless the caller asks for another device; on the CPU the dtype defaults
+to float64 (`default_dtype`).
 """
 
 from __future__ import annotations
@@ -72,15 +76,27 @@ class DistanceExit:
         return (d.conj() * d).real.sum(dim=-1) < self.threshold
 
 
+def default_dtype(device, dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """The real dtype of a scenario on `device`: `dtype` where given, else
+    float32 on a CUDA device (the runner on the card takes float32 only)
+    and float64 elsewhere."""
+    if dtype is not None:
+        return dtype
+    return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
 def scenario_from_arrays(name, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du, target_state,
-                         config: MPCConfig, plant: Plant, exit_below=None, device=None,
-                         dtype: torch.dtype = torch.float64) -> Scenario:
+                         config: MPCConfig, plant: Plant, exit_below=None, device="cuda",
+                         dtype: Optional[torch.dtype] = None) -> Scenario:
     """Build a Scenario from numpy/tensor arrays, cast to `dtype` (the real
-    dtype; complex arrays take its complex partner) on `device`.
+    dtype, `default_dtype` when None; complex arrays take its complex
+    partner) on `device`: the card unless the caller asks for the CPU. On a
+    machine without a card the default raises; nothing falls back.
 
     :param exit_below: None, or (target (dim_e,), threshold) of a
         DistanceExit condition.
     """
+    dtype = default_dtype(device, dtype)
     cdtype = complex_dtype(dtype)
     cx = lambda a: torch.tensor(np.asarray(a, complex)).to(device, cdtype)
     re = lambda a: torch.tensor(np.asarray(a, float)).to(device, dtype)
@@ -122,8 +138,8 @@ def _targets(targ, dim_u, n_steps, H):
     return np.tile(targ[:, None], (1, n_steps + H + 1)), np.zeros((dim_u, n_steps + H))
 
 
-def not_state(order: int = 2, detune: float = 0.99, device=None,
-              dtype: torch.dtype = torch.float64) -> Scenario:
+def not_state(order: int = 2, detune: float = 0.99, device="cuda",
+              dtype: Optional[torch.dtype] = None) -> Scenario:
     """Ideal qubit |0> -> |1> on a 1%-detuned plant: dt = 1, H = 10,
     n_steps = 20, sat = 2 pi 0.1, du = 0.5 sat."""
     dt, H, n_steps = 1.0, 10, 20
@@ -137,8 +153,8 @@ def not_state(order: int = 2, detune: float = 0.99, device=None,
         plant=plant, device=device, dtype=dtype)
 
 
-def not_state_freq(order: int = 1, detune: float = 0.99, device=None,
-                   dtype: torch.dtype = torch.float64) -> Scenario:
+def not_state_freq(order: int = 1, detune: float = 0.99, device="cuda",
+                   dtype: Optional[torch.dtype] = None) -> Scenario:
     """The NOT-state qubit measured every 5th step (measure_freq = 5):
     dt = 0.2, H = 50, n_steps = 100, sat = 2 pi 0.1, du = 0.1 sat."""
     dt, H, n_steps = 0.2, 50, 100
@@ -153,7 +169,7 @@ def not_state_freq(order: int = 1, detune: float = 0.99, device=None,
         plant=plant, device=device, dtype=dtype)
 
 
-def drag_state(order: int = 1, device=None, dtype: torch.dtype = torch.float64) -> Scenario:
+def drag_state(order: int = 1, device="cuda", dtype: Optional[torch.dtype] = None) -> Scenario:
     """3-level transmon |0> -> |1> with a leakage-penalized cost, which
     recovers DRAG-like pulses: dt = 0.25, H = 16, n_steps = 20,
     sat = 2 pi 0.25, anharmonicity -2 pi 0.1 / dt, du = 0.5 sat."""
@@ -184,8 +200,8 @@ def drag_state(order: int = 1, device=None, dtype: torch.dtype = torch.float64) 
         plant=plant, device=device, dtype=dtype)
 
 
-def not_gate(order: int = 1, n_steps: int = 50, device=None,
-             dtype: torch.dtype = torch.float64) -> Scenario:
+def not_gate(order: int = 1, n_steps: int = 50, device="cuda",
+             dtype: Optional[torch.dtype] = None) -> Scenario:
     """NOT-gate synthesis in process-matrix space (dim 16): dt = 0.05,
     H = 15, sat = 1, du = 0.25, benchmark control 0.5, Qf = 10 Q, exit
     once the process cost ||P - P_target||^2 < 1e-2.
@@ -215,8 +231,8 @@ def not_gate(order: int = 1, n_steps: int = 50, device=None,
         plant=plant, device=device, dtype=dtype)
 
 
-def lindblad_state(order: int = 2, detune: float = 0.99, gamma: float = 0.005, device=None,
-                   dtype: torch.dtype = torch.float64) -> Scenario:
+def lindblad_state(order: int = 2, detune: float = 0.99, gamma: float = 0.005, device="cuda",
+                   dtype: Optional[torch.dtype] = None) -> Scenario:
     """T1-limited qubit |0> -> |1>: the flagship's workload on an open
     system, amplitude damping L = sqrt(gamma) sigma_- in both the model (the
     order-k discretization of the Lindbladian drift) and the plant; dt = 1,

@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Where each fleet's device time goes, on one CUDA card.
+
+    python3 perf_fleets.py
+
+Runs each fleet of chip_smoke.FLEETS at its batch: one warm-up run, then
+one run under torch.profiler. Prints one JSON line a fleet - device time
+in all and by kernel, launches, and the busy share against the unprofiled
+wall time - then the card's name and power limit. The profiler on the
+card's host at times records no device activity; such a run is made again,
+up to three times. Without a CUDA device it exits 1.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def profiled(fn) -> list:
+    """(name, microseconds) of every device activity - kernel, copy, fill -
+    that fn() ran, by torch.profiler; made again, up to three times, while
+    the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        acts = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if acts:
+            return acts
+    raise RuntimeError("perf_fleets: the profiler recorded no device activity in three runs")
+
+
+def profile_fleets():
+    from mpc4quantum_tpu_torch import presets
+    from mpc4quantum_tpu_torch.benchfleet import make_runner, run_hostloop_fleet
+    from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
+
+    for name, spec in cs.FLEETS.items():
+        B = spec["batch"]
+        sc = cs.fleet_preset(presets, name)()
+        plants = make_scenario_batch(sc.plant, B, generator=torch.Generator().manual_seed(1))
+        metrics, _ = run_hostloop_fleet(sc, B, plants=plants, reps=2)
+        runner = make_runner(sc, plants)
+        args = (sc.x0, sc.model, plants, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf)
+        acts = profiled(lambda: runner.run(*args))
+        device = sum(t for _, t in acts)
+        by_kernel = {}
+        for key in ("boxqp_small_kernel", "admm_big_kernel", "expm_small_kernel"):
+            times = [t for n, t in acts if key in n]
+            by_kernel[key] = {"launches": len(times), "device_ms": sum(times) / 1e3,
+                              "device_us_a_launch": sum(times) / max(len(times), 1)}
+        wall = B / metrics["rollouts_per_s"]
+        cs.emit({"measure": "fleet", "preset": name, "batch": B, "wall_s": wall,
+                 "rollouts_per_s": metrics["rollouts_per_s"], "device_ms": device / 1e3,
+                 "busy": device / 1e6 / wall, "device_activities": len(acts),
+                 "kernels": by_kernel})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("perf_fleets: no CUDA device; this runs only on a GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    profile_fleets()
+    print(cs.smi_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpc4quantum_tpu_torch.kernels._graph import graph_node_types
 from mpc4quantum_tpu_torch.kernels.admm_big import MAX_N as ADMM_MAX_N, admm_big, admm_iters_ref
 from mpc4quantum_tpu_torch.kernels.boxqp import (boxqp_accept, boxqp_big, boxqp_small,
                                                  boxqp_small_ref)
@@ -42,9 +43,9 @@ def qp_batch(B, n, seed, device, spread=0.0):
     return [torch.tensor(a, dtype=torch.float32, device=device) for a in (P, q, lb, ub)]
 
 
-@pytest.mark.parametrize("n", [1, 4, 10, 15, 16])
+@pytest.mark.parametrize("n", range(1, 17))
 def test_boxqp_kernel_matches_plain(cuda, n):
-    B = 300  # not a multiple of the block size: the ragged edge is masked
+    B = 300  # not a multiple of the QPs in a block: the ragged edge is masked
     rng = np.random.default_rng(n)
     G = rng.normal(size=(B, n, n))
     P = np.einsum("bij,bkj->bik", G, G) + 0.5 * np.eye(n)
@@ -60,7 +61,7 @@ def test_boxqp_kernel_matches_plain(cuda, n):
     assert bool((boxqp_accept(ak, 1e-6, 1e-6, 1e-3, 1e-3) == boxqp_accept(ap, 1e-6, 1e-6, 1e-3, 1e-3)).all())
 
 
-@pytest.mark.parametrize("n", [4, 10, 16])
+@pytest.mark.parametrize("n", range(1, 17))
 def test_boxqp_kernel_scaled_matches_plain(cuda, n):
     B = 300
     P, q, lb, ub = qp_batch(B, n, seed=n, device=cuda, spread=1.0)
@@ -72,10 +73,14 @@ def test_boxqp_kernel_scaled_matches_plain(cuda, n):
     torch.testing.assert_close(ak.prim, ap.prim, rtol=1e-2, atol=1e-5)
 
 
-@pytest.mark.parametrize("n", [17, 32, 50, 150])
+@pytest.mark.parametrize("n", [1, 17, 31, 32, 33, 50, 64, 65, 128, 129, 150, 160, 161, 239])
 def test_admm_kernel_matches_plain(cuda, n):
-    """One block per lane, n rows rounded up to whole warps; n = 150 takes
-    the path above 48 KB of shared memory."""
+    """Every instance and its edges: a warp per lane up to 32 columns, whole
+    rows in registers up to 64, rows split over 2 threads up to 128 and over
+    4 up to 160, then 32 columns of each part in registers and the rest in
+    shared memory (above 48 KB of it at n = 239). Split rows add their
+    parts in another order than the plain row sum: float32 rounding, well
+    inside the bound."""
     B = 300
     P, q, lb, ub = qp_batch(B, n, seed=n, device=cuda)
     rng = np.random.default_rng(n + 1)
@@ -124,8 +129,54 @@ def test_expm_kernel_matches_plain(cuda, d, taylor_k, max_squarings):
     torch.testing.assert_close(Ek, Ep, rtol=0, atol=1e-5 if max_squarings == 0 else 1e-4)
 
 
+@pytest.mark.parametrize("scale", [False, True])
+def test_boxqp_small_is_one_kernel(cuda, scale):
+    """The kernel symmetrizes, equilibrates and unscales itself: a whole
+    solve, warm-started, is one launch and nothing else on the card."""
+    P, q, lb, ub = qp_batch(64, 10, seed=5, device=cuda, spread=1.0)
+    x0, y0, rho0 = q * 0.1, q * 0.2, torch.ones(64, device=cuda)
+    call = lambda: boxqp_small(P, q, lb, ub, x0, y0, rho0, iters=10, rounds=2, scale=scale)
+    assert graph_node_types(call) == [0]  # one kernel node, nothing else
+
+
+def test_boxqp_small_takes_strided_inputs(cuda):
+    """Transposed P and strided vectors give the solve of their contiguous
+    copies: the wrapper's copies live until the launch."""
+    P, q, lb, ub = qp_batch(300, 10, seed=6, device=cuda)
+    wide = torch.stack([q, lb, ub, q * 0.5], dim=2)  # (B, n, 4): each [..., k] is strided
+    y0 = wide[..., 3]
+    zk, yk, ak = boxqp_small(P.transpose(1, 2), wide[..., 0], wide[..., 1], wide[..., 2],
+                             y0=y0, iters=10, rounds=2)
+    zc, yc, ac = boxqp_small(P.transpose(1, 2).contiguous(), q, lb, ub, y0=y0.contiguous(),
+                             iters=10, rounds=2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(zk, zc, rtol=0, atol=0)
+    torch.testing.assert_close(ak.rho, ac.rho, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("scale", [False, True])
+def test_boxqp_kernel_nan_lane_is_not_accepted(cuda, scale):
+    """A NaN in one lane's q gives that lane NaN residuals, which are never
+    accepted, and stays in its lane: the team's other threads and the
+    warp's other QPs are untouched."""
+    B, n, bad = 300, 10, 7
+    P, q, lb, ub = qp_batch(B, n, seed=11, device=cuda, spread=1.0 if scale else 0.0)
+    q[bad, 3] = float("nan")
+    zk, yk, ak = boxqp_small(P, q, lb, ub, iters=12, rounds=3, scale=scale)
+    zp, yp, ap = boxqp_small_ref(P, q, lb, ub, iters=12, rounds=3, scale=scale)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ak.prim[bad])) and bool(torch.isnan(ak.dual[bad]))
+    flags = boxqp_accept(ak, 1e-6, 1e-6, 1e-3, 1e-3)
+    assert not bool(flags[bad])
+    rest = torch.arange(B, device=cuda) != bad
+    assert bool(torch.isfinite(ak.prim[rest]).all() & torch.isfinite(zk[rest]).all())
+    torch.testing.assert_close(zk[rest], zp[rest], rtol=0,
+                               atol=1e-3 * max(1.0, float(zp[rest].abs().max())))
+    assert bool((flags == boxqp_accept(ap, 1e-6, 1e-6, 1e-3, 1e-3)).all())
+
+
 def test_boxqp_kernel_n15_warm_form_matches_plain(cuda):
-    """not_gate's shape: n = 15 (57.6 KB of shared memory a block), its cold
+    """not_gate's shape: n = 15 (a team of 16 threads a QP), its cold
     3x12 form and the steady 2x10 form started from the cold dual and rho."""
     B, n = 1024, 15
     P, q, lb, ub = qp_batch(B, n, seed=15, device=cuda)
@@ -171,7 +222,7 @@ def test_plant_steps_on_the_card_match_the_cpu(cuda):
 
     rng = np.random.default_rng(9)
     for make, budget in ((presets.not_gate, (12, 0)), (presets.lindblad_state, (12, 1))):
-        sc = make()
+        sc = make(device="cpu", dtype=torch.float64)
         plants = make_scenario_batch(sc.plant, 256)
         dim = sc.x0.shape[0]
         x = torch.tensor(rng.normal(size=(256, dim)) + 1j * rng.normal(size=(256, dim)))

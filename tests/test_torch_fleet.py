@@ -73,7 +73,8 @@ def port_scenario(sc, plants, dtype):
         Q=a(sc.Q), R=a(sc.R), Qf=a(sc.Qf), sat=sc.sat, du=sc.du,
         target_state=a(sc.target_state), config=config,
         plant={k: a(getattr(sc.plant, k)) for k in ("H0", "H1s", "sigma")},
-        plants={k: a(getattr(plants, k)) for k in ("H0", "H1s", "sigma")}, dtype=dtype)
+        plants={k: a(getattr(plants, k)) for k in ("H0", "H1s", "sigma")}, device="cpu",
+        dtype=dtype)
 
 
 def test_fleet_float64_matches_jax(reference):
@@ -160,7 +161,7 @@ def test_freq_float32_tracks_float64_before_branching():
 
     fids = []
     for dtype in (torch.float64, torch.float32):
-        sc = presets.not_state_freq(dtype=dtype)
+        sc = presets.not_state_freq(device="cpu", dtype=dtype)
         sc = dataclasses.replace(sc, config=dataclasses.replace(sc.config, n_steps=30))
         _, out = run_hostloop_fleet(sc, 8)
         fids.append(fleet_fidelity(sc, out["final_x"]))
@@ -181,7 +182,7 @@ def test_noisy_plants_are_refused():
     from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
     from mpc4quantum_tpu_torch.plants.quantum import QuantumPlant
 
-    sc = presets.not_state()
+    sc = presets.not_state(device="cpu", dtype=torch.float64)
     plants = make_scenario_batch(sc.plant, 2)
     noisy = QuantumPlant(plants.H0, plants.H1s, plants.sigma + 0.01)
     with pytest.raises(NotImplementedError, match="measurement noise"):

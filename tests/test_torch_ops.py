@@ -223,7 +223,7 @@ def test_dmdc_predict_matches_jax():
 
 def test_not_state_preset_matches_jax():
     sc_j = jpresets.not_state()
-    sc_t = tpresets.not_state()
+    sc_t = tpresets.not_state(device="cpu", dtype=torch.float64)
     for name in ("x0", "X_targ", "U_targ", "Q", "R", "Qf", "target_state"):
         close(getattr(sc_t, name), getattr(sc_j, name))
     close(sc_t.model.A, sc_j.model.A)
@@ -235,7 +235,7 @@ def test_not_state_preset_matches_jax():
 
 
 def test_scenario_batch_same_plants_on_any_dtype():
-    base = tpresets.not_state().plant
+    base = tpresets.not_state(device="cpu", dtype=torch.float64).plant
     g = lambda: torch.Generator().manual_seed(3)
     p64 = make_scenario_batch(base, 32, generator=g())
     p32 = make_scenario_batch(base, 32, generator=g(), dtype=torch.float32)
@@ -259,7 +259,7 @@ def test_advance_matches_jax(measure_freq, step):
     rng = np.random.default_rng(19 + step)
     B, dim_x, H = 5, 4, 10
     sc_j = jpresets.not_state()
-    sc_t = tpresets.not_state()
+    sc_t = tpresets.not_state(device="cpu", dtype=torch.float64)
     cfg_j = dataclasses.replace(sc_j.config, measure_freq=measure_freq)
     cfg_t = dataclasses.replace(sc_t.config, measure_freq=measure_freq)
     plants_j, keys = jax_batch(jax.random.PRNGKey(0), sc_j.plant, B)

@@ -93,7 +93,7 @@ def port_scenario(sc, plants, dtype):
         sc.name, x0=a(sc.x0), A=a(sc.model.A), X_targ=a(sc.X_targ), U_targ=a(sc.U_targ),
         Q=a(sc.Q), R=a(sc.R), Qf=a(sc.Qf), sat=sc.sat, du=sc.du,
         target_state=a(sc.target_state), config=config, plant=plant_fields(sc.plant),
-        plants=plant_fields(plants), exit_below=exit_below, dtype=dtype)
+        plants=plant_fields(plants), exit_below=exit_below, device="cpu", dtype=dtype)
 
 
 # ---------------------------------------------------------------- generators
@@ -165,10 +165,10 @@ def test_lindblad_step_matches_jax():
 
 def test_scenario_batch_scales_the_coherent_drift():
     g = lambda: torch.Generator().manual_seed(5)
-    base = tpresets.lindblad_state().plant
+    base = tpresets.lindblad_state(device="cpu", dtype=torch.float64).plant
     lanes = make_scenario_batch(base, 16, generator=g())
-    eps = make_scenario_batch(tpresets.not_state().plant, 16, generator=g()).H0[:, 0, 0] \
-        / tpresets.not_state().plant.H0[0, 0] - 1
+    flagship = tpresets.not_state(device="cpu", dtype=torch.float64).plant
+    eps = make_scenario_batch(flagship, 16, generator=g()).H0[:, 0, 0] / flagship.H0[0, 0] - 1
     assert 0.002 < float(eps.real.std()) < 0.02
     close(lanes.AH0, base.AH0 * (1 + eps)[:, None, None])
     close(lanes.AD, base.AD.expand(16, -1, -1))
@@ -199,7 +199,8 @@ def test_norm_bounds_and_expm_budget_match_jax(name):
 @pytest.mark.parametrize("name", sorted(FLEETS))
 def test_preset_matches_jax(name):
     kw = FLEETS[name][0]
-    sc_j, sc_t = getattr(jpresets, name)(**kw), tpresets.PRESETS[name](**kw)
+    sc_j = getattr(jpresets, name)(**kw)
+    sc_t = tpresets.PRESETS[name](device="cpu", dtype=torch.float64, **kw)
     for f in ("x0", "X_targ", "U_targ", "Q", "R", "Qf", "target_state"):
         close(getattr(sc_t, f), getattr(sc_j, f))
     close(sc_t.model.A, sc_j.model.A)
@@ -216,7 +217,7 @@ def test_preset_matches_jax(name):
 def test_distance_exit_matches_jax():
     """The port's not_gate condition against the reference's closure, on
     lanes on both sides of the threshold; only the current state counts."""
-    sc_j, sc_t = jpresets.not_gate(), tpresets.not_gate()
+    sc_j, sc_t = jpresets.not_gate(), tpresets.not_gate(device="cpu", dtype=torch.float64)
     rng = np.random.default_rng(7)
     pf = np.asarray(sc_j.target_state)
     scale = np.sqrt(NOT_GATE_EXIT) * np.array([0.5, 0.9, 0.99, 1.01, 1.5, 3.0])
@@ -246,7 +247,7 @@ def test_advance_exit_condition_matches_jax():
       3 done earlier with code 1              -> frozen, code 1;
       4 far, step failed with code 3          -> code 3, done;
       5 near, done earlier with code 2        -> frozen, code 2."""
-    sc_j, sc_t = jpresets.not_gate(), tpresets.not_gate()
+    sc_j, sc_t = jpresets.not_gate(), tpresets.not_gate(device="cpu", dtype=torch.float64)
     rng = np.random.default_rng(8)
     n, H, dim_x = 6, sc_t.config.horizon, 16
     pf = np.asarray(sc_j.target_state)
@@ -348,7 +349,7 @@ def test_lindblad_float32_tracks_float64_before_branching():
     bound allows sets in at step 9."""
     fids = []
     for dtype in (torch.float64, torch.float32):
-        sc = tpresets.lindblad_state(dtype=dtype)
+        sc = tpresets.lindblad_state(device="cpu", dtype=dtype)
         sc = dataclasses.replace(sc, config=dataclasses.replace(sc.config, n_steps=8))
         _, out = run_hostloop_fleet(sc, 8)
         fids.append(fleet_fidelity(sc, out["final_x"]))
@@ -358,7 +359,7 @@ def test_lindblad_float32_tracks_float64_before_branching():
 def test_synthesis_plant_is_noiseless():
     """The synthesis plant has no sigma, as the reference's has none; the
     runner takes it as noiseless and does not refuse it."""
-    sc = tpresets.not_gate(n_steps=2)
+    sc = tpresets.not_gate(n_steps=2, device="cpu", dtype=torch.float64)
     assert not hasattr(sc.plant, "sigma")
     m, out = run_hostloop_fleet(sc, 2)
     assert out["final_x"].shape == (2, 16) and m["completed_frac"] == 1.0

@@ -17,7 +17,11 @@ calls, replayed), the plain version's time, the bound - the larger of the
 work's operations over the card's float32 peak and its bytes over the
 memory rate - and for `expm_small` the time of `torch.linalg.matrix_exp`
 on the same input; a `boxqp_small` solve must put exactly one kernel on
-the card (the nodes of a CUDA graph captured from it). Then it drives
+the card (the nodes of a CUDA graph captured from it), and so must an
+`expm_small` call, which it also checks at B = 1024, the shape of
+`not_gate` and `not_state_freq`. Beside every device time it prints the
+launch floor: the replay of a graph of 20 dependent one-element in-place
+adds, over 20, the least time a graph node takes on the card. Then it drives
 five fleets through `run_hostloop_fleet`, built with no device argument
 (so on the card, in float32) - the flagship `not_state` (B = 16384),
 `not_gate` (B = 1024, 90 steps, every lane exits early), `lindblad_state`
@@ -116,7 +120,8 @@ ADMM_SHAPES = ((2048, 32, 50), (2048, 32, 19), (1024, 50, 40), (256, 150, 50), (
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # ptxas must report no spill stores or loads in these instances
-NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel")
+NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
+            "expm_small_kernelILi2E", "expm_small_kernelILi3E", "expm_small_kernelILi4E")
 # boxqp_big, whole solves: drag's cold warm-phase and warm-started steady
 # forms (Gauss-Jordan), freq's (Newton-Schulz); the warm form starts from
 # the cold solve's dual and rho
@@ -171,6 +176,13 @@ def graph_us(fn, reps: int = TIMING_REPS) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) * 1e3 / reps
+
+
+def launch_floor_us() -> float:
+    """The least time a graph node takes on the card: graph_us of a
+    one-element in-place add, 20 of them dependent on each other."""
+    x = torch.zeros(1, device=DEVICE)
+    return graph_us(lambda: x.add_(1.0))
 
 
 def bound(work) -> dict:
@@ -237,7 +249,8 @@ def phase_build(build) -> dict:
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": build.build_seconds,
           "ptxas": report})
     checked = {name: rec for name, rec in report.items() if any(w in name for w in NO_SPILL)}
-    require(len(checked) == 4 + 5, f"expected 4 boxqp_small and 5 admm_big instances: {checked}")
+    require(len(checked) == 4 + 5 + 3,
+            f"expected 4 boxqp_small, 5 admm_big and 3 expm_small instances: {checked}")
     spilled = {name: rec for name, rec in checked.items()
                if rec.get("spill_stores", -1) != 0 or rec.get("spill_loads", -1) != 0}
     require(not spilled, f"spills in {spilled}")
@@ -332,7 +345,9 @@ def expm_batch(B: int, d: int, seed: int, max_norm: float, min_norm: float):
     A = -0.5j * (G + np.conj(np.swapaxes(G, 1, 2)))
     norms = np.exp(rng.uniform(np.log(min_norm), np.log(max_norm), size=B))
     A = A * (norms / np.abs(A).sum(axis=1).max(axis=1))[:, None, None]
-    return torch.tensor(A, dtype=torch.complex64, device=DEVICE)
+    # row-major, as the plants hand it to the kernel (numpy may keep the
+    # swapped axes' order in the result)
+    return torch.tensor(np.ascontiguousarray(A), dtype=torch.complex64, device=DEVICE)
 
 
 def liouvillian_batch(B: int, seed: int, max_norm: float, min_norm: float):
@@ -352,19 +367,23 @@ def liouvillian_batch(B: int, seed: int, max_norm: float, min_norm: float):
     A = comm(H0) + D + rng.uniform(-1, 1, size=(B, 1, 1)) * comm(H1)
     norms = np.exp(rng.uniform(np.log(min_norm), np.log(max_norm), size=B))
     A = A * (norms / np.abs(A).sum(axis=1).max(axis=1))[:, None, None]
-    return torch.tensor(A, dtype=torch.complex64, device=DEVICE)
+    # row-major, as the plants hand it to the kernel (numpy may keep the
+    # swapped axes' order in the result)
+    return torch.tensor(np.ascontiguousarray(A), dtype=torch.complex64, device=DEVICE)
 
 
-def phase_expm(expm_mod) -> dict:
+def phase_expm(expm_mod, graph_node_types, floor_us: float) -> dict:
     """expm_small: the flagship's d = 2 forms at its batch, drag's d = 3 at
-    (12, 2) on its batch with the plant's norm range, and lindblad's d = 4
-    at (12, 1) on non-normal Liouvillians across the 0- and 1-squaring
-    branches."""
-    rec = {"phase": "expm_small", "gpu": smi_line()}
+    (12, 2) on its batch with the plant's norm range, lindblad's d = 4 at
+    (12, 1) on non-normal Liouvillians across the 0- and 1-squaring
+    branches, and not_gate's and not_state_freq's d = 2 at (12, 0) on their
+    batch of 1024. Each call is one kernel on the card and nothing else."""
+    rec = {"phase": "expm_small", "gpu": smi_line(), "launch_floor_us": floor_us}
     cases = (("d2_12_0", BATCH, EXPM_D, 12, 0, 1e-3, 0.8),
              ("d2_18_12", BATCH, EXPM_D, 18, 12, 0.25, 2.0 ** 10),
              ("d3_12_2", 2048, 3, 12, 2, 0.05, 2.0),
-             ("d4_12_1", BATCH, 4, 12, 1, 0.05, 1.6))
+             ("d4_12_1", BATCH, 4, 12, 1, 0.05, 1.6),
+             ("d2_12_0_b1024", 1024, EXPM_D, 12, 0, 1e-3, 0.8))
     for name, B, d, k, sq, lo, hi in cases:
         A = (liouvillian_batch(B, seed=k + d, max_norm=hi, min_norm=lo) if d == 4
              else expm_batch(B, d, seed=k + d, max_norm=hi, min_norm=lo))
@@ -378,7 +397,10 @@ def phase_expm(expm_mod) -> dict:
         norm1 = A.abs().sum(dim=-2).amax(dim=-1)
         squarings = int(torch.clamp(torch.ceil(torch.log2(torch.clamp(norm1, min=1.0))),
                                     0, sq).sum()) if sq else 0
-        err = {"B": B, "d": d, "norm_range": [lo, hi],
+        nodes = graph_node_types(call_k)
+        require(nodes == [0], f"expm_small {name}: one call put {nodes} on the card "
+                              "(graph node types), not one kernel")
+        err = {"B": B, "d": d, "norm_range": [lo, hi], "graph_nodes": nodes,
                "max_abs_err": float((Ek - Ep).abs().max()),
                "max_abs_err_vs_f64": float((Ek.to(torch.complex128) - E64).abs().max()),
                "kernel_ms": cuda_ms(call_k), "device_us": graph_us(call_k),
@@ -553,7 +575,8 @@ def main() -> int:
     phase_toolchain(build)
     phase_build(build)
     qp = {n: phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, n) for n in QP_FORMS}
-    ex = phase_expm(expm_mod)
+    floor_us = launch_floor_us()
+    ex = phase_expm(expm_mod, graph_node_types, floor_us)
     ad = phase_admm(admm_mod, gj_inverse)
     phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds)
     counters = {"boxqp_small": boxqp_mod.boxqp_small, "expm_small": expm_mod.expm_small,
@@ -571,7 +594,7 @@ def main() -> int:
     # the line reports (the flagship's cold QP and expm, drag's
     # 50-iteration ADMM), every shape is in the phase lines above
     qp_runs = [qp[n][f] for n, (_, forms) in QP_FORMS.items() for f in forms]
-    ex_runs = [ex[f] for f in ("d2_12_0", "d2_18_12", "d3_12_2", "d4_12_1")]
+    ex_runs = [ex[f] for f in ("d2_12_0", "d2_18_12", "d3_12_2", "d4_12_1", "d2_12_0_b1024")]
     ad_runs = [ad[f"B{B}_n{n}_it{it}"] for B, n, it in ADMM_SHAPES]
     kernels = (("boxqp_small", "mpc4quantum_tpu/ops/pallas_qp.py:42", qp_runs,
                 max(max(r["max_dz"], r["max_dy"]) for r in qp_runs)),
@@ -584,7 +607,8 @@ def main() -> int:
          "replaces": replaces, "launches": total[name], "max_abs_err": err,
          "ms": rep["kernel_ms"], "device_ms": rep["device_us"] / 1e3, "plain_ms": rep["plain_ms"],
          "bound_ms": rep["bound_us"] / 1e3, "bound_us": rep["bound_us"],
-         "bound_by": rep["bound_by"], "library_ms": rep.get("library_ms")}
+         "bound_by": rep["bound_by"], "library_ms": rep.get("library_ms"),
+         "launch_floor_us": floor_us}
         for name, replaces, (rep, *_), err in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

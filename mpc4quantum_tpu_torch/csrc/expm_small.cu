@@ -1,5 +1,5 @@
-// Batched exponential of small complex matrices: one thread per matrix,
-// d in {2, 3, 4}.
+// Batched exponential of small complex matrices, d in {2, 3, 4}: a team of
+// T threads a matrix, thread j carrying column j of the Taylor chain.
 //
 // Replaces the Pallas TPU kernel mpc4quantum_tpu/ops/pallas_expm.py::_expm_kernel.
 // With max_squarings > 0 each matrix takes its 1-norm,
@@ -7,71 +7,133 @@
 // runs the Horner Taylor of degree taylor_k (P = I + A P / k for k = K..1)
 // and squares s times. max_squarings = 0 means the caller has certified
 // ||A||_1 <= 1 (plants/quantum.py::taylor_norm_bound): no norm, no scaling,
-// no squaring. The per-thread loop over its own s squarings gives the same
+// no squaring. Each team's loop over its own s squarings gives the same
 // result as the TPU kernel's masked squaring.
 //
-// Layout: re/im planes, each (d*d, B), element-major and lane-minor, so
-// consecutive threads read consecutive addresses. A complex product is four
-// real FMAs.
+// Layout: the caller's. A and out are row-major (B, d, d) complex64, re and
+// im interleaved (float2), so a matrix is 8 d^2 contiguous bytes and
+// neighbouring teams read neighbouring matrices; at even d a matrix is read
+// as float4s (A 16-byte aligned, which the wrapper ensures). One launch is
+// the whole call: no planes, no copies.
 //
-// What bounds it on the H100: a d = 2 matrix is 8 floats in and 8 out, with
-// 8 complex FMAs a Taylor term; the whole chain lives in registers (at d = 4
-// 96 floats a thread), so the kernel reads and writes each lane once and is
-// bound by that traffic and by its serial chain of taylor_k + s products.
+// What bounds it on the H100: not bytes (16 d^2 a matrix, 0.1-0.6 MB a
+// call), but the launch's own latency and each matrix's serial chain of
+// taylor_k + s dependent products, and at d = 4, B = 16384 the float32
+// issue of those chains (their flops are 1.6 us at the card's float32
+// peak, well under 1 us at the other shapes). The first port ran the chain
+// in one thread a matrix (96 floats of X, P and a product at d = 4) in
+// blocks of 128, so B = 1024 ran on 8 SMs and B = 16384 on 128 blocks with
+// nothing to hide the chain's latency.
+//
+// Design. A team of T threads (T = 2 at d = 2, 4 at d = 3 and 4; at d = 3
+// one lane of each team idles, so teams stay power-of-two aligned in the
+// warp) solves one matrix. Horner's step needs X and one column of P only:
+// column j of P_new is e_j + X P[:, j] / k, so thread j runs the whole
+// Taylor chain on its column with no exchange, holding all of X (2 d^2
+// floats, loaded once; the team's threads read the same 8 d^2 bytes, which
+// L1 serves) and 2 d floats of its column, about 48 floats at d = 4. The
+// 1-norm is computed by every thread alone from its copy of X, with a
+// NaN-propagating max and clip (jnp.maximum / jnp.clip keep a NaN, fmaxf
+// drops it): a matrix holding a NaN comes out all NaN, as from the TPU
+// kernel. A squaring needs all of P: column j of P^2 is P P[:, j], summed
+// over m = 0..d-1 with column m gathered from thread m by __shfl_sync over
+// the team's lanes only, so teams of one warp may take different s. Every
+// output element sums m = 0..d-1 in the order of the first port and the
+// plain version (ops/expm.py::expm_taylor), each term's two real products
+// as two FMAs into the sum: 2d float32 instructions an element, where
+// `acc += a*b - c*d` compiles to three (multiply, FMA, add), which saves a
+// third of a step's float32 issue. The differences are FMA contraction's.
+// 1/k comes from a table in constant memory (the same IEEE quotients), not
+// a division in each step.
+//
+// Block size from B and d: the largest of 128, 64 and 32 threads that still
+// gives the grid two blocks for each of the card's 132 SMs, else 32. So
+// d = 4 at B = 16384 runs 512 blocks of 128, d = 2 at B = 16384 512 blocks
+// of 64, d = 3 at B = 2048 256 blocks of 32 and d = 2 at B = 1024 64 blocks
+// of 32, against 128, 128, 16 and 8 blocks of 128 one thread a matrix.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 128;
+constexpr int kMinBlocks = 2 * 132;  // two blocks for each SM of an H100
 
-template <int D>
-__device__ __forceinline__ void cmatmul(const float* ar, const float* ai, const float* br,
-                                        const float* bi, float* cr, float* ci) {
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      float accr = ar[i * D] * br[j] - ai[i * D] * bi[j];
-      float acci = ar[i * D] * bi[j] + ai[i * D] * br[j];
-#pragma unroll
-      for (int k = 1; k < D; ++k) {
-        accr += ar[i * D + k] * br[k * D + j] - ai[i * D + k] * bi[k * D + j];
-        acci += ar[i * D + k] * bi[k * D + j] + ai[i * D + k] * br[k * D + j];
-      }
-      cr[i * D + j] = accr;
-      ci[i * D + j] = acci;
-    }
-  }
+__host__ __device__ constexpr int team_width(int d) { return d <= 2 ? 2 : 4; }
+
+// 1/k for k <= 32, rounded as the division 1.0f / k rounds
+constexpr int kInvMax = 32;
+__constant__ float kInv[kInvMax + 1] = {
+    0.0f,        1.0f,        1.0f / 2,  1.0f / 3,  1.0f / 4,  1.0f / 5,  1.0f / 6,
+    1.0f / 7,    1.0f / 8,    1.0f / 9,  1.0f / 10, 1.0f / 11, 1.0f / 12, 1.0f / 13,
+    1.0f / 14,   1.0f / 15,   1.0f / 16, 1.0f / 17, 1.0f / 18, 1.0f / 19, 1.0f / 20,
+    1.0f / 21,   1.0f / 22,   1.0f / 23, 1.0f / 24, 1.0f / 25, 1.0f / 26, 1.0f / 27,
+    1.0f / 28,   1.0f / 29,   1.0f / 30, 1.0f / 31, 1.0f / 32};
+
+// one complex term of a sum, re += ar br - ai bi and im += ar bi + ai br,
+// as two FMAs each
+__device__ __forceinline__ void cfma(float ar, float ai, float br, float bi, float& re,
+                                     float& im) {
+  re = fmaf(-ai, bi, fmaf(ar, br, re));
+  im = fmaf(ai, br, fmaf(ar, bi, im));
+}
+
+// NaN-propagating max and clip, matching jnp.maximum / jnp.clip.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : (a > b ? a : b);
+}
+
+__device__ __forceinline__ float clip(float v, float lo, float hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-expm_small_kernel(const float* __restrict__ ar_in, const float* __restrict__ ai_in,
-                  float* __restrict__ or_out, float* __restrict__ oi_out, int B,
-                  int taylor_k, int max_squarings) {
+__global__ void __launch_bounds__(kMaxThreads)
+expm_small_kernel(const float2* __restrict__ A, float2* __restrict__ out, int B, int taylor_k,
+                  int max_squarings) {
+  constexpr int T = team_width(D);
   constexpr int E = D * D;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  float xr[E], xi[E], pr[E], pi[E], tr[E], ti[E];
+  // blockDim.x is a multiple of 32, so a team never straddles a warp
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) / T;
+  const int j = threadIdx.x % T;
+  if (b >= B || j >= D) return;
+  const unsigned team = ((1u << D) - 1u) << ((threadIdx.x % 32) / T * T);
+
+  float xr[E], xi[E];
+  if (D % 2 == 0) {
+    const float4* a = reinterpret_cast<const float4*>(A + (size_t)b * E);
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    xr[e] = __ldg(ar_in + (size_t)e * B + b);
-    xi[e] = __ldg(ai_in + (size_t)e * B + b);
+    for (int e = 0; e < E / 2; ++e) {
+      const float4 v = __ldg(a + e);
+      xr[2 * e] = v.x;
+      xi[2 * e] = v.y;
+      xr[2 * e + 1] = v.z;
+      xi[2 * e + 1] = v.w;
+    }
+  } else {
+    const float2* a = A + (size_t)b * E;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float2 v = __ldg(a + e);
+      xr[e] = v.x;
+      xi[e] = v.y;
+    }
   }
 
   int s = 0;
   if (max_squarings > 0) {
     float norm1 = 0.0f;
 #pragma unroll
-    for (int j = 0; j < D; ++j) {
+    for (int c = 0; c < D; ++c) {
       float col = 0.0f;
 #pragma unroll
-      for (int i = 0; i < D; ++i) col += sqrtf(xr[i * D + j] * xr[i * D + j] + xi[i * D + j] * xi[i * D + j]);
-      norm1 = j == 0 ? col : fmaxf(norm1, col);
+      for (int i = 0; i < D; ++i) col += sqrtf(xr[i * D + c] * xr[i * D + c] + xi[i * D + c] * xi[i * D + c]);
+      norm1 = c == 0 ? col : nan_max(norm1, col);
     }
-    const float sc = fminf(fmaxf(ceilf(log2f(fmaxf(norm1, 1.0f))), 0.0f), (float)max_squarings);
-    s = (int)sc;
+    const float sc = clip(ceilf(log2f(nan_max(norm1, 1.0f))), 0.0f, (float)max_squarings);
+    s = sc == sc ? (int)sc : 0;  // a NaN norm scales X to NaN and squares nothing
     const float scale = exp2f(-sc);
 #pragma unroll
     for (int e = 0; e < E; ++e) {
@@ -80,58 +142,88 @@ expm_small_kernel(const float* __restrict__ ar_in, const float* __restrict__ ai_
     }
   }
 
-  // Horner Taylor: P = I; for k = K..1: P = I + X P / k
+  // Horner Taylor on column j: p = e_j; for k = K..1: p = e_j + X p / k
+  float pr[D], pi[D];
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    pr[e] = (e % (D + 1) == 0) ? 1.0f : 0.0f;
-    pi[e] = 0.0f;
+  for (int i = 0; i < D; ++i) {
+    pr[i] = i == j ? 1.0f : 0.0f;
+    pi[i] = 0.0f;
   }
   for (int k = taylor_k; k >= 1; --k) {
-    cmatmul<D>(xr, xi, pr, pi, tr, ti);
-    const float inv_k = 1.0f / (float)k;
+    float tr[D], ti[D];
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      pr[e] = ((e % (D + 1) == 0) ? 1.0f : 0.0f) + tr[e] * inv_k;
-      pi[e] = ti[e] * inv_k;
+    for (int i = 0; i < D; ++i) {
+      tr[i] = xr[i * D] * pr[0] - xi[i * D] * pi[0];
+      ti[i] = xr[i * D] * pi[0] + xi[i * D] * pr[0];
+#pragma unroll
+      for (int m = 1; m < D; ++m) cfma(xr[i * D + m], xi[i * D + m], pr[m], pi[m], tr[i], ti[i]);
+    }
+    const float inv_k = k <= kInvMax ? kInv[k] : 1.0f / (float)k;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      pr[i] = (i == j ? 1.0f : 0.0f) + tr[i] * inv_k;
+      pi[i] = ti[i] * inv_k;
     }
   }
 
+  // s squarings: column j of P^2 = sum_m P[:, m] P[m, j], column m from thread m
   for (int step = 0; step < s; ++step) {
-    cmatmul<D>(pr, pi, pr, pi, tr, ti);
+    float tr[D], ti[D];
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      pr[e] = tr[e];
-      pi[e] = ti[e];
+    for (int m = 0; m < D; ++m) {
+      float cr[D], ci[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        cr[i] = __shfl_sync(team, pr[i], m, T);
+        ci[i] = __shfl_sync(team, pi[i], m, T);
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        if (m == 0) {
+          tr[i] = cr[i] * pr[0] - ci[i] * pi[0];
+          ti[i] = cr[i] * pi[0] + ci[i] * pr[0];
+        } else {
+          cfma(cr[i], ci[i], pr[m], pi[m], tr[i], ti[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      pr[i] = tr[i];
+      pi[i] = ti[i];
     }
   }
 
+  float2* o = out + (size_t)b * E;
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    or_out[(size_t)e * B + b] = pr[e];
-    oi_out[(size_t)e * B + b] = pi[e];
-  }
+  for (int i = 0; i < D; ++i) o[i * D + j] = make_float2(pr[i], pi[i]);
 }
 
 template <int D>
-cudaError_t launch(const float* ar, const float* ai, float* out_r, float* out_i, int B,
-                   int taylor_k, int max_squarings, cudaStream_t stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  expm_small_kernel<D><<<blocks, kThreads, 0, stream>>>(ar, ai, out_r, out_i, B, taylor_k,
-                                                       max_squarings);
+cudaError_t launch(const float2* A, float2* out, int B, int taylor_k, int max_squarings,
+                   cudaStream_t stream) {
+  const long long threads = (long long)B * team_width(D);
+  int block = kMaxThreads;
+  while (block > 32 && (threads + block - 1) / block < kMinBlocks) block /= 2;
+  const int blocks = (int)((threads + block - 1) / block);
+  expm_small_kernel<D><<<blocks, block, 0, stream>>>(A, out, B, taylor_k, max_squarings);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int mpc4q_expm_small(const float* ar, const float* ai, float* out_r, float* out_i,
-                                int B, int d, int taylor_k, int max_squarings, void* stream) {
+extern "C" int mpc4q_expm_small(const void* A, void* out, int B, int d, int taylor_k,
+                                int max_squarings, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (taylor_k < 1 || max_squarings < 0) return cudaErrorInvalidValue;
+  if (d % 2 == 0 && reinterpret_cast<uintptr_t>(A) % 16 != 0) return cudaErrorMisalignedAddress;
+  const float2* a = static_cast<const float2*>(A);
+  float2* o = static_cast<float2*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 2: return launch<2>(ar, ai, out_r, out_i, B, taylor_k, max_squarings, s);
-    case 3: return launch<3>(ar, ai, out_r, out_i, B, taylor_k, max_squarings, s);
-    case 4: return launch<4>(ar, ai, out_r, out_i, B, taylor_k, max_squarings, s);
+    case 2: return launch<2>(a, o, B, taylor_k, max_squarings, s);
+    case 3: return launch<3>(a, o, B, taylor_k, max_squarings, s);
+    case 4: return launch<4>(a, o, B, taylor_k, max_squarings, s);
     default: return cudaErrorInvalidValue;
   }
 }

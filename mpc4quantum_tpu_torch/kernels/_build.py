@@ -36,8 +36,8 @@ _SIGNATURES = {
     # P, q, lb, ub, x0, y0, rho0, z, y, aux, B, n, iters, rounds, scaled,
     # rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs, acc_rel, stream
     "mpc4q_boxqp_small": [_P] * 10 + [_I] * 5 + [_F] * 7 + [_P],
-    # ar, ai, out_r, out_i, B, d, taylor_k, max_squarings, stream
-    "mpc4q_expm_small": [_P] * 4 + [_I] * 4 + [_P],
+    # A, out, B, d, taylor_k, max_squarings, stream
+    "mpc4q_expm_small": [_P] * 2 + [_I] * 4 + [_P],
     # kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, B, n, iters,
     # sigma, alpha, stream
     "mpc4q_admm_big": [_P] * 11 + [_I] * 3 + [_F] * 2 + [_P],

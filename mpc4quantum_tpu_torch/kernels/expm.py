@@ -21,7 +21,9 @@ def expm_small_work(B: int, d: int, taylor_k: int, squarings: int = 0):
     matrix taylor_k (8d^3 + 2d^2) flops of Horner Taylor (a complex FMA is 8
     flops) and 16 d^2 bytes (complex64 in and out), plus 8d^3 flops for
     each of the `squarings` the call's matrices take in all (0 at
-    max_squarings = 0). The norm and the scaling are not counted.
+    max_squarings = 0). The norm and the scaling are not counted. It counts
+    the function's work, not the kernel's design: the team's threads each
+    reading all of X, and the shuffles of a squaring, add nothing to it.
 
     :return: (flops, bytes).
     """
@@ -63,16 +65,20 @@ def expm_small(A: torch.Tensor, taylor_k: int = 18, max_squarings: int = 12) -> 
     if taylor_k < 1 or max_squarings < 0:
         raise ValueError(f"expm_small: taylor_k={taylor_k}, max_squarings={max_squarings}")
     B, d, _ = A.shape
-    planes = torch.view_as_real(A).reshape(B, d * d, 2).permute(2, 1, 0).contiguous()
-    out = torch.empty_like(planes)
+    # the kernel reads the caller's row-major layout: a copy only for a
+    # strided or conjugated view, or one not 16-byte aligned (the kernel
+    # reads a matrix of even d as float4s)
+    A = A.resolve_conj().contiguous()
+    if A.data_ptr() % 16:
+        A = A.clone()
+    out = torch.empty((B, d, d), dtype=A.dtype, device=A.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = lib.mpc4q_expm_small(planes[0].data_ptr(), planes[1].data_ptr(), out[0].data_ptr(),
-                              out[1].data_ptr(), B, d, int(taylor_k), int(max_squarings),
-                              stream)
+    rc = lib.mpc4q_expm_small(A.data_ptr(), out.data_ptr(), B, d, int(taylor_k),
+                              int(max_squarings), stream)
     _build.check(rc, "expm_small")
     expm_small.launches += 1
-    return torch.view_as_complex(out.permute(2, 1, 0).contiguous()).reshape(B, d, d)
+    return out
 
 
 expm_small.launches = 0

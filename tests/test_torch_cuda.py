@@ -43,6 +43,17 @@ def qp_batch(B, n, seed, device, spread=0.0):
     return [torch.tensor(a, dtype=torch.float32, device=device) for a in (P, q, lb, ub)]
 
 
+def hermitian_batch(B, d, seed, hi, device):
+    """-i H for random Hermitian H, 1-norms in [0.01 hi, hi], complex64."""
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(B, d, d)) + 1j * rng.normal(size=(B, d, d))
+    A = -0.5j * (G + np.conj(np.swapaxes(G, 1, 2)))
+    A = A * (hi * rng.uniform(0.01, 1, B) / np.abs(A).sum(axis=1).max(axis=1))[:, None, None]
+    # row-major, as the plants hand it to the kernel (numpy may keep the
+    # swapped axes' order in the result)
+    return torch.tensor(np.ascontiguousarray(A), dtype=torch.complex64, device=device)
+
+
 @pytest.mark.parametrize("n", range(1, 17))
 def test_boxqp_kernel_matches_plain(cuda, n):
     B = 300  # not a multiple of the QPs in a block: the ragged edge is masked
@@ -117,16 +128,73 @@ def test_boxqp_big_matches_plain_solver(cuda, kinv):
 @pytest.mark.parametrize("d", [2, 3, 4])
 @pytest.mark.parametrize("taylor_k,max_squarings", [(12, 0), (18, 12)])
 def test_expm_kernel_matches_plain(cuda, d, taylor_k, max_squarings):
-    B = 300
-    rng = np.random.default_rng(d)
-    G = rng.normal(size=(B, d, d)) + 1j * rng.normal(size=(B, d, d))
-    A = -0.5j * (G + np.conj(np.swapaxes(G, 1, 2)))
-    hi = 0.8 if max_squarings == 0 else 64.0
-    A = A * (hi * rng.uniform(0.01, 1, B) / np.abs(A).sum(axis=1).max(axis=1))[:, None, None]
-    A = torch.tensor(A, dtype=torch.complex64, device=cuda)
+    A = hermitian_batch(300, d, seed=d, hi=0.8 if max_squarings == 0 else 64.0, device=cuda)
     Ek = expm_small(A, taylor_k, max_squarings)
     Ep = expm_small_ref(A, taylor_k, max_squarings)
     torch.testing.assert_close(Ek, Ep, rtol=0, atol=1e-5 if max_squarings == 0 else 1e-4)
+
+
+# (taylor_k, max_squarings, largest 1-norm): the certified and the any-norm form
+EXPM_FORMS = [(12, 0, 0.8), (18, 12, 64.0)]
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("taylor_k,max_squarings,hi", EXPM_FORMS)
+def test_expm_small_is_one_kernel(cuda, d, taylor_k, max_squarings, hi):
+    """The kernel reads and writes the caller's (B, d, d) complex64: a call
+    is one launch and nothing else on the card, no layout copies."""
+    A = hermitian_batch(64, d, seed=d, hi=hi, device=cuda)
+    assert graph_node_types(lambda: expm_small(A, taylor_k, max_squarings)) == [0]
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("taylor_k,max_squarings,hi", EXPM_FORMS)
+def test_expm_kernel_nan_matrix_stays_in_its_team(cuda, d, taylor_k, max_squarings, hi):
+    """A NaN in one matrix makes that matrix's exponential all NaN, as the
+    TPU kernel gives (its 1-norm is NaN, so is its scale; unscaled, the
+    Taylor chain spreads it): the NaN-propagating max keeps it. The other
+    matrices of its team's warp match the plain version."""
+    B, bad = 301, 7
+    A = hermitian_batch(B, d, seed=d + 20, hi=hi, device=cuda)
+    A[bad, d - 1, 0] = complex(float("nan"), 0.0)
+    Ek = expm_small(A, taylor_k, max_squarings)
+    Ep = expm_small_ref(A, taylor_k, max_squarings)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(torch.view_as_real(Ek[bad])).all())
+    rest = torch.arange(B, device=cuda) != bad
+    assert bool(torch.isfinite(torch.view_as_real(Ek[rest])).all())
+    torch.testing.assert_close(Ek[rest], Ep[rest], rtol=0,
+                               atol=1e-5 if max_squarings == 0 else 1e-4)
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_expm_small_takes_strided_and_conjugated_inputs(cuda, d):
+    """A transposed, conjugated or not 16-byte aligned view gives the result
+    of its contiguous copy: the wrapper copies only such views, and the
+    kernel reads the copy."""
+    A = hermitian_batch(301, d, seed=d + 30, hi=2.0, device=cuda)
+    shifted = torch.empty(301 * d * d + 1, dtype=A.dtype, device=cuda)[1:].view(301, d, d)
+    shifted.copy_(A)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    for view in (A.transpose(1, 2), A.conj(), A.transpose(1, 2).conj(), shifted):
+        Ek = expm_small(view, 12, 2)
+        Ec = expm_small(view.resolve_conj().contiguous(), 12, 2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(Ek, Ec, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("B", [1, 33, 301])
+def test_expm_kernel_ragged_batch_matches_plain(cuda, d, B):
+    """B not a multiple of the team or of a block of any size: the teams
+    past the end store nothing, every matrix up to B is written."""
+    A = hermitian_batch(B, d, seed=B + d, hi=2.0, device=cuda)
+    before = expm_small.launches
+    Ek = expm_small(A, 12, 2)
+    Ep = expm_small_ref(A, 12, 2)
+    torch.cuda.synchronize()
+    assert expm_small.launches == before + 1
+    torch.testing.assert_close(Ek, Ep, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("scale", [False, True])
@@ -233,6 +301,35 @@ def test_plant_steps_on_the_card_match_the_cpu(cuda):
         ref = plants.step(x, u, sc.config.dt, *budget)
         assert expm_small.launches == before + 1
         torch.testing.assert_close(out.cpu().to(torch.complex128), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["not_state", "not_gate", "lindblad_state", "drag_state",
+                                  "not_state_freq"])
+def test_plant_steps_hand_expm_a_row_major_batch(cuda, name, monkeypatch):
+    """Each fleet's plant step on the card gives expm_small a contiguous,
+    unconjugated batch: the wrapper copies nothing, and a step's exponential
+    is the one kernel."""
+    from mpc4quantum_tpu_torch import presets
+    from mpc4quantum_tpu_torch.benchfleet import expm_budget_for
+    from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
+    from mpc4quantum_tpu_torch.plants import lindblad, quantum
+
+    seen = []
+
+    def recorder(A, *args, **kw):
+        seen.append(A.is_contiguous() and not A.is_conj())
+        return expm_small(A, *args, **kw)
+
+    monkeypatch.setattr(quantum, "expm_small", recorder)
+    monkeypatch.setattr(lindblad, "expm_small", recorder)
+    sc = presets.PRESETS[name]()
+    plants = make_scenario_batch(sc.plant, 64, generator=torch.Generator().manual_seed(1))
+    x = sc.x0.expand(64, -1).contiguous()
+    u = torch.full((64, sc.U_targ.shape[0]), 0.5 * sc.sat, device=cuda)
+    out = plants.step(x, u, sc.config.dt, *expm_budget_for(plants, sc.config.dt, sc.sat))
+    torch.cuda.synchronize()
+    assert seen == [True]
+    assert bool(torch.isfinite(torch.view_as_real(out)).all())
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -12,8 +12,9 @@ and chip_smoke.py hold them against these plain versions there). Here:
   - boxqp_big, ns_inverse and jacobi_scale_boxqp against their JAX
     counterparts in float64;
   - expm_small_ref against the Pallas expm kernel run in interpret mode, in
-    complex128 at tolerance 1e-10 relative to the largest entry, and its
-    norm guard at max_squarings = 0;
+    complex128 at tolerance 1e-10, in every form the fleets run (d = 2 at
+    (12, 0) and (18, 12), d = 3 at (12, 2), d = 4 on Liouvillians at
+    (12, 1)), and its norm guard at max_squarings = 0;
   - the wrappers take the plain version on CPU tensors and count no launch.
 """
 
@@ -222,25 +223,62 @@ def test_boxqp_big_matches_jax_solve_boxqp_fixed(kinv, scale, warm):
     assert bool((((z - t(lb)).abs() < 1e-12) | ((z - t(ub)).abs() < 1e-12)).any())
 
 
-@pytest.mark.parametrize("taylor_k,max_squarings,norm_lo,norm_hi", [
-    (12, 0, 1e-3, 0.8),        # the flagship's certified form (||A||_1 <= 0.8)
-    (18, 12, 0.25, 2.0 ** 10),  # the any-norm default, up to 10 squarings
-])
-def test_expm_ref_matches_pallas_interpret(taylor_k, max_squarings, norm_lo, norm_hi):
-    rng = np.random.default_rng(taylor_k)
-    B, d = 6, 2
+def hermitian_generators(B, d, rng):
+    """-i H for random Hermitian d x d H: the quantum plants' step generators."""
     G = rng.normal(size=(B, d, d)) + 1j * rng.normal(size=(B, d, d))
-    A = -0.5j * (G + np.conj(np.swapaxes(G, 1, 2)))
+    return -0.5j * (G + np.conj(np.swapaxes(G, 1, 2)))
+
+
+def liouvillian_generators(B, rng):
+    """Non-normal 4 x 4 generators shaped like the Lindblad plant's
+    dt (A0 + u A1) on row-major vec(rho): A0 = -i[H0, .] + D[L] with the
+    amplitude-damping L = sqrt(gamma) sigma_-, A1 = -i[H1, .], for random
+    Hermitian H0, H1, a rate gamma and a control u per matrix (as
+    chip_smoke.liouvillian_batch builds them)."""
+    herm = lambda G: 0.5 * (G + np.conj(np.swapaxes(G, 1, 2)))
+    crandn = lambda: rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2))
+    kron = lambda X, Y: np.einsum("bij,bkl->bikjl", X, Y).reshape(B, 4, 4)
+    eye = np.broadcast_to(np.eye(2), (B, 2, 2))
+    comm = lambda H: -1j * (kron(H, eye) - kron(eye, np.swapaxes(H, 1, 2)))
+    L = np.sqrt(rng.uniform(0.05, 0.5, size=(B, 1, 1))) * np.array([[0.0, 1.0], [0.0, 0.0]])
+    LdL = np.conj(np.swapaxes(L, 1, 2)) @ L
+    D = kron(L, np.conj(L)) - 0.5 * (kron(LdL, eye) + kron(eye, np.swapaxes(LdL, 1, 2)))
+    return comm(herm(crandn())) + D + rng.uniform(-1, 1, size=(B, 1, 1)) * comm(herm(crandn()))
+
+
+# (taylor_k, max_squarings, norm_lo, norm_hi, d): the flagship's certified
+# form (||A||_1 <= 0.8), the any-norm default (up to 10 squarings), drag's
+# d = 3 form and lindblad's d = 4 form on Liouvillians across its 0- and
+# 1-squaring branches
+EXPM_FORMS = [(12, 0, 1e-3, 0.8, 2), (18, 12, 0.25, 2.0 ** 10, 2), (12, 2, 0.05, 2.0, 3),
+              (12, 1, 0.05, 1.6, 4)]
+
+
+@pytest.mark.parametrize("taylor_k,max_squarings,norm_lo,norm_hi,d", EXPM_FORMS,
+                         ids=["-".join(map(str, f[:4])) for f in EXPM_FORMS])
+def test_expm_ref_matches_pallas_interpret(taylor_k, max_squarings, norm_lo, norm_hi, d):
+    rng = np.random.default_rng(taylor_k + d - 2)
+    B = 6
+    A = liouvillian_generators(B, rng) if d == 4 else hermitian_generators(B, d, rng)
     norms = np.exp(np.linspace(np.log(norm_lo), np.log(norm_hi), B))
     A = A * (norms / np.abs(A).sum(axis=1).max(axis=1))[:, None, None]
+    # at d = 4 one sublane: the same kernel on a lanes-only layout, whose
+    # unrolled interpret-mode trace compiles in a quarter of the time there
     ref = np.asarray(expm_pallas(jnp.asarray(A), max_squarings=max_squarings, taylor_k=taylor_k,
-                                 tile_b=128, interpret=True))
+                                 tile_b=128, sublanes=1 if d == 4 else 8, interpret=True))
     ours = expm_small_ref(torch.tensor(A), taylor_k=taylor_k, max_squarings=max_squarings)
     np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=TOL)
-    # unitary (exp of anti-Hermitian): a check on both that needs no oracle
-    eye = np.eye(d)
-    np.testing.assert_allclose(ref @ np.conj(np.swapaxes(ref, 1, 2)), np.broadcast_to(eye, ref.shape),
-                               atol=1e-9 * norm_hi)
+    if d == 4:
+        # both branches, and a check on both that needs no oracle: exp of a
+        # Liouvillian preserves the trace, vec(I)^T E = vec(I)^T
+        assert 0 < int((norms > 1).sum()) < B
+        trace = np.eye(2).reshape(4)
+        np.testing.assert_allclose(trace @ ref, np.broadcast_to(trace, (B, 4)), atol=1e-9)
+    else:
+        # unitary (exp of anti-Hermitian)
+        eye = np.eye(d)
+        np.testing.assert_allclose(ref @ np.conj(np.swapaxes(ref, 1, 2)),
+                                   np.broadcast_to(eye, ref.shape), atol=1e-9 * norm_hi)
 
 
 def test_wrappers_take_the_plain_version_on_cpu():

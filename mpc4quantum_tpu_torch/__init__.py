@@ -14,10 +14,11 @@ Quick start, on the card (float32):
     metrics, out = run_hostloop_fleet(sc, batch=16384, reps=4)
 
 On the CPU, through the kernels' plain versions: presets.not_state(device="cpu")
-(float64 there).
+(float64 there). The seven presets are in presets.PRESETS; `rescue=` of
+run_hostloop_fleet re-runs the marginal lanes under a second scenario.
 """
 
 from . import presets
-from .benchfleet import run_hostloop_fleet
+from .benchfleet import rescue_pass, run_hostloop_fleet
 
-__all__ = ["presets", "run_hostloop_fleet"]
+__all__ = ["presets", "rescue_pass", "run_hostloop_fleet"]

@@ -24,14 +24,18 @@ PLANT_KINDS = (QuantumPlant, SynthesisPlant, LindbladPlant)
 
 
 def plant_from_numpy(fields: dict) -> Plant:
-    """The plant kind whose field names are exactly the keys of `fields`
-    (H0, H1s, sigma: quantum; H0, H1s: synthesis; AH0, AD, A1s, sigma:
-    Lindblad), in float64 / complex128 on the CPU."""
+    """The plant kind whose tensor field names are exactly the array keys
+    of `fields` (H0, H1s, sigma: quantum; H0, H1s: synthesis; AH0, AD, A1s,
+    sigma: Lindblad), in float64 / complex128 on the CPU. A kind's settings
+    (the quantum plant's `lift_kind`, a string, and `lift_dim`, an int) may
+    ride along as plain values; left out, they take their defaults."""
     for kind in PLANT_KINDS:
-        names = [f.name for f in dataclasses.fields(kind)]
-        if set(names) == set(fields):
-            return kind(**{k: torch.tensor(np.asarray(fields[k], complex if k != "sigma" else float))
-                           for k in names})
+        static = {f.name for f in dataclasses.fields(kind) if f.metadata.get("static")}
+        names = [f.name for f in dataclasses.fields(kind) if f.name not in static]
+        if set(names) == set(fields) - static:
+            tensors = {k: torch.tensor(np.asarray(fields[k], complex if k != "sigma" else float))
+                       for k in names}
+            return kind(**tensors, **{k: fields[k] for k in static if k in fields})
     raise ValueError(f"no plant kind has the fields {sorted(fields)}")
 
 
@@ -43,8 +47,9 @@ def scenario_from_numpy(name: str, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du,
     :param config: MPCConfig fields as numbers, with "qp_params" a dict of
         BoxQPParams fields.
     :param plant: the nominal plant's fields by name (plant_from_numpy),
-        e.g. {"H0": (d, d), "H1s": (dim_u, d, d), "sigma": ()}.
-    :param plants: the lane batch's fields, each with a leading axis B.
+        e.g. {"H0": (d, d), "H1s": (dim_u, d, d), "sigma": ()}, with
+        "lift_kind" / "lift_dim" where the adapter is not the identity.
+    :param plants: the lane batch's fields, each array with a leading axis B.
     :param exit_below: None, or (target (dim_e,), threshold): the
         reference's distance exit (presets.DistanceExit) as its numbers.
     :param device: the card unless the caller asks for the CPU.

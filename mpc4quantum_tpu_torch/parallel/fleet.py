@@ -33,9 +33,10 @@ def make_scenario_batch(base_plant: Plant, n: int, detune_scale: float = 0.01,
         t = t.to("cpu", torch.complex128 if t.is_complex() else torch.float64)
         return t.expand(n, *t.shape).clone()
 
-    fields = {f.name: lanes(getattr(base_plant, f.name)) for f in dataclasses.fields(base_plant)}
+    # the tensor fields; a plant's settings (its measurement adapter) carry over
+    fields = {name: lanes(t) for name, t in base_plant.tensor_fields().items()}
     drift = "AH0" if isinstance(base_plant, LindbladPlant) else "H0"
     fields[drift] = fields[drift] * (1.0 + eps)[:, None, None]
-    return type(base_plant)(**fields).to(
+    return dataclasses.replace(base_plant, **fields).to(
         base_plant.device if device is None else device,
         base_plant.real_dtype if dtype is None else dtype)

@@ -1,11 +1,15 @@
 """The surface every plant kind gives the fleet runner (quantum, synthesis,
-Lindblad): lane batches of tensors, moved and sliced field by field, an
-identity lift and projection, a batched exact step and a norm bound.
+Lindblad): lane batches of tensors, moved and sliced field by field, a
+lift and a projection (the identity unless a plant kind says otherwise), a
+batched exact step and a norm bound.
 
-Every field of a plant is a tensor. Complex fields carry the state's dtype,
-real fields (sigma) its real partner. A lane batch carries a leading axis B
-on every field; the first field is always complex and sets the batch size,
-the device and the dtypes.
+Every field of a plant is a tensor, except those declared with
+`static_field`: settings shared by every lane (the quantum plant's
+measurement adapter), which moving, slicing and batching leave as they are.
+Complex fields carry the state's dtype, real fields (sigma) its real
+partner. A lane batch carries a leading axis B on every tensor field; the
+first field is always complex and sets the batch size, the device and the
+dtypes.
 
 Each plant kind provides
   step(x, u, dt, taylor_k, max_squarings): one exact ZOH step per lane, its
@@ -21,6 +25,11 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+def static_field(default):
+    """A dataclass field that is a setting, not a per-lane tensor."""
+    return dataclasses.field(default=default, metadata={"static": True})
 
 
 def complex_dtype(real_dtype: torch.dtype) -> torch.dtype:
@@ -44,18 +53,21 @@ def box_norm_bound(G0: torch.Tensor, G1s: torch.Tensor, dt: float, sat) -> float
 class Plant:
     """Base of the plant dataclasses."""
 
-    def _fields(self) -> dict:
-        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+    def tensor_fields(self) -> dict:
+        """The tensor fields by name (static fields left out)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if not f.metadata.get("static")}
 
     def to(self, device=None, dtype=None):
         """Move to a device; `dtype` is the real dtype (float32/float64)."""
         cdtype = None if dtype is None else complex_dtype(dtype)
         return dataclasses.replace(self, **{
-            k: t.to(device, cdtype if t.is_complex() else dtype) for k, t in self._fields().items()})
+            k: t.to(device, cdtype if t.is_complex() else dtype)
+            for k, t in self.tensor_fields().items()})
 
     def __getitem__(self, idx):
         """Lane slice of a batch."""
-        return dataclasses.replace(self, **{k: t[idx] for k, t in self._fields().items()})
+        return dataclasses.replace(self, **{k: t[idx] for k, t in self.tensor_fields().items()})
 
     @property
     def _lead(self) -> torch.Tensor:
@@ -80,10 +92,11 @@ class Plant:
         return self._lead.dtype.to_real()
 
     def lift(self, x: torch.Tensor) -> torch.Tensor:
-        """Experiment state -> model space: the identity adapter, the only
-        one the ported plants use."""
+        """Experiment state (B, dim_e) -> model space (B, dim_x): the
+        identity adapter."""
         return x
 
     def proj(self, z: torch.Tensor) -> torch.Tensor:
-        """Model space -> experiment state (identity adapter)."""
+        """Model space (B, dim_x) -> experiment state (B, dim_e): the
+        identity adapter."""
         return z

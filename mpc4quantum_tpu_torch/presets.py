@@ -1,6 +1,6 @@
 """Named scenario presets (counterpart of mpc4quantum_tpu/presets.py).
 
-Ported so far:
+The seven presets:
   - `not_state`, the flagship fleet workload: an ideal-model qubit steered
     |0> -> |1> on a 1%-detuned plant, dt = 1, H = 10, 20 steps,
     sat = 2 pi 0.1, first-step slew 0.5 sat (QP n = 10);
@@ -13,7 +13,14 @@ Ported so far:
     H = 15, sat 1, slew 0.25, exit once the process cost is below 1e-2
     (QP n = 15);
   - `lindblad_state`: the flagship's state preparation on an open system
-    (amplitude damping sqrt(gamma) sigma_- in model and plant; QP n = 10).
+    (amplitude damping sqrt(gamma) sigma_- in model and plant; QP n = 10);
+  - `crosstalk`: two qubits steered through per-qubit models (model space
+    dim 8, partial-trace lift) on a plant with Z (x) Z crosstalk (dim 16),
+    measured every 2nd step, every step a warm solve, dt = 0.5, H = 20,
+    50 steps (QP n = 40);
+  - `cnot_state`: entangling state preparation on an always-coupled pair
+    (dim 16, three controls) with a ramped target, dt = 0.25, H = 50,
+    200 steps (QP n = 150).
 
 Every preset builds its tensors on the card (`device="cuda"`, float32)
 unless the caller asks for another device; on the CPU the dtype defaults
@@ -37,6 +44,7 @@ from .plants.base import Plant, complex_dtype
 from .plants.lindblad import LindbladPlant
 from .plants.quantum import QuantumPlant
 from .plants.synthesis import SynthesisPlant, lift_unitary
+from .solvers.boxqp import BoxQPParams
 from .systems import SX, matrix_units, rx_rotation
 
 
@@ -45,7 +53,7 @@ class Scenario:
     """Everything a fleet run needs, as tensors on one device."""
 
     name: str
-    x0: torch.Tensor            # (dim_e,) complex initial state
+    x0: torch.Tensor            # (dim_e,) complex initial state, experiment space
     model: DMDcModel
     plant: Plant                # the nominal plant a lane batch perturbs
     X_targ: torch.Tensor        # (dim_x, n_steps + H + 1) complex
@@ -56,7 +64,7 @@ class Scenario:
     config: MPCConfig
     sat: float
     du: Optional[float]
-    target_state: torch.Tensor  # (dim_e,) for the fidelity
+    target_state: torch.Tensor  # (dim_e,) for the fidelity, experiment space
     # batched (x_next, x_cur, u) -> (B,) bool; None = run every step
     exit_condition: Optional[Callable] = None
 
@@ -92,6 +100,10 @@ def scenario_from_arrays(name, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du, targ
     dtype, `default_dtype` when None; complex arrays take its complex
     partner) on `device`: the card unless the caller asks for the CPU. On a
     machine without a card the default raises; nothing falls back.
+
+    dim_x is A's row count, the model space; x0 and target_state live in
+    the plant's experiment space, whose dimension differs from dim_x when
+    the plant's lift is not the identity.
 
     :param exit_below: None, or (target (dim_e,), threshold) of a
         DistanceExit condition.
@@ -258,5 +270,93 @@ def lindblad_state(order: int = 2, detune: float = 0.99, gamma: float = 0.005, d
         plant=plant, device=device, dtype=dtype)
 
 
+def _quantum_plant(H_list, **settings) -> QuantumPlant:
+    return QuantumPlant(H0=torch.as_tensor(H_list[0]), H1s=torch.as_tensor(np.stack(H_list[1:])),
+                        sigma=torch.zeros((), dtype=torch.float64), **settings)
+
+
+def _ground_pair(theta: float):
+    """|0><0| of each qubit of a pair, rotated by Rx(-theta) and Rx(theta)."""
+    ground = np.diag([1.0, 0.0]).astype(complex)
+    return tuple(R @ ground @ R.conj().T for R in (rx_rotation(-theta), rx_rotation(theta)))
+
+
+def crosstalk(order: int = 1, coupling: float = 0.0, device="cuda",
+              dtype: Optional[torch.dtype] = None) -> Scenario:
+    """Two qubits controlled through per-qubit models while the plant carries
+    Z (x) Z crosstalk of strength `coupling`: partial-trace lift (model space
+    dim 8, experiment space dim 16), measure_freq = 2, warm_start = False,
+    dt = 0.5, H = 20, n_steps = 50, sat = 2 pi 0.1, du = 0.25. x0 and
+    target_state are in experiment space, X_targ in model space.
+
+    The reference's scenario assembles the block-diagonal model with
+    qubit 2's control operator first while the plant's drive list has
+    qubit 1 first, a swap of the control index between model and plant;
+    here model control i is aligned with plant drive i.
+
+    warm_start = False makes the QP budget the budget of every solve: one
+    round of 150 iterations from rho0 = 1.0 (the condensed P has a diagonal
+    near 1e-3 with a condition number near 1, and the default 0.1 mean-diag
+    penalty under-weights the box) with 20 Newton-Schulz iterations.
+    """
+    dt, H, n_steps = 0.5, 20, 50
+    sat = 2 * np.pi * 0.1
+    qubits = systems.RWACrosstalk(coupling)
+    basis2 = matrix_units(2)
+    A1 = [vectorize_me(Hm, basis2).numpy() for Hm in qubits.H_list_1]
+    A2 = [vectorize_me(Hm, basis2).numpy() for Hm in qubits.H_list_2]
+    z = np.zeros((4, 4), dtype=complex)
+    A_cts = [np.block([[A1[0], z], [z, A2[0]]]),
+             np.block([[A1[1], z], [z, z]]),     # u1 drives qubit 1
+             np.block([[z, z], [z, A2[1]]])]     # u2 drives qubit 2
+    A = discretize_homogeneous(A_cts, dt, order)
+    plant = _quantum_plant(qubits.H_list, lift_kind="partial_trace")
+    rho1, rho2 = _ground_pair(1e-3)
+    targ1 = np.diag([0.0, 1.0]).astype(complex)
+    targ2 = np.diag([1.0, 0.0]).astype(complex)
+    X_targ, U_targ = _targets(np.concatenate([targ1.flatten(), targ2.flatten()]), 2, n_steps, H)
+    Q = np.kron(np.eye(2), np.diag([1.0, 0, 0, 1])).astype(complex)
+    return scenario_from_arrays(
+        "crosstalk", x0=np.kron(rho1, rho2).flatten(), A=A.numpy(), X_targ=X_targ,
+        U_targ=U_targ, Q=Q, R=np.eye(2) * 1e-3, Qf=Q, sat=sat, du=0.25,
+        target_state=np.kron(targ1, targ2).flatten(),
+        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=2, order=order,
+                         measure_freq=2, warm_start=False,
+                         qp_params=BoxQPParams(rho0=1.0, max_iter=150, n_rounds=1,
+                                               ns_iters=20)),
+        plant=plant, device=device, dtype=dtype)
+
+
+def cnot_state(order: int = 1, device="cuda", dtype: Optional[torch.dtype] = None) -> Scenario:
+    """Entangling state preparation on an always-coupled pair with a ramped
+    target min(1, 2k / n_steps): dt = 0.25, H = 50, n_steps = 200,
+    sat = 2 pi 0.05, du = sat; state dim 16, three controls (QP n = 150).
+
+    The condensed QP is ill-conditioned and acceptance at the solver's
+    default targets costs fidelity here, so the preset's own QP budget is
+    three rounds of 300 iterations at eps 1e-8.
+    """
+    dt, H, n_steps = 0.25, 50, 200
+    sat = 2 * np.pi * 0.05
+    qubits = systems.RWACoupled()
+    A = _model_operator(qubits.H_list, 4, dt, order)
+    plant = _quantum_plant(qubits.H_list)
+    rho0 = np.kron(*_ground_pair(1e-2))
+    targ = np.kron(np.diag([1.0, 0.0]), np.diag([0.0, 1.0])).astype(complex).flatten()
+    incline = np.array([min(1.0, 2 * k / n_steps) for k in range(n_steps + H + 1)])
+    Qd = np.zeros(16)
+    Qd[[0, 5, 10, 15]] = 1.0   # the four populations
+    Q = np.diag(Qd).astype(complex)
+    return scenario_from_arrays(
+        "cnot_state", x0=rho0.flatten(), A=A.numpy(), X_targ=targ[:, None] * incline[None, :],
+        U_targ=np.zeros((3, n_steps + H)), Q=Q, R=np.eye(3) * 1e-3, Qf=Q, sat=sat, du=sat,
+        target_state=targ,
+        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=3, order=order,
+                         qp_params=BoxQPParams(eps_abs=1e-8, eps_rel=1e-8, max_iter=300,
+                                               n_rounds=3)),
+        plant=plant, device=device, dtype=dtype)
+
+
 PRESETS = {"not_state": not_state, "not_state_freq": not_state_freq,
-           "drag_state": drag_state, "not_gate": not_gate, "lindblad_state": lindblad_state}
+           "drag_state": drag_state, "crosstalk": crosstalk, "cnot_state": cnot_state,
+           "not_gate": not_gate, "lindblad_state": lindblad_state}

@@ -1,9 +1,9 @@
 """Physical system definitions used by the ported presets, as plain numpy
 arrays (counterpart of mpc4quantum_tpu/systems.py).
 
-Only the pieces the ported presets need are here: the Pauli matrices, the
-ladder operators, the |i><j| measurement basis, the x rotation, the RWA
-qubit and the 3-level RWA transmon.
+The pieces the presets need: the Pauli matrices, the ladder operators, the
+|i><j| measurement basis, the x rotation, the RWA qubit, the 3-level RWA
+transmon and the two qubit pairs (crosstalk, always-on coupling).
 """
 
 from __future__ import annotations
@@ -82,3 +82,44 @@ class RWATransmon:
         HX = 0.5 * (create(3) + destroy(3))
         HY = 0.5j * (create(3) - destroy(3))
         return [self.alpha * basis_proj(3, 2), HX, HY]
+
+
+@dataclasses.dataclass(frozen=True)
+class RWACrosstalk:
+    """Two qubits with sigma_z (x) sigma_z crosstalk and independent X and Y
+    drives. The per-qubit model Hamiltonians (H_list_1, H_list_2) leave the
+    crosstalk out - the mismatch between model and plant is the point of
+    the scenario - and drive with SX and SY where the plant drives with
+    0.5 kron(SX, I) and 0.5 kron(I, SY): the factor of 2 between model and
+    plant drive is the reference's."""
+
+    crosstalk: float
+
+    dim_s = 4
+    dim_u = 2
+
+    @property
+    def H_list(self):
+        H0 = 0.5 * self.crosstalk * np.kron(SZ, SZ)
+        return [H0, 0.5 * np.kron(SX, I2), 0.5 * np.kron(I2, SY)]
+
+    @property
+    def H_list_1(self):
+        return [0.0 * I2, SX]
+
+    @property
+    def H_list_2(self):
+        return [0.0 * I2, SY]
+
+
+@dataclasses.dataclass(frozen=True)
+class RWACoupled:
+    """Always-on Z (x) Z coupling with Y1, Y2 and Z1 drives, for entangling
+    state preparation."""
+
+    dim_s = 4
+    dim_u = 3
+
+    @property
+    def H_list(self):
+        return [np.kron(SZ, SZ), np.kron(SY, I2), np.kron(I2, SY), np.kron(SZ, I2)]

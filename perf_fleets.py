@@ -3,8 +3,9 @@
 
     python3 perf_fleets.py
 
-Runs each fleet of chip_smoke.FLEETS at its batch: one warm-up run, then
-one run under torch.profiler. Prints one JSON line a fleet - device time
+Runs each fleet of chip_smoke.FLEETS at its batch (the main pass only, where
+a fleet has a rescue pass): one warm-up run, then one run under
+torch.profiler. Prints one JSON line a fleet - device time
 in all and by kernel, launches, and the busy share against the unprofiled
 wall time - then the card's name and power limit. The profiler on the
 card's host at times records no device activity; such a run is made again,

@@ -304,7 +304,7 @@ def test_plant_steps_on_the_card_match_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("name", ["not_state", "not_gate", "lindblad_state", "drag_state",
-                                  "not_state_freq"])
+                                  "not_state_freq", "crosstalk", "cnot_state"])
 def test_plant_steps_hand_expm_a_row_major_batch(cuda, name, monkeypatch):
     """Each fleet's plant step on the card gives expm_small a contiguous,
     unconjugated batch: the wrapper copies nothing, and a step's exponential
@@ -330,6 +330,52 @@ def test_plant_steps_hand_expm_a_row_major_batch(cuda, name, monkeypatch):
     torch.cuda.synchronize()
     assert seen == [True]
     assert bool(torch.isfinite(torch.view_as_real(out)).all())
+
+
+@pytest.mark.parametrize("name", ["crosstalk", "cnot_state"])
+def test_pair_presets_build_on_the_card_in_float32(cuda, name):
+    from mpc4quantum_tpu_torch import presets
+    from mpc4quantum_tpu_torch.benchfleet import expm_budget_for
+    from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
+
+    sc = presets.PRESETS[name]()
+    for t in (sc.x0, sc.model.A, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf, sc.target_state,
+              sc.plant.H0, sc.plant.H1s, sc.plant.sigma):
+        assert t.device.type == "cuda"
+        assert t.dtype == (torch.complex64 if t.is_complex() else torch.float32)
+    assert sc.plant.lift_kind == ("partial_trace" if name == "crosstalk" else "identity")
+    plants = make_scenario_batch(sc.plant, 32)
+    assert plants.device.type == "cuda" and plants.lift_kind == sc.plant.lift_kind
+    assert expm_budget_for(plants, sc.config.dt, sc.sat) == (12, 0)
+
+
+def test_batched_lifts_on_the_card_equal_the_cpu(cuda):
+    """The partial-trace and truncate adapters on float32 card tensors
+    against the float64 CPU ones; the partial-trace lift of the crosstalk
+    fleet's lane batch goes through the plant."""
+    from mpc4quantum_tpu_torch import presets
+    from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
+    from mpc4quantum_tpu_torch.plants import quantum
+
+    rng = np.random.default_rng(11)
+    crandn = lambda *shape: torch.tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape))
+    card = lambda t: t.to(cuda, torch.complex64)
+    back = lambda t: t.cpu().to(torch.complex128)
+    x, z = crandn(256, 16), crandn(256, 8)
+    plants = make_scenario_batch(presets.crosstalk(coupling=0.05).plant, 256)
+    assert plants.device.type == "cuda"
+    torch.testing.assert_close(back(plants.lift(card(x))), quantum.partial_trace_lift(x),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(back(plants.proj(card(z))), quantum.tensor_proj(z),
+                               rtol=0, atol=1e-5)
+    assert plants.lift(card(x)).shape == (256, 8) and plants.proj(card(z)).shape == (256, 16)
+    x9, z4 = crandn(64, 9), crandn(64, 4)
+    x9[:, 0] += 5.0   # keep the truncated trace away from 0
+    torch.testing.assert_close(back(quantum.truncate_lift(card(x9), 3, 2)),
+                               quantum.truncate_lift(x9, 3, 2), rtol=0, atol=1e-5)
+    out = quantum.truncate_proj(card(z4), 3, 2)
+    assert out.device.type == "cuda"
+    torch.testing.assert_close(back(out), quantum.truncate_proj(z4, 3, 2), rtol=0, atol=1e-6)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

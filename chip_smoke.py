@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 DEVICE = "cuda"
+T_START = time.perf_counter()
 BATCH = 16384
 EXPM_D = 2
 QP_TOL = 1e-3              # max |z|, |y| difference, relative to max(1, |ref|), float32
@@ -74,18 +75,22 @@ EXPM_F64_TOL = 1e-5
 ADMM_TOL = 1e-3
 BORDERLINE = 1e-3          # acceptance flags may differ only this close to a threshold
 TIMING_REPS = 20
-FLEET_REPS = 4             # one warm-up run, then 3 timed runs
-# boxqp_small's checked shapes and forms: the flagship's n = 10 (cold warm
-# phase, warm-started steady phase, that form Jacobi-scaled) and not_gate's
-# n = 15 (57.6 KB of shared memory a block); the warm forms start from the
-# cold solve's dual and rho
+FLEET_REPS = 4             # one warm-up run, then 3 timed runs (a fleet's "reps" overrides)
+# boxqp_small's checked shapes and forms, by (n, B): the flagship's n = 10
+# (cold warm phase, warm-started steady phase, that form Jacobi-scaled),
+# not_gate's n = 15 (57.6 KB of shared memory a block), and the single
+# rollout's n = 10 at B = 1, every solve cold at the library's 2x150 (the
+# learned-model fleets solve the flagship's shape at that budget); the warm
+# forms start from the cold solve's dual and rho
 QP_FORMS = {
-    10: (BATCH, {"cold_3x12": dict(iters=12, rounds=3),
-                 "warm_2x10": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3),
-                 "warm_2x10_scaled": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3,
-                                          scale=True)}),
-    15: (1024, {"cold_3x12": dict(iters=12, rounds=3),
-                "warm_2x10": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3)}),
+    (10, BATCH): {"cold_3x12": dict(iters=12, rounds=3),
+                  "warm_2x10": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3),
+                  "warm_2x10_scaled": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3,
+                                           scale=True),
+                  "cold_2x150": dict(iters=150, rounds=2)},
+    (15, 1024): {"cold_3x12": dict(iters=12, rounds=3),
+                 "warm_2x10": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3)},
+    (10, 1): {"cold_2x150": dict(iters=150, rounds=2)},
 }
 # Fleets: lanes, kernel launches per run, the fidelity gates (mean and
 # minimum; None = no gate), the fraction of lanes that must exit early, and
@@ -126,12 +131,12 @@ FLEETS = {
                            parity_tol=2e-3, tracking=(30, 1e-5),
                            launches={"boxqp_small": 0, "expm_small": 100, "admm_big": 114}),
     # 203 = 7 + 49 x 4 cold solves of one round
-    "crosstalk": dict(batch=1024, fid_mean=None, fid_min=0.98, parity_lanes=16,
+    "crosstalk": dict(batch=1024, reps=2, fid_mean=None, fid_min=0.98, parity_lanes=16,
                       parity_tol=1e-4,
                       variant=dict(kwargs=dict(coupling=0.05), lanes=32, tol=2e-4),
                       launches={"boxqp_small": 0, "expm_small": 50, "admm_big": 203}),
     # 222 = 8 x 3 warm rounds + 198 x 1 steady round
-    "cnot_state": dict(batch=128, kwargs=dict(order=2), fid_mean=None, fid_min=0.99,
+    "cnot_state": dict(batch=128, reps=2, kwargs=dict(order=2), fid_mean=None, fid_min=0.99,
                        rescue=dict(threshold=0.99, kwargs=dict(order=3)), parity_lanes=8,
                        parity_tol=2e-3, tracking=(60, 1e-4),
                        launches={"boxqp_small": 0, "expm_small": 200, "admm_big": 222}),
@@ -142,6 +147,36 @@ FLEETS = {
 # the same; kept states against the float64 CPU path
 RESCUE = dict(lanes=6, steps=20, tol=1e-4,
               launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 42})
+# The learned-model cells, on the flagship's problem (not_state, n = 10):
+# every lane carries its own model, refit after each step (streaming), and
+# every QP runs cold at the library's 2x150 (benchfleet.make_runner's
+# streaming rule). learn_fleet: an OnlineDMDc (RLS, alpha 1e2, discount 1)
+# bootstrapped from the analytic order-2 operator, full-state measurement
+# with noise at sigma 1e-5 drawn on the card, recorded. At the JAX package's
+# noisy-test scale 1e-4 the JAX host loop itself loses lanes below 0.95
+# (4 of 64 in float64, mean 0.98712; the port loses the same lanes:
+# tests/test_torch_learn.py::test_reference_loses_the_same_lanes), so the
+# gated cell runs at 1e-5, where every lane reaches 0.995. discrep_fleet: a
+# DiscrepDMDc of capacity 12, noiseless, its pinv cut at rcond = 10
+# max(m, n) eps of float32 (the JAX pinv's own default cut; at the JAX
+# tests' rcond 1e-15 float32 inverts rounding and 98 of 256 CPU lanes fail,
+# and even in float64 the JAX loop's mean is 0.98950 on 256 lanes, one lane
+# at 0.898), so its mean gate is 0.985. Launches a run as the flagship's:
+# the refit is plain PyTorch (RLS; the discrepancy fit's batched SVDs are
+# library calls).
+# learn_fleet's first probe_lanes lanes run once more, ungated, at sigma
+# 1e-4 (probe_sigma) to report the lanes below the gate there;
+# discrep_fleet's 64 parity lanes report their float64 mean beside the
+# card's.
+LEARN = dict(batch=BATCH, sigma=1e-5, alpha=1e2, fid_lane=0.95, fid_mean=0.99, parity_lanes=8,
+             parity_tol=1e-3, probe_sigma=1e-4, probe_lanes=512,
+             launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0})
+DISCREP = dict(batch=1024, capacity=12, rcond=10 * 12 * float(np.finfo(np.float32).eps),
+               fid_lane=0.95, fid_mean=0.985, parity_lanes=64, parity_tol=1e-3,
+               launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0})
+# the single-rollout phases (mpc(), B = 1): P(|1>) gate and the bound on its
+# distance from the same call in float64 on the CPU
+SINGLE = dict(p1=0.95, cpu_tol=1e-3, loss=1e-3)
 # admm_big alone: (B, n, iters) of the large-n presets' solves, cnot's
 # n = 150 (rows split over 4 threads) and the largest n the kernel takes
 # (part of each row in shared memory); then crosstalk's and cnot's own
@@ -159,7 +194,11 @@ EXPM_CASES = {"d2_12_0": (BATCH, EXPM_D, 12, 0, 1e-3, 0.8),
               "d4_12_1": (BATCH, 4, 12, 1, 0.05, 1.6),
               "d2_12_0_b1024": (1024, EXPM_D, 12, 0, 1e-3, 0.8),
               "d4_12_0_b1024": (1024, 4, 12, 0, 1e-3, 0.8),
-              "d4_12_0_b128": (128, 4, 12, 0, 1e-3, 0.8)}
+              "d4_12_0_b128": (128, 4, 12, 0, 1e-3, 0.8),
+              # the single rollout's plant step and quantum_simulate's one
+              # call for the 48-step Blackman drive
+              "d2_12_0_b1": (1, EXPM_D, 12, 0, 1e-3, 0.8),
+              "d2_12_0_b48": (48, EXPM_D, 12, 0, 1e-3, 0.8)}
 # ptxas must report no spill stores or loads in these instances
 NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
             "expm_small_kernelILi2E", "expm_small_kernelILi3E", "expm_small_kernelILi4E")
@@ -186,6 +225,10 @@ BIG_FORMS = {
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (t_s)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -356,16 +399,18 @@ def compare_solves(name, kernel_out, plain_out, kw, accept, accept_thresholds,
     return err
 
 
-def phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, n: int) -> dict:
-    """boxqp_small at a fleet's shape (QP_FORMS): its cold warm-phase form,
-    its warm-started steady form, and at n = 10 that form Jacobi-scaled.
-    Each solve is one kernel on the card and nothing else (the node types
-    of a CUDA graph captured from it)."""
-    B, forms = QP_FORMS[n]
-    P, q, lb, ub = qp_batch(B, n, seed=0 if n == 10 else n)
-    rec = {"phase": "boxqp_small", "B": B, "n": n, "gpu": smi_line()}
-    warm_start = {}
+def phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, shape, floor_us) -> dict:
+    """boxqp_small at a fleet's or the single rollout's shape (QP_FORMS):
+    its cold warm-phase form, its warm-started steady form, and at n = 10
+    that form Jacobi-scaled. Each solve is one kernel on the card and
+    nothing else (the node types of a CUDA graph captured from it)."""
+    n, B = shape
+    forms = QP_FORMS[shape]
+    P, q, lb, ub = qp_batch(B, n, seed=(0 if n == 10 else n) + (B == 1))
+    rec = {"phase": "boxqp_small", "B": B, "n": n, "gpu": smi_line(), "launch_floor_us": floor_us}
+    cold_start = {}
     for name, kw in forms.items():
+        warm_start = {} if name.startswith("cold") else cold_start
         call_k = lambda: boxqp_mod.boxqp_small(P, q, lb, ub, **warm_start, **kw)
         call_p = lambda: boxqp_mod.boxqp_small_ref(P, q, lb, ub, **warm_start, **kw)
         out_k, out_p = call_k(), call_p()
@@ -383,7 +428,7 @@ def phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, n: int) -> dict:
         rec[name] = err
         if name == "cold_3x12":
             # the warm forms start from the cold solve's dual and rho
-            warm_start = {"y0": out_p[1], "rho0": out_p[2].rho}
+            cold_start = {"y0": out_p[1], "rho0": out_p[2].rho}
     rec["tolerance"] = {"z_y": QP_TOL, "rho_rel": RHO_RTOL, "flag_borderline": BORDERLINE}
     emit(rec)
     return rec
@@ -556,12 +601,13 @@ def rescue_spec(presets, name, **kw):
 
 
 def phase_fleet(name, presets, run_hostloop_fleet, counters):
-    """One fleet: one warm-up run, then 3 timed runs, with the kernels'
-    launch counts set to 0 just before and read just after the whole call.
+    """One fleet: one warm-up run, then the timed runs (3, or 1 on the two
+    slowest fleets), with the kernels' launch counts set to 0 just before
+    and read just after the whole call.
     Where the fleet has a rescue pass, that pass's own launches (the
     entry point reports them) are taken off: the counts are the main pass's."""
     spec = FLEETS[name]
-    B = spec["batch"]
+    B, reps = spec["batch"], spec.get("reps", FLEET_REPS)
     make = fleet_preset(presets, name)
     sc = make()  # no device argument: on the card, in float32
     require(sc.x0.device.type == DEVICE and sc.plant.real_dtype == torch.float32,
@@ -570,17 +616,17 @@ def phase_fleet(name, presets, run_hostloop_fleet, counters):
     for fn in counters.values():
         fn.launches = 0
     metrics, out = run_hostloop_fleet(sc, B, plants=plants64.to(DEVICE, torch.float32),
-                                      reps=FLEET_REPS, rescue=rescue_spec(presets, name))
+                                      reps=reps, rescue=rescue_spec(presets, name))
     rescued = metrics.get("rescue_launches", {})
     launches = {k: fn.launches - rescued.get(k, 0) for k, fn in counters.items()}
     final_x = out["final_x"]
-    emit({"phase": "fleet", **metrics, "launches": launches, "runs": FLEET_REPS})
+    emit({"phase": "fleet", **metrics, "launches": launches, "runs": reps})
     dim = sc.x0.shape[0]
     require(tuple(final_x.shape) == (B, dim) and bool(torch.isfinite(final_x).all()),
             f"{name} fleet final states are not finite ({B}, {dim})")
-    expected = {k: v * FLEET_REPS for k, v in spec["launches"].items()}
+    expected = {k: v * reps for k, v in spec["launches"].items()}
     require(launches == expected,
-            f"{name} kernel launches over {FLEET_REPS} runs: {launches}, expected {expected}")
+            f"{name} kernel launches over {reps} runs: {launches}, expected {expected}")
     require(metrics["completed_frac"] == 1.0 and metrics["qp_fail_frac"] == 0.0,
             f"{name} fleet lanes failed: {metrics}")
     require(metrics["exit_early_frac"] == spec.get("exit_early", 0.0),
@@ -588,7 +634,7 @@ def phase_fleet(name, presets, run_hostloop_fleet, counters):
     gates = (("fidelity_mean", spec["fid_mean"]), ("fidelity_min", spec["fid_min"]))
     require(all(gate is None or metrics[key] >= gate for key, gate in gates),
             f"{name} fleet fidelity below the gates {gates}: {metrics}")
-    return sc, plants64, out, launches
+    return sc, plants64, out, launches, metrics
 
 
 def phase_parity(name, presets, run_hostloop_fleet, fleet_fidelity, sc, plants64, out) -> dict:
@@ -684,6 +730,203 @@ def phase_rescue(presets, run_hostloop_fleet, fleet_fidelity, counters) -> dict:
     return rec
 
 
+def learned_scenario(presets, dmdc, kind: str, **kw):
+    """not_state with a per-lane model refit every step: (scenario, refit)."""
+    sc = presets.not_state(**kw)
+    A = sc.model.A
+    dim_u = A.shape[1] - 4
+    if kind == "online":
+        model = dmdc.online_from_bootstrap(A, 4, 4, dim_u, alpha=LEARN["alpha"])
+        fit = dmdc.online_fit_iteration
+    else:
+        model = dmdc.discrep_bootstrap(A, 4, 4, dim_u, capacity=DISCREP["capacity"],
+                                       rcond=DISCREP["rcond"])
+        fit = dmdc.discrep_fit_iteration
+    cfg = dataclasses.replace(sc.config, streaming=True)
+    return dataclasses.replace(sc, model=model, config=cfg), fit
+
+
+def phase_learned_fleet(kind, presets, dmdc, run_hostloop_fleet, fleet_fidelity, counters,
+                        flagship) -> dict:
+    """A learned-model fleet (LEARN: "online", DISCREP: "discrep") through
+    run_hostloop_fleet on the card in float32, recorded, with its gates and
+    launch counts, and its first lanes again in float64 on the CPU with the
+    same noise."""
+    spec = LEARN if kind == "online" else DISCREP
+    B, sigma = spec["batch"], spec.get("sigma", 0.0)
+    sc, fit = learned_scenario(presets, dmdc, kind)
+    plants64 = make_lanes(presets.not_state(device="cpu", dtype=torch.float64).plant, B)
+    plants64 = dataclasses.replace(plants64, sigma=plants64.sigma + sigma)
+    noise = None
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    if sigma:
+        draw = lambda: torch.randn((sc.config.n_steps, B, 4), generator=g, device=DEVICE)
+        noise = torch.complex(draw(), draw())
+    for fn in counters.values():
+        fn.launches = 0
+    metrics, out = run_hostloop_fleet(sc, B, plants=plants64.to(DEVICE, torch.float32),
+                                      reps=FLEET_REPS, record=True, noise=noise,
+                                      model_update_fn=fit)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    probe = None
+    if "probe_sigma" in spec:
+        lanes = spec["probe_lanes"]
+        noisier = dataclasses.replace(plants64[:lanes],
+                                      sigma=plants64.sigma[:lanes] - sigma + spec["probe_sigma"])
+        m, o = run_hostloop_fleet(sc, lanes, plants=noisier.to(DEVICE, torch.float32),
+                                  generator=g, model_update_fn=fit)
+        f = fleet_fidelity(sc, o["final_x"])
+        probe = {"sigma": spec["probe_sigma"], "lanes": lanes,
+                 "completed_frac": m["completed_frac"],
+                 "fidelity_mean": float(f.mean()), "fidelity_min": float(f.min()),
+                 "lanes_below_gate": int((f <= spec["fid_lane"]).sum())}
+    fid = fleet_fidelity(sc, out["final_x"])
+    A_end = out["model_state"].A
+    moved = float((A_end - sc.model.A).abs().amax())
+    rec = {"phase": f"{'learn' if kind == 'online' else 'discrep'}_fleet", **metrics,
+           "wall_s": B / metrics["rollouts_per_s"], "sigma": sigma, "launches": launches,
+           "runs": FLEET_REPS, "gates": {k: spec[k] for k in ("fid_lane", "fid_mean")},
+           "rate_vs_flagship": metrics["rollouts_per_s"] / flagship["rollouts_per_s"],
+           "lanes_below_gate": int((fid <= spec["fid_lane"]).sum()), "max_abs_dA": moved}
+    if probe is not None:
+        rec["ungated_probe"] = probe
+    if kind == "discrep":
+        rec["count"] = sorted(set(out["model_state"].count.tolist()))
+    n_steps = sc.config.n_steps
+    require(tuple(out["xs"].shape) == (B, 4, n_steps + 1) and bool(torch.isfinite(out["xs"]).all())
+            and bool((out["n_valid"] == n_steps).all()), f"{kind}: record {rec}")
+    # the first lanes in float64 on the CPU, the same noise copied to the host
+    lanes = spec["parity_lanes"]
+    sc64, _ = learned_scenario(presets, dmdc, kind, device="cpu", dtype=torch.float64)
+    noise64 = None if noise is None else noise[:, :lanes].cpu().to(torch.complex128)
+    _, out64 = run_hostloop_fleet(sc64, lanes, plants=plants64[:lanes], record=True,
+                                  noise=noise64, model_update_fn=fit)
+    fid64 = fleet_fidelity(sc64, out64["final_x"])
+    dfid = np.abs(fid[:lanes] - fid64)
+    rec["lane_parity"] = {"lanes": lanes, "max_abs_dfid": float(dfid.max()),
+                          "bound": spec["parity_tol"], "fidelity_mean_f64": float(fid64.mean()),
+                          "fidelity_mean": float(fid[:lanes].mean()),
+                          "max_abs_dA": float((A_end[:lanes].cpu().to(torch.complex128)
+                                               - out64["model_state"].A).abs().max())}
+    emit(rec)
+    expected = {k: v * FLEET_REPS for k, v in spec["launches"].items()}
+    require(launches == expected, f"{kind} launches {launches}, expected {expected}")
+    require(metrics["completed_frac"] == 1.0 and metrics["qp_fail_frac"] == 0.0,
+            f"{kind} fleet lanes failed: {rec}")
+    require(float(fid.min()) > spec["fid_lane"] and float(fid.mean()) >= spec["fid_mean"],
+            f"{kind} fleet fidelity below the gates: {rec}")
+    require(moved > 1e-10, f"{kind}: the models did not move {rec}")
+    if kind == "discrep":
+        require(rec["count"] == [min(n_steps, DISCREP["capacity"])], f"discrep count {rec}")
+    require(float(dfid.max()) <= spec["parity_tol"], f"{kind}: lanes differ from float64 {rec}")
+    return rec
+
+
+def single_problem(systems, torch_mods, dt, device, dtype):
+    """The flagship's single-rollout problem at step dt (horizon 10, 20
+    steps), for mpc(): (x0, targets and costs, config, sat)."""
+    MPCConfig = torch_mods["MPCConfig"]
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    H, n_steps = 10, 20
+    sat = 2 * np.pi * 0.1
+    Rx = systems.rx_rotation(1e-4)
+    x0 = (Rx @ np.diag([1.0, 0.0]).astype(complex) @ Rx.conj().T).flatten()
+    targ = np.diag([0.0, 1.0]).astype(complex).flatten()
+    cx = lambda a: torch.tensor(np.asarray(a, complex)).to(device, cdt)
+    re = lambda a: torch.tensor(np.asarray(a, float)).to(device, dtype)
+    Q = cx(np.diag([1.0, 0, 0, 1]))
+    args = (cx(np.tile(targ[:, None], (1, n_steps + H + 1))), re(np.zeros((1, n_steps + H))),
+            Q, re(np.eye(1) * (1e-2 / sat ** 2)), Q)
+    return cx(x0), args, MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=1, order=2), sat
+
+
+def phase_train_then_control(systems, torch_mods, counters) -> dict:
+    """The data-driven flow at B = 1: quantum_simulate of a Blackman drive
+    (one expm_small launch at B = 48), train_model, then mpc() with the
+    learned model on the ideal qubit; the same in float64 on the CPU."""
+    QuantumPlant, simulate = torch_mods["QuantumPlant"], torch_mods["quantum_simulate"]
+    dt, order = 0.25, 2
+    ts = np.arange(0, 12.0, dt)
+    us_np = systems.blackman(ts, 0, 6.0, dt)[None, :]
+    rho0 = np.diag([1.0, 0.0]).astype(complex).flatten()
+    powers = torch_mods["control_powers"](order, 1)[1:]
+    rec = {"phase": "train_then_control", "steps_simulated": len(ts),
+           "gates": {"p1": SINGLE["p1"], "loss": SINGLE["loss"], "vs_cpu": SINGLE["cpu_tol"]}}
+    results = {}
+    for where, device, dtype in (("card", DEVICE, torch.float32), ("cpu", "cpu", torch.float64)):
+        plant = QuantumPlant.create(0.0 * systems.SZ, [0.5 * systems.SX], device=device,
+                                     dtype=dtype)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        us = torch.tensor(us_np).to(device, dtype)
+        xs = simulate(plant, torch.tensor(rho0).to(device, plant.dtype), us, dt)
+        sim_launches = {k: fn.launches for k, fn in counters.items()}
+        UL1 = torch_mods["lift_controls"](us, powers)
+        model, rcond, losses = torch_mods["train_model"](xs[:, 1:], xs[:, :-1], UL1)
+        A = model.A
+        mstate = torch_mods["dmdc_from_operator"](A, 4, 4, A.shape[1] - 4)
+        x0, args, cfg, sat = single_problem(systems, torch_mods, dt, device, dtype)
+        for fn in counters.values():
+            fn.launches = 0
+        res = torch_mods["mpc"](x0, mstate, plant, *args, cfg, sat, 0.5 * sat)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        results[where] = {"wall_s": time.perf_counter() - t0, "simulate_launches": sim_launches,
+                          "min_loss": float(losses.min()), "rcond": rcond,
+                          "exit_code": int(res.exit_code), "n_valid": int(res.n_valid),
+                          "p1": float(res.xs[3, -1].real),
+                          "mpc_launches": {k: fn.launches for k, fn in counters.items()}}
+    rec.update(results)
+    rec["p1_gap_vs_cpu"] = abs(results["card"]["p1"] - results["cpu"]["p1"])
+    emit(rec)
+    card = results["card"]
+    require(card["simulate_launches"] == {"boxqp_small": 0, "expm_small": 1, "admm_big": 0},
+            f"train_then_control: quantum_simulate launches {rec}")
+    require(card["exit_code"] == 0 and card["p1"] > SINGLE["p1"]
+            and card["min_loss"] < SINGLE["loss"], f"train_then_control gates: {rec}")
+    require(card["mpc_launches"]["expm_small"] == 20 and card["mpc_launches"]["boxqp_small"] >= 20,
+            f"train_then_control: mpc() launches {rec}")
+    require(rec["p1_gap_vs_cpu"] <= SINGLE["cpu_tol"], f"train_then_control vs cpu {rec}")
+    return rec
+
+
+def phase_observe_eops(systems, torch_mods, counters) -> dict:
+    """mpc() on the 1%-detuned qubit observed through the Pauli e_ops at
+    sigma 1e-4 (quantum_observe), noise drawn on the card; the same noise
+    in float64 on the CPU."""
+    QuantumPlant = torch_mods["QuantumPlant"]
+    wq = 2 * np.pi * 4
+    paulis = [np.eye(2, dtype=complex), systems.SX, systems.SY, systems.SZ]
+    base = QuantumPlant.create(0.5 * (wq * 0.99 - wq) * systems.SZ, [0.5 * systems.SX],
+                               sigma=1e-4, e_ops=paulis, device="cpu", dtype=torch.float64)
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    draw = lambda: torch.randn((20, 4), generator=g, device=DEVICE)
+    noise = torch.complex(draw(), draw())
+    rec = {"phase": "observe_eops", "sigma": 1e-4,
+           "gates": {"p1": SINGLE["p1"], "vs_cpu": SINGLE["cpu_tol"]}}
+    for where, device, dtype in (("card", DEVICE, torch.float32), ("cpu", "cpu", torch.float64)):
+        plant = base.to(device, dtype)
+        x0, args, cfg, sat = single_problem(systems, torch_mods, 1.0, device, dtype)
+        sc = torch_mods["presets"].not_state(device=device, dtype=dtype)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = torch_mods["mpc"](x0, sc.model, plant, *args, cfg, sat, 0.5 * sat,
+                                noise=noise.to(device, plant.dtype),
+                                observe_fn=torch_mods["quantum_observe"])
+        rec[where] = {"wall_s": time.perf_counter() - t0, "exit_code": int(res.exit_code),
+                      "n_valid": int(res.n_valid), "p1": float(res.xs[3, -1].real),
+                      "launches": {k: fn.launches for k, fn in counters.items()}}
+    rec["p1_gap_vs_cpu"] = abs(rec["card"]["p1"] - rec["cpu"]["p1"])
+    emit(rec)
+    require(rec["card"]["exit_code"] == 0 and rec["card"]["p1"] > SINGLE["p1"],
+            f"observe_eops gates: {rec}")
+    require(rec["card"]["launches"]["expm_small"] == 20, f"observe_eops launches {rec}")
+    require(rec["p1_gap_vs_cpu"] <= SINGLE["cpu_tol"], f"observe_eops vs cpu {rec}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -699,31 +942,54 @@ def main() -> int:
     from mpc4quantum_tpu_torch.solvers.boxqp import (BoxQPParams, accept_thresholds,
                                                      solve_boxqp_fixed)
     from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
+    import mpc4quantum_tpu_torch as port
+    from mpc4quantum_tpu_torch import systems
+    from mpc4quantum_tpu_torch.models import dmdc
+    from mpc4quantum_tpu_torch.ops.library import control_powers, lift_controls
+
+    torch_mods = {"presets": presets, "control_powers": control_powers,
+                  "lift_controls": lift_controls,
+                  **{k: getattr(port, k) for k in ("MPCConfig", "QuantumPlant", "quantum_simulate",
+                                                   "quantum_observe", "train_model",
+                                                   "dmdc_from_operator", "mpc")}}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_toolchain(build)
     phase_build(build)
-    qp = {n: phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, n) for n in QP_FORMS}
     floor_us = launch_floor_us()
+    qp = {shape: phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, shape, floor_us)
+          for shape in QP_FORMS}
     ex = phase_expm(expm_mod, graph_node_types, floor_us)
     ad = phase_admm(admm_mod, gj_inverse)
     phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds)
     counters = {"boxqp_small": boxqp_mod.boxqp_small, "expm_small": expm_mod.expm_small,
                 "admm_big": admm_mod.admm_big}
-    total = dict.fromkeys(counters, 0)
+    total, flagship = dict.fromkeys(counters, 0), None
+    add = lambda launches: {k: total[k] + launches.get(k, 0) for k in total}
     for name in FLEETS:
-        sc, plants64, out, launches = phase_fleet(name, presets, run_hostloop_fleet, counters)
-        total = {k: total[k] + launches[k] for k in total}
+        sc, plants64, out, launches, metrics = phase_fleet(name, presets, run_hostloop_fleet,
+                                                           counters)
+        flagship = metrics if name == "not_state" else flagship
+        total = add(launches)
         phase_parity(name, presets, run_hostloop_fleet, fleet_fidelity, sc, plants64, out)
     phase_rescue(presets, run_hostloop_fleet, fleet_fidelity, counters)
+    for kind in ("online", "discrep"):
+        rec = phase_learned_fleet(kind, presets, dmdc, run_hostloop_fleet, fleet_fidelity,
+                                  counters, flagship)
+        total = add(rec["launches"])
+    rec = phase_train_then_control(systems, torch_mods, counters)
+    total = add(rec["card"]["mpc_launches"])
+    total = add(rec["card"]["simulate_launches"])
+    rec = phase_observe_eops(systems, torch_mods, counters)
+    total = add(rec["card"]["launches"])
 
     gpu = smi_line()
     print(gpu, flush=True)
     # each kernel's runs over all its checked shapes; the first is the one
     # the line reports (the flagship's cold QP and expm, drag's
     # 50-iteration ADMM), every shape is in the phase lines above
-    qp_runs = [qp[n][f] for n, (_, forms) in QP_FORMS.items() for f in forms]
+    qp_runs = [qp[shape][f] for shape, forms in QP_FORMS.items() for f in forms]
     ex_runs = [ex[f] for f in EXPM_CASES]
     ad_runs = [ad[f"B{B}_n{n}_it{it}"] for B, n, it in ADMM_SHAPES]
     kernels = (("boxqp_small", "mpc4quantum_tpu/ops/pallas_qp.py:42", qp_runs,

@@ -16,9 +16,35 @@ Quick start, on the card (float32):
 On the CPU, through the kernels' plain versions: presets.not_state(device="cpu")
 (float64 there). The seven presets are in presets.PRESETS; `rescue=` of
 run_hostloop_fleet re-runs the marginal lanes under a second scenario.
+
+The learned-model loop: `mpc()` runs one rollout (a one-lane fleet) and
+returns an MPCResult; a model from models.dmdc (OnlineDMDc, DiscrepDMDc,
+HistoryState) with config.streaming and `model_update_fn` refits online,
+per lane in a fleet; `train_model` fits a DiscrepDMDc from data made by
+`quantum_simulate`; measurement noise is a tensor or a torch.Generator's.
 """
 
 from . import presets
 from .benchfleet import rescue_pass, run_hostloop_fleet
+from .models.dmdc import (DiscrepDMDc, DMDcModel, HistoryState, OnlineDMDc, discrep_append,
+                          discrep_bootstrap, discrep_fit_iteration, discrep_from_data,
+                          discrep_from_randn, dmdc_from_operator, history_p_snapshots,
+                          history_snapshots, history_update, online_fit_iteration,
+                          online_from_bootstrap, online_from_data, online_from_randn, predict,
+                          with_history)
+from .models.training import prediction_loss, train_model
+from .mpc.clock import StepClock, val_to_str
+from .mpc.driver import MPCConfig, MPCResult, mpc, trim
+from .plants.quantum import (QuantumPlant, quantum_expectations, quantum_observe,
+                             quantum_simulate)
 
-__all__ = ["presets", "rescue_pass", "run_hostloop_fleet"]
+__all__ = [
+    "presets", "rescue_pass", "run_hostloop_fleet",
+    "DiscrepDMDc", "DMDcModel", "HistoryState", "OnlineDMDc", "discrep_append",
+    "discrep_bootstrap", "discrep_fit_iteration", "discrep_from_data", "discrep_from_randn",
+    "dmdc_from_operator", "history_p_snapshots", "history_snapshots", "history_update",
+    "online_fit_iteration", "online_from_bootstrap", "online_from_data", "online_from_randn",
+    "predict", "with_history", "prediction_loss", "train_model", "StepClock", "val_to_str",
+    "MPCConfig", "MPCResult", "mpc", "trim", "QuantumPlant", "quantum_expectations",
+    "quantum_observe", "quantum_simulate",
+]

@@ -1,7 +1,7 @@
 """Carry a scenario and its plant batch across from numpy arrays, e.g. the
-JAX package's Scenario and lane batch after `np.asarray` on the JAX side, so
-the port and the reference can run on the same data. Nothing here sees a
-JAX object.
+JAX package's Scenario, lane batch and DMDc models after `np.asarray` on
+the JAX side, so the port and the reference can run on the same data.
+Nothing here sees a JAX object.
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .models.dmdc import DiscrepDMDc, DMDcModel, HistoryState, OnlineDMDc
 from .mpc.driver import MPCConfig
-from .plants.base import Plant
+from .plants.base import Plant, complex_dtype
 from .plants.lindblad import LindbladPlant
 from .plants.quantum import QuantumPlant
 from .plants.synthesis import SynthesisPlant
@@ -24,19 +25,62 @@ PLANT_KINDS = (QuantumPlant, SynthesisPlant, LindbladPlant)
 
 
 def plant_from_numpy(fields: dict) -> Plant:
-    """The plant kind whose tensor field names are exactly the array keys
-    of `fields` (H0, H1s, sigma: quantum; H0, H1s: synthesis; AH0, AD, A1s,
-    sigma: Lindblad), in float64 / complex128 on the CPU. A kind's settings
-    (the quantum plant's `lift_kind`, a string, and `lift_dim`, an int) may
-    ride along as plain values; left out, they take their defaults."""
+    """The plant kind whose tensor field names match the array keys of
+    `fields` (H0, H1s, sigma, optionally e_obs and e_dual: quantum; H0,
+    H1s: synthesis; AH0, AD, A1s, sigma: Lindblad), in float64 /
+    complex128 on the CPU. An optional field (the quantum plant's e_obs,
+    e_dual) may be left out or None. A kind's settings (the quantum plant's
+    `lift_kind`, a string, and `lift_dim`, an int) may ride along as plain
+    values; left out, they take their defaults."""
+    given = {k for k, v in fields.items() if v is not None}
     for kind in PLANT_KINDS:
         static = {f.name for f in dataclasses.fields(kind) if f.metadata.get("static")}
-        names = [f.name for f in dataclasses.fields(kind) if f.name not in static]
-        if set(names) == set(fields) - static:
-            tensors = {k: torch.tensor(np.asarray(fields[k], complex if k != "sigma" else float))
-                       for k in names}
-            return kind(**tensors, **{k: fields[k] for k in static if k in fields})
+        tensors = [f for f in dataclasses.fields(kind) if f.name not in static]
+        required = {f.name for f in tensors if f.default is dataclasses.MISSING}
+        optional = {f.name for f in tensors} - required
+        if required <= given - static <= required | optional:
+            arrays = {k: torch.tensor(np.asarray(fields[k], complex if k != "sigma" else float))
+                      for k in given - static}
+            return kind(**arrays, **{k: fields[k] for k in static if k in fields})
     raise ValueError(f"no plant kind has the fields {sorted(fields)}")
+
+
+MODEL_KINDS = (HistoryState, DiscrepDMDc, OnlineDMDc, DMDcModel)
+
+
+def model_from_numpy(fields: dict, device="cuda", dtype: Optional[torch.dtype] = None):
+    """A model of models/dmdc.py from its fields as numpy arrays and plain
+    numbers, e.g. a JAX model's dataclass fields after `np.asarray`: the
+    kind whose field names are exactly the keys (a HistoryState's "inner"
+    is itself such a dict; "pbuf" may be None). Integer arrays (count, it,
+    n_recorded) keep their kind; complex and real arrays take `dtype`'s
+    partners (presets.default_dtype when None) on `device`, the card
+    unless the caller asks for the CPU; settings (dims, capacity, discount,
+    rcond, every) become Python numbers."""
+    dtype = default_dtype(device, dtype)
+    for kind in MODEL_KINDS:
+        if {f.name for f in dataclasses.fields(kind)} != set(fields):
+            continue
+        args = {}
+        for f in dataclasses.fields(kind):
+            v = fields[f.name]
+            if f.metadata.get("static"):
+                args[f.name] = type(f.default)(np.asarray(v)) if f.default is not \
+                    dataclasses.MISSING else int(np.asarray(v))
+            elif isinstance(v, dict):
+                args[f.name] = model_from_numpy(v, device, dtype)
+            elif v is not None:
+                a = np.asarray(v)
+                t = torch.tensor(a)
+                if a.dtype.kind == "c":
+                    t = t.to(complex_dtype(dtype))
+                elif a.dtype.kind == "f":
+                    t = t.to(dtype)
+                args[f.name] = t.to(device)
+            else:
+                args[f.name] = None
+        return kind(**args)
+    raise ValueError(f"no model kind has the fields {sorted(fields)}")
 
 
 def scenario_from_numpy(name: str, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du,

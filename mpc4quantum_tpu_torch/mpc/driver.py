@@ -16,7 +16,15 @@ Reference behaviour kept on purpose:
     reads its second argument), so it fires one step after the threshold
     is crossed;
   - the loop runs every step whatever the lanes' state: a lane that is done
-    stays frozen (the reference host loop has no early break).
+    stays frozen (the reference host loop has no early break);
+  - at a measurement step the observation (noisy where the plant has a
+    sigma) re-seeds the loop and the true plant state alike; between
+    measurements the loop closes through the model and the plant runs on;
+  - the streaming refit sees (lift(x_next), lift(x_cur), f(u) (kr) lift(x_cur))
+    and is held on lanes that are done or whose step failed.
+
+`mpc()` is one lane of the fleet runner (mpc/fleet_runner.py); `trim` cuts
+its record to the executed steps.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..models.dmdc import DMDcModel, predict
+from ..models.dmdc import predict, tree_map, tree_where
+from ..ops.expm import taylor_budget
 from ..ops.library import krtimes
 from ..ops.bilinear import BilinearModel
 from ..plants.base import Plant
@@ -44,7 +53,11 @@ class MPCConfig:
     dim_u: int
     order: int
     measure_freq: int = 1
+    # line-searched SQP iterations a warm step may take in `mpc()`
+    max_iter: int = 100
     warm_start: bool = True
+    # refit the model online with the runner's model_update_fn
+    streaming: bool = False
     step_tol: float = 1e-4
     qp_params: BoxQPParams = dataclasses.field(default_factory=BoxQPParams)
 
@@ -93,9 +106,38 @@ def select(mask, old, new):
     return type(old)(*(torch.where(_lane(mask, a), a, b) for a, b in zip(old, new)))
 
 
-def bilinear_model(model: DMDcModel, config: MPCConfig) -> BilinearModel:
-    dim_x = model.dim_x
-    return BilinearModel.from_stacked(model.A[:, :dim_x], model.A[:, dim_x:],
+class MPCResult(NamedTuple):
+    """One rollout's record (the reference's `mpc` contract)."""
+
+    xs: torch.Tensor         # (dim_e, n_steps + 1) observed states, x0 first
+    us: torch.Tensor         # (dim_u, n_steps) applied controls (0 where none)
+    exit_code: torch.Tensor  # () int32: 0 ok, 1 exit condition, 2 QP fail, 3 non-finite obj
+    n_valid: torch.Tensor    # () number of steps whose control was applied
+    objs: torch.Tensor       # (n_steps,) the step's QP objective (0 once done)
+    sqp_iters: torch.Tensor  # (n_steps,) SQP iterations of the step (0 once done)
+    model_A: torch.Tensor    # the final (refit) stacked operator
+    model_state: object      # the final model
+
+
+def trim(result: MPCResult):
+    """(xs, us) as numpy, cut to the executed steps: a code-1 exit drops the
+    state and the control of the step that triggered it (the reference's
+    early-exit slicing); codes 0, 2 and 3 keep every applied control. A
+    code-1 exit at step 0 gives the empty (dim_u, 0) controls."""
+    n = int(result.n_valid)
+    code = int(result.exit_code)
+    xs = result.xs.detach().cpu().numpy()
+    us = result.us.detach().cpu().numpy()
+    if code == 1:
+        return xs[:, :n], us[:, : max(n - 1, 0)]
+    return xs[:, : n + 1], us[:, :n]
+
+
+def bilinear_model(model, config: MPCConfig) -> BilinearModel:
+    """The bilinear view of a model's stacked operator; a lane batch of
+    models (A of shape (B, dim_x, dim_z)) gives per-lane operators."""
+    dim_x = model.A.shape[-2]
+    return BilinearModel.from_stacked(model.A[..., :dim_x], model.A[..., dim_x:],
                                       config.dim_u, config.order)
 
 
@@ -180,19 +222,39 @@ def sqp_update_from_qp(s: SQPState, res: QPResult, X_ref, U_ref, Q_s, R_s,
     )
 
 
+def observe(plants: Plant, x_plant: torch.Tensor, noise_t: Optional[torch.Tensor],
+            observe_fn: Optional[Callable] = None) -> torch.Tensor:
+    """The measured state of each lane: observe_fn(plants, x_plant,
+    noise_t) where given, else x_plant + sigma noise_t on a plant with a
+    sigma (x_plant itself when noise_t is None or the plant has none)."""
+    if observe_fn is not None:
+        return observe_fn(plants, x_plant, noise_t)
+    sigma = getattr(plants, "sigma", None)
+    if noise_t is None or sigma is None:
+        return x_plant
+    return x_plant + sigma.reshape(-1, 1) * noise_t
+
+
 def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
-            ctx: StepContext, bmodel: BilinearModel, model: DMDcModel,
-            plants: Plant, plant_step: Callable, exit_condition: Optional[Callable] = None):
+            ctx: StepContext, bmodel: BilinearModel, model,
+            plants: Plant, plant_step: Callable, exit_condition: Optional[Callable] = None,
+            noise_t: Optional[torch.Tensor] = None, observe_fn: Optional[Callable] = None,
+            model_update_fn: Optional[Callable] = None):
     """Apply each lane's first control to the plant, observe, close the loop,
-    shift the guesses and duals and book the exits. Observation is
-    noiseless. A lane's new code is its failed step's 2 / 3, else 1 where
-    the exit condition holds, else 0; a lane that is done keeps its code.
+    refit the model, shift the guesses and duals and book the exits. A
+    lane's new code is its failed step's 2 / 3, else 1 where the exit
+    condition holds, else 0; a lane that is done keeps its code.
 
     :param plant_step: (x_true (B, dim_e), u (B, dim_u)) -> next plant state.
     :param exit_condition: None, or (x_next, x_cur, u) -> (B,) bool,
         evaluated on every lane; a lane where it holds is done.
-    :return: (carry_new, duals_out) with duals_out = (y, rho) for the next
-        step's warm start.
+    :param noise_t: None, or this step's (B, n_obs) complex standard normal
+        draws of the observation (`observe`).
+    :param model_update_fn: None, or the streaming refit (model,
+        y (B, dim_x), x (B, dim_x), u (B, Lm dim_x)) -> model on the lane
+        batch of models.
+    :return: (carry_new, duals_out, model_new) with duals_out = (y, rho)
+        for the next step's warm start.
     """
     dim_u = config.dim_u
     done = carry.done
@@ -200,14 +262,22 @@ def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
     step_failed = s.code > 0
 
     x_plant = plant_step(carry.x_true, u_apply)
-    if ((step + 1) % config.measure_freq) == 0:
-        # measurement step: the observation re-seeds the loop
-        x_next = x_plant
-    else:
-        # between measurements the loop closes through the model
+    is_measure = ((step + 1) % config.measure_freq) == 0
+    ux = None
+    if not is_measure or model_update_fn is not None:
         lift_u = bmodel.lift_u(u_apply.T)                          # (Lm, B)
         ux = krtimes(lift_u, ctx.lift_x.T)                          # (Lm*dim_x, B)
+    if is_measure:
+        # the observation re-seeds the loop and the true plant state alike
+        x_next = observe(plants, x_plant, noise_t, observe_fn)
+        x_true_next = x_next
+    else:
+        # between measurements the loop closes through the model
         x_next = plants.proj(predict(model, ctx.lift_x.T, ux).T)
+        x_true_next = x_plant
+    if model_update_fn is not None:
+        model_new = model_update_fn(model, plants.lift(x_next), ctx.lift_x, ux.T)
+        model = tree_where(done | step_failed, model, model_new)
     cond_exit = (exit_condition(x_next, carry.x_cur, u_apply) if exit_condition is not None
                  else torch.zeros_like(done))
     new_code = torch.where(step_failed, s.code, cond_exit.to(s.code.dtype))
@@ -217,7 +287,7 @@ def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
     shift = lambda G: torch.cat([G[:, :, 1:], G[:, :, -1:]], dim=2)
     carry_new = Carry(
         keep(carry.x_cur, hold(carry.x_cur, x_next)),
-        keep(carry.x_true, hold(carry.x_true, x_plant)),
+        keep(carry.x_true, hold(carry.x_true, x_true_next)),
         keep(carry.X_guess, shift(s.Xg)),
         keep(carry.U_guess, shift(s.Ug)),
         keep(carry.u_last, hold(carry.u_last, u_apply)),
@@ -225,4 +295,61 @@ def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
         done | step_failed | cond_exit,
     )
     y_shift = torch.cat([s.y[:, dim_u:], s.y[:, -dim_u:]], dim=1)
-    return carry_new, (keep(s.y, y_shift), s.rho)
+    return carry_new, (keep(s.y, y_shift), s.rho), model
+
+
+def record_row(carry: Carry, s: SQPState):
+    """A step's row of the recorded trajectory, from the carry before
+    `advance` and the step's SQP state: (applied u (B, dim_u), 0 where none;
+    objective and SQP iterations (B,), 0 on lanes already done; active
+    (B,), the lanes whose control was applied)."""
+    active = ~(carry.done | (s.code > 0))
+    return (torch.where(active[:, None], s.U_opt[:, :, 0], 0.0),
+            torch.where(carry.done, 0.0, s.obj), torch.where(carry.done, 0, s.n_iter), active)
+
+
+def mpc(x0, model_state, plant: Plant, X_targ, U_targ, Q, R, Qf, config: MPCConfig, sat,
+        du=None, *, noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None, model_update_fn: Optional[Callable] = None,
+        exit_condition: Optional[Callable] = None,
+        observe_fn: Optional[Callable] = None) -> MPCResult:
+    """One closed-loop rollout: a one-lane run of the fleet runner on the
+    plant's device (the card unless the caller built the plant elsewhere).
+
+    Warm steps take up to config.max_iter line-searched SQP iterations and
+    stop once the lane's SQP is done (one host read of its done flag an
+    iteration, in this entry only); steady steps one single-shot QP,
+    started cold like the warm ones (the reference loop carries no duals).
+    Every QP takes config.qp_params; the plant expm the budget of the
+    plant's norm bound over the control box (ops.expm.taylor_budget).
+
+    :param plant: one plant (no lane axis); x0 (dim_e,), X_targ, U_targ,
+        Q, R, Qf as in a Scenario.
+    :param model_state: a model (DMDcModel, OnlineDMDc, DiscrepDMDc,
+        HistoryState); refit with model_update_fn when config.streaming.
+    :param noise: None, or (n_steps, n_obs) complex standard normal draws of
+        the observations; or draw them from `generator`. A plant with
+        sigma > 0 needs one of the two.
+    :param exit_condition: None, or (x_next, x_cur, u) -> bool on one lane
+        of shape (1, ...), e.g. presets.DistanceExit.
+    :param observe_fn: None, or (plants, x (1, dim_e), noise (1, n_obs))
+        -> (1, dim_e), e.g. plants.quantum.quantum_observe.
+    """
+    from .fleet_runner import FleetRunner
+
+    plants = plant[None]
+    taylor_k, max_sq = taylor_budget(plants.norm_bound(config.dt, sat))
+    runner = FleetRunner(config, float(sat), du=du, warm_sqp_iters=(config.max_iter,),
+                         expm_taylor_k=taylor_k, expm_max_squarings=max_sq,
+                         exit_condition=exit_condition, carry_duals=False, early_exit=True)
+    out = runner.run(x0, model_state, plants, X_targ, U_targ, Q, R, Qf, record=True,
+                     noise=None if noise is None else noise[:, None],
+                     generator=generator, model_update_fn=model_update_fn,
+                     observe_fn=observe_fn)
+    lane = lambda t: t.detach()[0]
+    model = out["model_state"]
+    if model.A.dim() == 3:
+        model = tree_map(lambda t: t[0], model)
+    return MPCResult(xs=lane(out["xs"]), us=lane(out["us"]), exit_code=lane(out["exit_code"]),
+                     n_valid=lane(out["n_valid"]), objs=lane(out["objs"]),
+                     sqp_iters=lane(out["sqp_iters"]), model_A=model.A, model_state=model)

@@ -1,10 +1,14 @@
 """Batched matrix exponential of small matrices by scaling-and-squaring with
 a Horner Taylor evaluation (counterpart of mpc4quantum_tpu/ops/expm.py
 `expm_taylor`). Matmul-only, batched over leading dims; it is the plain
-version behind the expm kernel (kernels/expm.py).
+version behind the expm kernel (kernels/expm.py). Also the Taylor budget
+from a norm bound, and the per-step generators and propagators of a control
+trajectory.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,3 +44,47 @@ def expm_taylor(A: torch.Tensor, order: int = 16, max_squarings: int = 16,
     for i in range(max_squarings):
         E = torch.where((i < s)[..., None, None], E @ E, E)
     return E
+
+
+def taylor_budget(bound: float) -> tuple[int, int]:
+    """(taylor_k, squarings) of an exact Taylor expm for generators whose
+    1-norm is at most `bound`: Horner degree 12 and the least squarings s
+    with bound * 1.3 / 2^s <= 0.8 (truncation ~9e-12 at a scaled norm of
+    0.8; 1.3 is a safety margin on the bound). At s = 0 the expm skips its
+    norm, scaling and squaring."""
+    squarings = max(0, int(math.ceil(math.log2(max(bound, 1e-12) * 1.3 / 0.8))))
+    # the form certifies itself: the scaled norm is within Taylor 12's range
+    assert bound * 2.0 ** -squarings <= 0.8, (bound, squarings)
+    return 12, squarings
+
+
+def step_generators(H0: torch.Tensor, H1s: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+    """Per-step generators H(u_t) = H0 + sum_i u_i(t) H1_i.
+
+    :param H0: (d, d); :param H1s: (dim_u, d, d); :param us: (dim_u, n).
+    :return: (n, d, d).
+    """
+    us = us.reshape(H1s.shape[0], -1).to(H1s.dtype)
+    return H0[None] + torch.einsum("ut,udc->tdc", us, H1s)
+
+
+def propagators_from_controls(H0: torch.Tensor, H1s: torch.Tensor, us: torch.Tensor, dt: float,
+                              hermitian_generator: bool = True) -> torch.Tensor:
+    """Per-step propagators of piecewise-constant controls, all n of them
+    from one `expm_small` call (the kernel on the card, its plain version on
+    the CPU) at the Taylor budget of a host-side norm bound of these
+    controls (`taylor_budget`).
+
+    :param hermitian_generator: True: H are Hamiltonians and the
+        propagator is exp(-i dt H); False: H are generators already (e.g.
+        Liouvillians) and it is exp(dt H).
+    :return: (n, d, d).
+    """
+    from ..kernels.expm import expm_small
+    from ..plants.base import box_norm_bound
+
+    sat = us.reshape(H1s.shape[0], -1).abs().amax(dim=1)
+    taylor_k, squarings = taylor_budget(box_norm_bound(H0, H1s, dt, sat.cpu().numpy()))
+    G = step_generators(H0, H1s, us)
+    G = (-1j * dt) * G if hermitian_generator else dt * G
+    return expm_small(G, taylor_k=taylor_k, max_squarings=squarings)

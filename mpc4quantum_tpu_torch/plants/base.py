@@ -6,6 +6,8 @@ batched exact step and a norm bound.
 Every field of a plant is a tensor, except those declared with
 `static_field`: settings shared by every lane (the quantum plant's
 measurement adapter), which moving, slicing and batching leave as they are.
+An optional tensor field may be None (the quantum plant's observation map);
+the walkers leave it None.
 Complex fields carry the state's dtype, real fields (sigma) its real
 partner. A lane batch carries a leading axis B on every tensor field; the
 first field is always complex and sets the batch size, the device and the
@@ -32,6 +34,15 @@ def static_field(default):
     return dataclasses.field(default=default, metadata={"static": True})
 
 
+def default_dtype(device, dtype=None) -> torch.dtype:
+    """The real dtype of tensors built on `device`: `dtype` where given,
+    else float32 on a CUDA device (the runner on the card takes float32
+    only) and float64 elsewhere."""
+    if dtype is not None:
+        return dtype
+    return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
 def complex_dtype(real_dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if real_dtype == torch.float64 else torch.complex64
 
@@ -54,9 +65,11 @@ class Plant:
     """Base of the plant dataclasses."""
 
     def tensor_fields(self) -> dict:
-        """The tensor fields by name (static fields left out)."""
+        """The tensor fields by name; static fields and optional tensor
+        fields that are None (the quantum plant's e_ops) are left out, so
+        the walkers below keep them as they are."""
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-                if not f.metadata.get("static")}
+                if not f.metadata.get("static") and getattr(self, f.name) is not None}
 
     def to(self, device=None, dtype=None):
         """Move to a device; `dtype` is the real dtype (float32/float64)."""
@@ -66,7 +79,8 @@ class Plant:
             for k, t in self.tensor_fields().items()})
 
     def __getitem__(self, idx):
-        """Lane slice of a batch."""
+        """Lane slice of a batch (`plant[None]`: a one-lane batch of a
+        single plant)."""
         return dataclasses.replace(self, **{k: t[idx] for k, t in self.tensor_fields().items()})
 
     @property

@@ -11,8 +11,9 @@ exponential of the d^2 x d^2 generator comes from one `expm_small` launch
 function. The control generators stay Hamiltonian; the dissipators live in
 the drift.
 
-Not ported (not on the fleet path): `lindblad_simulate` and measurement
-noise (the fleet runner refuses sigma > 0).
+Measurement noise of scale sigma is added to the observed vec(rho) by the
+driver's default observation. Not ported (not on the fleet path):
+`lindblad_simulate`.
 """
 
 from __future__ import annotations

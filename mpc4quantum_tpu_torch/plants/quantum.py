@@ -3,6 +3,12 @@ mpc4quantum_tpu/plants/quantum.py), batched over lanes.
 
 One step is rho' = U rho U^H with U = exp(-i dt H(u)).
 
+Observation: the full vec(rho) plus complex Gaussian noise of scale sigma,
+or, with e_ops set, the expectation values tr(E_i rho) plus noise, mapped
+back to a state estimate through the dual frame (`quantum_observe`).
+Noise is data: the caller passes it, or draws it with a torch.Generator
+of its own; nothing here draws from a global stream.
+
 Measurement adapters (`lift_kind`), all batched over lanes:
   - "identity": model space equals experiment space;
   - "truncate": a d-level plant observed in its first `lift_dim` levels -
@@ -17,12 +23,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ..kernels.expm import expm_small
-from ..ops.expm import expm_taylor
-from .base import Plant, box_norm_bound, static_field
+from ..ops.expm import expm_taylor, propagators_from_controls
+from ..utils.linalg import pinv
+from .base import Plant, box_norm_bound, default_dtype, static_field
 
 LIFT_KINDS = ("identity", "truncate", "partial_trace")
 
@@ -31,13 +40,17 @@ LIFT_KINDS = ("identity", "truncate", "partial_trace")
 class QuantumPlant(Plant):
     """d rho/dt = -i[H0 + sum_i u_i H1_i, rho]. A lane batch carries a
     leading axis on every field: H0 (B, d, d), H1s (B, dim_u, d, d),
-    sigma (B,) measurement-noise scale. `lift_kind` (one of LIFT_KINDS) and
-    `lift_dim` (the subspace dimension of "truncate") are settings shared
-    by every lane."""
+    sigma (B,) measurement-noise scale, and where the plant is observed
+    through e_ops, e_obs (B, n_e, d^2) (exps = e_obs @ vec(rho)) and its
+    dual frame e_dual (B, d^2, n_e); both None otherwise. `lift_kind` (one
+    of LIFT_KINDS) and `lift_dim` (the subspace dimension of "truncate")
+    are settings shared by every lane."""
 
     H0: torch.Tensor
     H1s: torch.Tensor
     sigma: torch.Tensor
+    e_obs: Optional[torch.Tensor] = None
+    e_dual: Optional[torch.Tensor] = None
     lift_kind: str = static_field("identity")
     lift_dim: int = static_field(0)
 
@@ -52,6 +65,38 @@ class QuantumPlant(Plant):
     @property
     def dim_u(self) -> int:
         return self.H1s.shape[-3]
+
+    @property
+    def n_obs(self) -> int:
+        """Length of one observation: n_e with e_ops, else dim_e = d^2."""
+        return self.e_obs.shape[-2] if self.e_obs is not None else self.dim_s ** 2
+
+    @classmethod
+    def create(cls, H0, H1s, sigma: float = 0.0, e_ops=None, lift_kind: str = "identity",
+               lift_dim: int = 0, device="cuda", dtype=None) -> "QuantumPlant":
+        """One plant on `device`, the card unless the caller asks for the
+        CPU, in `dtype` (the real dtype; `base.default_dtype` when None:
+        float32 on the card, float64 elsewhere).
+
+        :param e_ops: None, or a sequence / (n_e, d, d) stack of measurement
+            operators: the plant is then observed through tr(E_i rho).
+            e_dual = pinv(e_obs) is taken in float64 (`utils.linalg.pinv`,
+            the reference's cut) and then cast.
+        """
+        def cx(a):
+            return a.to(torch.complex128) if torch.is_tensor(a) else \
+                torch.from_numpy(np.array(a, dtype=complex))
+
+        H0, H1s = cx(H0), cx(H1s)
+        e_obs = e_dual = None
+        if e_ops is not None:
+            E = cx(e_ops)
+            # tr(E rho) = sum_ab E[a, b] rho[b, a]; row-major vec(rho)[b d + a] = rho[b, a]
+            e_obs = E.transpose(-1, -2).reshape(E.shape[0], -1)
+            e_dual = pinv(e_obs)
+        plant = cls(H0=H0, H1s=H1s, sigma=torch.tensor(float(sigma), dtype=torch.float64),
+                    e_obs=e_obs, e_dual=e_dual, lift_kind=lift_kind, lift_dim=lift_dim)
+        return plant.to(device, default_dtype(device, dtype))
 
     def lift(self, x: torch.Tensor) -> torch.Tensor:
         if self.lift_kind == "truncate":
@@ -148,3 +193,91 @@ def taylor_norm_bound(plant, dt: float, sat) -> float:
     every lane of a batch: sizes the expm's Taylor degree and squarings.
     Any plant with H0 and H1s (quantum, synthesis)."""
     return box_norm_bound(plant.H0, plant.H1s, dt, sat)
+
+
+def quantum_expectations(plant: QuantumPlant, xs: torch.Tensor) -> torch.Tensor:
+    """tr(E_i rho) of the plant's e_ops.
+
+    :param xs: one plant: (d^2,) or (d^2, n) vec(rho), giving (n_e,) or
+        (n_e, n); a lane batch (e_obs of shape (B, n_e, d^2)): (B, d^2),
+        giving (B, n_e).
+    """
+    if plant.e_obs is None:
+        raise ValueError("plant has no e_ops configured")
+    xs = xs.to(plant.e_obs.dtype)
+    if plant.e_obs.dim() == 2:
+        return plant.e_obs @ xs
+    return (plant.e_obs @ xs[..., None])[..., 0]
+
+
+def quantum_observe(plants: QuantumPlant, x: torch.Tensor,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Observe a lane batch as a device would: without e_ops x + sigma
+    noise; with e_ops the expectations plus sigma noise, re-seeded into a
+    state estimate e_dual @ (e_obs x + sigma noise) (exact up to the noise
+    when the e_ops span the operator space, least squares otherwise). The
+    fleet runner's `observe_fn`.
+
+    :param x: (B, d^2); :param noise: (B, n_obs) complex standard normal
+        draws (real and imaginary parts each N(0, 1)), or None.
+    """
+    scale = lambda: plants.sigma.reshape(-1, 1) * noise
+    if plants.e_obs is None:
+        return x if noise is None else x + scale()
+    exps = quantum_expectations(plants, x)
+    if noise is not None:
+        exps = exps + scale()
+    return (plants.e_dual @ exps[..., None])[..., 0]
+
+
+def quantum_simulate(plant: QuantumPlant, x0: torch.Tensor, us: torch.Tensor, dt: float,
+                     noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None, interp: str = "zoh",
+                     substeps: int = 16) -> torch.Tensor:
+    """Propagate one plant over a control trajectory and return every state.
+
+    All n S propagators come from one `expm_small` call
+    (`ops.expm.propagators_from_controls`: the Taylor budget of a host-side
+    norm bound of these controls); the conjugations run in order.
+
+    :param x0: (d^2,) vec(rho); :param us: (dim_u, n) controls.
+    :param noise: None, or (n_out, n + 1) complex standard normal draws
+        added at scale sigma to the returned trajectory; or draw them from
+        `generator` (real parts first, then imaginary).
+    :param interp: "zoh" (piecewise constant, one propagator a step) or
+        "linear": step k ramps u_k -> u_{k+1} (the last holds u_{n-1}),
+        split into `substeps` segments each propagated at its midpoint
+        control (exponential midpoint rule, O((dt/S)^2) a step).
+    :return: (d^2, n + 1) states including x0, or with e_ops the (n_e, n + 1)
+        expectation trajectory, noise added in observation space.
+    """
+    if interp not in ("zoh", "linear"):
+        raise ValueError(f"interp={interp!r}: 'zoh' or 'linear'")
+    d = plant.dim_s
+    us = us.reshape(plant.dim_u, -1)
+    if interp == "linear":
+        S = int(substeps)
+        us_next = torch.cat([us[:, 1:], us[:, -1:]], dim=1)
+        frac = (torch.arange(S, dtype=us.dtype, device=us.device) + 0.5) / S
+        u_eff = (us[:, :, None] + (us_next - us)[:, :, None] * frac).reshape(us.shape[0], -1)
+        dt_eff = dt / S
+    else:
+        S, u_eff, dt_eff = 1, us, dt
+    Us = propagators_from_controls(plant.H0, plant.H1s, u_eff, dt_eff)
+    rho = x0.reshape(d, d).to(Us.dtype)
+    rhos = [rho]
+    Uh = Us.conj().transpose(-1, -2)
+    for k in range(Us.shape[0]):
+        rho = Us[k] @ rho @ Uh[k]
+        if (k + 1) % S == 0:
+            rhos.append(rho)
+    xs = torch.stack(rhos).reshape(len(rhos), d * d).T
+    if plant.e_obs is not None:
+        xs = quantum_expectations(plant, xs)
+    if noise is None and generator is not None:
+        draw = lambda: torch.randn(xs.shape, generator=generator, dtype=xs.real.dtype,
+                                   device=xs.device)
+        noise = torch.complex(draw(), draw())
+    if noise is not None:
+        xs = xs + plant.sigma * noise.to(xs.dtype)
+    return xs

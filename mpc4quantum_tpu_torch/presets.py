@@ -40,7 +40,7 @@ from .models.dmdc import DMDcModel, dmdc_from_operator
 from .mpc.driver import MPCConfig
 from .ops.liouville import (discretize_homogeneous, lindblad_generator, liouville_generator,
                             vectorize_me)
-from .plants.base import Plant, complex_dtype
+from .plants.base import Plant, complex_dtype, default_dtype
 from .plants.lindblad import LindbladPlant
 from .plants.quantum import QuantumPlant
 from .plants.synthesis import SynthesisPlant, lift_unitary
@@ -82,15 +82,6 @@ class DistanceExit:
     def __call__(self, x_next, x_cur, u) -> torch.Tensor:
         d = x_cur - self.target
         return (d.conj() * d).real.sum(dim=-1) < self.threshold
-
-
-def default_dtype(device, dtype: Optional[torch.dtype] = None) -> torch.dtype:
-    """The real dtype of a scenario on `device`: `dtype` where given, else
-    float32 on a CUDA device (the runner on the card takes float32 only)
-    and float64 elsewhere."""
-    if dtype is not None:
-        return dtype
-    return torch.float32 if torch.device(device).type == "cuda" else torch.float64
 
 
 def scenario_from_arrays(name, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du, target_state,

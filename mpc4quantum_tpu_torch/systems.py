@@ -1,9 +1,10 @@
 """Physical system definitions used by the ported presets, as plain numpy
 arrays (counterpart of mpc4quantum_tpu/systems.py).
 
-The pieces the presets need: the Pauli matrices, the ladder operators, the
-|i><j| measurement basis, the x rotation, the RWA qubit, the 3-level RWA
-transmon and the two qubit pairs (crosstalk, always-on coupling).
+The pieces the presets and the training data need: the Pauli matrices,
+the ladder operators, the |i><j| measurement basis, the x rotation, the
+Blackman pulse, the RWA qubit, the 3-level RWA transmon and the two qubit
+pairs (crosstalk, always-on coupling).
 """
 
 from __future__ import annotations
@@ -41,6 +42,14 @@ def matrix_units(d: int) -> list[np.ndarray]:
             e[i, j] = 1.0
             out.append(e)
     return out
+
+
+def blackman(ts, t0, tf, dt):
+    """A Blackman window pulse on [t0, tf] sampled at the times ts (0
+    outside)."""
+    M = int((tf - t0) / dt)
+    t_interp = np.linspace(t0, tf, M)
+    return np.interp(ts, t_interp, np.blackman(M), left=0, right=0)
 
 
 def rx_rotation(theta: float) -> np.ndarray:

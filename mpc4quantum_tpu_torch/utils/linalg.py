@@ -42,3 +42,25 @@ def gj_inverse(K: torch.Tensor) -> torch.Tensor:
         K = torch.where(rowmask, prow_K, K - fac * prow_K)
         inv = torch.where(rowmask, prow_I, inv - fac * prow_I)
     return inv
+
+
+def pinv(a: torch.Tensor, rtol=None) -> torch.Tensor:
+    """Moore-Penrose pseudo-inverse of (..., m, n) by SVD, cut as
+    `jnp.linalg.pinv` cuts it: singular values s <= rtol * s_max count as
+    zero (strictly greater ones are inverted), rtol defaulting to
+    10 max(m, n) eps of the dtype. (`torch.linalg.pinv` keeps s equal to
+    the cutoff, and its default rtol is a tenth of this one.)
+
+    :param rtol: a float, or a (...,) tensor of per-matrix cutoffs.
+    A matrix with a non-finite entry gives NaN (as in the reference),
+    where `torch.linalg.svd` would raise for the whole batch.
+    """
+    m, n = a.shape[-2:]
+    if rtol is None:
+        rtol = 10.0 * max(m, n) * torch.finfo(a.dtype).eps
+    bad = ~torch.isfinite(a).all(dim=-1).all(dim=-1)[..., None, None]
+    U, s, Vh = torch.linalg.svd(torch.where(bad, 0.0, a), full_matrices=False)
+    rtol = torch.as_tensor(rtol, dtype=s.dtype, device=s.device)
+    cutoff = rtol[..., None] * s[..., :1]
+    s_inv = torch.where(s > cutoff, 1.0 / s, torch.zeros_like(s)).to(a.dtype)
+    return torch.where(bad, float("nan"), Vh.mH @ (s_inv[..., :, None] * U.mH))

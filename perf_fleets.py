@@ -4,7 +4,8 @@
     python3 perf_fleets.py
 
 Runs each fleet of chip_smoke.FLEETS at its batch (the main pass only, where
-a fleet has a rescue pass): one warm-up run, then one run under
+a fleet has a rescue pass), then the two learned-model fleets (chip_smoke's
+LEARN and DISCREP: per-lane refits, recorded): one warm-up run, then one run under
 torch.profiler. Prints one JSON line a fleet - device time
 in all and by kernel, launches, and the busy share against the unprofiled
 wall time - then the card's name and power limit. The profiler on the
@@ -14,6 +15,7 @@ up to three times. Without a CUDA device it exits 1.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -42,19 +44,34 @@ def profiled(fn) -> list:
     raise RuntimeError("perf_fleets: the profiler recorded no device activity in three runs")
 
 
-def profile_fleets():
+def fleets():
+    """(name, scenario, plants, run keywords) of every fleet profiled."""
     from mpc4quantum_tpu_torch import presets
-    from mpc4quantum_tpu_torch.benchfleet import make_runner, run_hostloop_fleet
+    from mpc4quantum_tpu_torch.models import dmdc
     from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
 
+    lanes = lambda sc, B: make_scenario_batch(sc.plant, B, generator=torch.Generator().manual_seed(1))
     for name, spec in cs.FLEETS.items():
-        B = spec["batch"]
         sc = cs.fleet_preset(presets, name)()
-        plants = make_scenario_batch(sc.plant, B, generator=torch.Generator().manual_seed(1))
-        metrics, _ = run_hostloop_fleet(sc, B, plants=plants, reps=2)
+        yield name, sc, lanes(sc, spec["batch"]), {}
+    for name, kind, spec in (("learn", "online", cs.LEARN), ("discrep", "discrep", cs.DISCREP)):
+        sc, fit = cs.learned_scenario(presets, dmdc, kind)
+        B, sigma = spec["batch"], spec.get("sigma", 0.0)
+        plants = lanes(sc, B)
+        plants = dataclasses.replace(plants, sigma=plants.sigma + sigma)
+        gen = torch.Generator(device=plants.device).manual_seed(7) if sigma else None
+        yield name, sc, plants, dict(record=True, generator=gen, model_update_fn=fit)
+
+
+def profile_fleets():
+    from mpc4quantum_tpu_torch.benchfleet import make_runner, run_hostloop_fleet
+
+    for name, sc, plants, run_kw in fleets():
+        B = plants.lanes
+        metrics, _ = run_hostloop_fleet(sc, B, plants=plants, reps=2, **run_kw)
         runner = make_runner(sc, plants)
         args = (sc.x0, sc.model, plants, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf)
-        acts = profiled(lambda: runner.run(*args))
+        acts = profiled(lambda: runner.run(*args, **run_kw))
         device = sum(t for _, t in acts)
         by_kernel = {}
         for key in ("boxqp_small_kernel", "admm_big_kernel", "expm_small_kernel"):

@@ -259,6 +259,111 @@ def test_boxqp_kernel_n15_warm_form_matches_plain(cuda):
                  == boxqp_accept(ap, 1e-6, 1e-6, 4e-3, 4e-3)).all())
 
 
+@pytest.mark.parametrize("B", [1, 48])
+def test_boxqp_small_at_the_single_rollout_shapes(cuda, B):
+    """mpc()'s QPs: n = 10 at B = 1 (and 48), the library's cold 2x150
+    budget every solve of a single rollout takes."""
+    P, q, lb, ub = qp_batch(B, 10, seed=B, device=cuda)
+    before = boxqp_small.launches
+    zk, yk, ak = boxqp_small(P, q, lb, ub, iters=150, rounds=2)
+    zp, yp, ap = boxqp_small_ref(P, q, lb, ub, iters=150, rounds=2)
+    torch.cuda.synchronize()
+    assert boxqp_small.launches == before + 1
+    torch.testing.assert_close(zk, zp, rtol=0, atol=1e-3 * max(1.0, float(zp.abs().max())))
+    torch.testing.assert_close(yk, yp, rtol=0, atol=1e-3 * max(1.0, float(yp.abs().max())))
+    assert bool((boxqp_accept(ak, 1e-6, 1e-6, 1e-3, 1e-3)
+                 == boxqp_accept(ap, 1e-6, 1e-6, 1e-3, 1e-3)).all())
+
+
+@pytest.mark.parametrize("B", [1, 48])
+def test_expm_small_at_the_single_rollout_shapes(cuda, B):
+    """The plant step of mpc() (B = 1) and quantum_simulate's one call for
+    the 48-step Blackman drive (B = 48), d = 2 at (12, 0)."""
+    A = hermitian_batch(B, 2, seed=B, hi=0.8, device=cuda)
+    before = expm_small.launches
+    Ek = expm_small(A, 12, 0)
+    Ep = expm_small_ref(A, 12, 0)
+    torch.cuda.synchronize()
+    assert expm_small.launches == before + 1
+    torch.testing.assert_close(Ek, Ep, rtol=0, atol=1e-5)
+    assert graph_node_types(lambda: expm_small(A, 12, 0)) == [0]
+
+
+def test_quantum_simulate_is_one_expm_launch(cuda):
+    """All 48 propagators of the Blackman drive come from one launch, and
+    the trajectory equals the CPU's."""
+    from mpc4quantum_tpu_torch import systems
+    from mpc4quantum_tpu_torch.plants.quantum import QuantumPlant, quantum_simulate
+
+    ts = np.arange(0, 12.0, 0.25)
+    us = torch.tensor(systems.blackman(ts, 0, 6.0, 0.25)[None, :])
+    plant = QuantumPlant.create(0.0 * systems.SZ, [0.5 * systems.SX], device="cpu")
+    x0 = torch.tensor(np.diag([1.0, 0.0]).astype(complex).flatten())
+    ref = quantum_simulate(plant, x0, us, 0.25)
+    before = expm_small.launches
+    xs = quantum_simulate(plant.to(cuda, torch.float32), x0.to(cuda), us.to(cuda), 0.25)
+    torch.cuda.synchronize()
+    assert expm_small.launches == before + 1 and xs.shape == (4, 49)
+    torch.testing.assert_close(xs.cpu().to(torch.complex128), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["online", "discrep"])
+def test_streaming_noisy_fleet_on_the_card_tracks_the_cpu(cuda, kind):
+    """8 lanes of not_state with a per-lane refit, noise at sigma 1e-5 and
+    the record, on the card in float32 against float64 on the CPU with the
+    same noise: the flagship's launches (26 / 20 / 0), every lane within
+    1e-3 in fidelity."""
+    import dataclasses
+
+    from mpc4quantum_tpu_torch import presets
+    from mpc4quantum_tpu_torch.benchfleet import fleet_fidelity, run_hostloop_fleet
+    from mpc4quantum_tpu_torch.models import dmdc
+    from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
+
+    def scenario(**kw):
+        sc = presets.not_state(**kw)
+        A = sc.model.A
+        model = (dmdc.online_from_bootstrap(A, 4, 4, A.shape[1] - 4) if kind == "online" else
+                 dmdc.discrep_bootstrap(A, 4, 4, A.shape[1] - 4, capacity=12,
+                                        rcond=10 * 12 * float(np.finfo(np.float32).eps)))
+        return dataclasses.replace(sc, model=model,
+                                   config=dataclasses.replace(sc.config, streaming=True))
+
+    fit = dmdc.online_fit_iteration if kind == "online" else dmdc.discrep_fit_iteration
+    sc64 = scenario(device="cpu", dtype=torch.float64)
+    plants = make_scenario_batch(sc64.plant, 8, generator=torch.Generator().manual_seed(1))
+    plants = dataclasses.replace(plants, sigma=plants.sigma + 1e-5)
+    noise = torch.randn(20, 8, 4, dtype=torch.complex128,
+                        generator=torch.Generator().manual_seed(2))
+    _, ref = run_hostloop_fleet(sc64, 8, plants=plants, record=True, noise=noise,
+                                model_update_fn=fit)
+    sc = scenario()
+    before = (boxqp_small.launches, expm_small.launches, admm_big.launches)
+    _, out = run_hostloop_fleet(sc, 8, plants=plants.to(cuda, torch.float32), record=True,
+                                noise=noise.to(cuda), model_update_fn=fit)
+    torch.cuda.synchronize()
+    after = (boxqp_small.launches, expm_small.launches, admm_big.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (26, 20, 0)
+    assert out["xs"].shape == (8, 4, 21) and out["model_state"].A.device.type == "cuda"
+    dfid = fleet_fidelity(sc, out["final_x"]) - fleet_fidelity(sc64, ref["final_x"])
+    assert float(np.abs(dfid).max()) < 1e-3
+
+
+def test_mpc_on_the_card_matches_the_cpu(cuda):
+    """mpc() at B = 1 on the card in float32 against float64 on the CPU."""
+    import mpc4quantum_tpu_torch as m4t
+    from mpc4quantum_tpu_torch import presets
+
+    res = {}
+    for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        sc = presets.not_state(device=dev, dtype=dt)
+        res[dev] = m4t.mpc(sc.x0, sc.model, sc.plant, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf,
+                           sc.config, sc.sat, sc.du)
+    card, cpu = res[cuda], res["cpu"]
+    assert int(card.exit_code) == int(cpu.exit_code) == 0 and int(card.n_valid) == 20
+    assert abs(float(card.xs[3, -1].real) - float(cpu.xs[3, -1].real)) < 1e-3
+
+
 def test_expm_kernel_d4_liouvillian_matches_plain(cuda):
     """lindblad's form: non-normal 4 x 4 generators dt (A0 + u A1) with an
     amplitude-damping dissipator, 1-norms in [0.05, 1.6], at (12, 1): both

@@ -178,12 +178,21 @@ def test_import_loads_no_jax():
 
 
 def test_noisy_plants_are_refused():
+    """A noisy fleet (sigma > 0) is refused without noise to observe it
+    with, and runs with a noise tensor or a generator."""
     from mpc4quantum_tpu_torch import presets
     from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
     from mpc4quantum_tpu_torch.plants.quantum import QuantumPlant
 
     sc = presets.not_state(device="cpu", dtype=torch.float64)
     plants = make_scenario_batch(sc.plant, 2)
-    noisy = QuantumPlant(plants.H0, plants.H1s, plants.sigma + 0.01)
-    with pytest.raises(NotImplementedError, match="measurement noise"):
+    noisy = QuantumPlant(plants.H0, plants.H1s, plants.sigma + 1e-4)
+    with pytest.raises(ValueError, match="measurement noise"):
         run_hostloop_fleet(sc, 2, plants=noisy)
+    noise = torch.randn(sc.config.n_steps, 2, 4, dtype=torch.complex128,
+                        generator=torch.Generator().manual_seed(0))
+    m, out = run_hostloop_fleet(sc, 2, plants=noisy, noise=noise)
+    _, again = run_hostloop_fleet(sc, 2, plants=noisy,
+                                  generator=torch.Generator().manual_seed(0))
+    assert m["completed_frac"] == 1.0 and bool(torch.isfinite(out["final_x"]).all())
+    assert again["final_x"].shape == (2, 4)

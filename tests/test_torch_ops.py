@@ -286,7 +286,7 @@ def test_advance_matches_jax(measure_freq, step):
 
     carry_t = tdrv.Carry(*map(torch.tensor, carry))
     ctx = tdrv.context(carry_t, step, cfg_t, sc_t.X_targ, sc_t.U_targ, plants_t)
-    new_t, duals_t = tdrv.advance(
+    new_t, duals_t, _ = tdrv.advance(
         carry_t, tdrv.SQPState(*map(torch.tensor, s)), step, cfg_t, ctx,
         tdrv.bilinear_model(sc_t.model, cfg_t), sc_t.model, plants_t,
         lambda x, u: tq.quantum_step_taylor(plants_t, x, u, cfg_t.dt, fixed_squarings=0, order=12))

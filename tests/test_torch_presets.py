@@ -282,7 +282,7 @@ def test_advance_exit_condition_matches_jax():
     bmodel = tdrv.bilinear_model(sc_t.model, sc_t.config)
     on_target = lambda x, u: torch.tensor(pf).expand(n, -1)
     args = (sc_t.config, ctx, bmodel, sc_t.model, plants, on_target, sc_t.exit_condition)
-    new_t, _ = tdrv.advance(carry_t, tdrv.SQPState(*map(torch.tensor, s)), 4, *args)
+    new_t, _, _ = tdrv.advance(carry_t, tdrv.SQPState(*map(torch.tensor, s)), 4, *args)
     for a_t, a_j in zip(new_t, new_j[:5] + new_j[6:]):
         close(a_t, a_j)
     np.testing.assert_array_equal(new_t.exit_code.numpy(), [1, 0, 2, 1, 3, 2])
@@ -293,7 +293,7 @@ def test_advance_exit_condition_matches_jax():
     # target, exits
     s2 = tdrv.SQPState(*map(torch.tensor, s))._replace(code=torch.zeros(n, dtype=torch.int32))
     ctx2 = tdrv.context(new_t, 5, sc_t.config, sc_t.X_targ, sc_t.U_targ, plants)
-    newer, _ = tdrv.advance(new_t, s2, 5, sc_t.config, ctx2, *args[2:])
+    newer, _, _ = tdrv.advance(new_t, s2, 5, sc_t.config, ctx2, *args[2:])
     np.testing.assert_array_equal(newer.exit_code.numpy(), [1, 1, 2, 1, 3, 2])
     for f in ("x_cur", "x_true", "X_guess", "U_guess", "u_last"):
         close(getattr(newer, f)[0], getattr(new_t, f)[0])

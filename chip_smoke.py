@@ -32,7 +32,11 @@ seven fleets through `run_hostloop_fleet`, built with no device argument
 order 2, lanes under 0.99 re-run at order 3) - checks their quality gates
 and their kernel launch counts, and holds each fleet's first lanes against
 the float64 plain path on the CPU; a short cnot run in which every lane is
-marginal drives the rescue pass on the card. One JSON
+marginal drives the rescue pass on the card. Then the learned-model and
+single-rollout phases, and the command line (`python -m
+mpc4quantum_tpu_torch`): one rollout on the adaptive Cholesky QP, the LQR
+rollout, `--batch 1024`, the flagship fleet through `--hostloop` with
+checkpoints plus a crashed and resumed run, and `solve_boxqp` alone. One JSON
 line per phase; then the card's name and power limit, the per-kernel
 record, and last {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero. Without a CUDA device it exits 1 and prints no result.
@@ -40,14 +44,19 @@ exits non-zero. Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import importlib.util
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -175,8 +184,41 @@ DISCREP = dict(batch=1024, capacity=12, rcond=10 * 12 * float(np.finfo(np.float3
                fid_lane=0.95, fid_mean=0.985, parity_lanes=64, parity_tol=1e-3,
                launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0})
 # the single-rollout phases (mpc(), B = 1): P(|1>) gate and the bound on its
-# distance from the same call in float64 on the CPU
-SINGLE = dict(p1=0.95, cpu_tol=1e-3, loss=1e-3)
+# distance from the same call in float64 on the CPU; on the default chol
+# backend a rollout launches no QP kernel
+SINGLE = dict(p1=0.95, cpu_tol=1e-3, loss=1e-3,
+              chol_launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 0})
+# The command line and the single-rollout solver surface, on the flagship.
+# cli_rollout: `python -m mpc4quantum_tpu_torch not_state` (the chol QP;
+# the JAX package's single rollout reaches 0.9988) against its --cpu run in
+# float64 (the port's float32 CPU run is 5.4e-8 from it). cli_lqr: the LQR
+# rollout's controls chatter on the box edge and each step that leaves the
+# edge amplifies rounding about a thousandfold (float64 against the JAX
+# package: 1.4e-12 over 16 steps, 1.5e-8 at step 20; float32 against
+# float64 on the CPU: equal over 10 steps, then apart by up to 0.38). Its
+# first 10 controls are held to 1e-4 of float64 and every control to sat
+# (float32 rounds sat up by 1.7e-8: relative slack 1e-6). Those first
+# controls sit on the box edge, so they do not hold the gain solve: the
+# first step's LQR (gains and controls, unclipped, all inside the box) is
+# held to 1e-4 of float64 relative to its largest entry (float32 on the
+# CPU: 1.4e-7 on both). The JAX
+# package's bar, P(|1>) > 0.95, is that of its float64 test, and holds the
+# float64 run (0.97883); in float32 the rollout's end is a draw: the JAX
+# package's own float32 run ends at 0.90465 (0.92473 with the Taylor plant
+# step), the port's float32 CPU run over 48 perturbations of x0 at 1e-7
+# between 0.89706 and 0.99880 (median 0.93598), the card's first run at
+# 0.92014; so the card's run is held to 0.85
+# (tests/test_torch_solvers.py::test_lqr_float32_end_is_a_draw_in_jax_too). cli_batch: `--batch 1024` (batched_mpc, chol), its first 8 lanes
+# again on the card and in float64 on the CPU. fleet_checkpoint: the
+# flagship fleet through `--hostloop --checkpoint`, then a fleet-runner run
+# that crashes after step 9 and is resumed. chol_qp: solve_boxqp alone on
+# the flagship's shape, cold, at the library's 2x150, against its float64
+# solve of the same QPs, and boxqp_small 3x12 on them for the reader.
+CLI = dict(fid=0.995, cpu_tol=1e-4, lqr_close_steps=10, lqr_close_tol=1e-4, sat_rtol=1e-6,
+           lqr_p1_f32=0.85, lqr_step0_rtol=1e-4,
+           batch=1024, batch_fid_min=0.998, parity_lanes=8, ckpt_every=5, crash_step=10,
+           chol_accept=0.99,
+           launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 0})
 # admm_big alone: (B, n, iters) of the large-n presets' solves, cnot's
 # n = 150 (rows split over 4 threads) and the largest n the kernel takes
 # (part of each row in shared memory); then crosstalk's and cnot's own
@@ -840,10 +882,12 @@ def single_problem(systems, torch_mods, dt, device, dtype):
     return cx(x0), args, MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=1, order=2), sat
 
 
-def phase_train_then_control(systems, torch_mods, counters) -> dict:
+def phase_train_then_control(systems, torch_mods, counters, host_flag) -> dict:
     """The data-driven flow at B = 1: quantum_simulate of a Blackman drive
     (one expm_small launch at B = 48), train_model, then mpc() with the
-    learned model on the ideal qubit; the same in float64 on the CPU."""
+    learned model on the ideal qubit, its QPs on the default chol backend
+    (plain PyTorch: no boxqp_small launch); the same in float64 on the
+    CPU."""
     QuantumPlant, simulate = torch_mods["QuantumPlant"], torch_mods["quantum_simulate"]
     dt, order = 0.25, 2
     ts = np.arange(0, 12.0, dt)
@@ -869,6 +913,7 @@ def phase_train_then_control(systems, torch_mods, counters) -> dict:
         x0, args, cfg, sat = single_problem(systems, torch_mods, dt, device, dtype)
         for fn in counters.values():
             fn.launches = 0
+        reads = host_flag.reads
         res = torch_mods["mpc"](x0, mstate, plant, *args, cfg, sat, 0.5 * sat)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
@@ -876,6 +921,7 @@ def phase_train_then_control(systems, torch_mods, counters) -> dict:
                           "min_loss": float(losses.min()), "rcond": rcond,
                           "exit_code": int(res.exit_code), "n_valid": int(res.n_valid),
                           "p1": float(res.xs[3, -1].real),
+                          "host_reads": host_flag.reads - reads,
                           "mpc_launches": {k: fn.launches for k, fn in counters.items()}}
     rec.update(results)
     rec["p1_gap_vs_cpu"] = abs(results["card"]["p1"] - results["cpu"]["p1"])
@@ -885,16 +931,18 @@ def phase_train_then_control(systems, torch_mods, counters) -> dict:
             f"train_then_control: quantum_simulate launches {rec}")
     require(card["exit_code"] == 0 and card["p1"] > SINGLE["p1"]
             and card["min_loss"] < SINGLE["loss"], f"train_then_control gates: {rec}")
-    require(card["mpc_launches"]["expm_small"] == 20 and card["mpc_launches"]["boxqp_small"] >= 20,
-            f"train_then_control: mpc() launches {rec}")
+    require(card["mpc_launches"] == SINGLE["chol_launches"],
+            f"train_then_control: mpc() launches (the chol default) {rec}")
     require(rec["p1_gap_vs_cpu"] <= SINGLE["cpu_tol"], f"train_then_control vs cpu {rec}")
     return rec
 
 
-def phase_observe_eops(systems, torch_mods, counters) -> dict:
+def phase_observe_eops(systems, torch_mods, counters, host_flag) -> dict:
     """mpc() on the 1%-detuned qubit observed through the Pauli e_ops at
     sigma 1e-4 (quantum_observe), noise drawn on the card; the same noise
-    in float64 on the CPU."""
+    in float64 on the CPU. Run on the default chol backend and once on the
+    kernel route (qp_backend="ns"), which launches boxqp_small at B = 1
+    once an SQP iteration."""
     QuantumPlant = torch_mods["QuantumPlant"]
     wq = 2 * np.pi * 4
     paulis = [np.eye(2, dtype=complex), systems.SX, systems.SY, systems.SZ]
@@ -905,25 +953,285 @@ def phase_observe_eops(systems, torch_mods, counters) -> dict:
     noise = torch.complex(draw(), draw())
     rec = {"phase": "observe_eops", "sigma": 1e-4,
            "gates": {"p1": SINGLE["p1"], "vs_cpu": SINGLE["cpu_tol"]}}
-    for where, device, dtype in (("card", DEVICE, torch.float32), ("cpu", "cpu", torch.float64)):
-        plant = base.to(device, dtype)
-        x0, args, cfg, sat = single_problem(systems, torch_mods, 1.0, device, dtype)
-        sc = torch_mods["presets"].not_state(device=device, dtype=dtype)
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        res = torch_mods["mpc"](x0, sc.model, plant, *args, cfg, sat, 0.5 * sat,
-                                noise=noise.to(device, plant.dtype),
-                                observe_fn=torch_mods["quantum_observe"])
-        rec[where] = {"wall_s": time.perf_counter() - t0, "exit_code": int(res.exit_code),
-                      "n_valid": int(res.n_valid), "p1": float(res.xs[3, -1].real),
-                      "launches": {k: fn.launches for k, fn in counters.items()}}
-    rec["p1_gap_vs_cpu"] = abs(rec["card"]["p1"] - rec["cpu"]["p1"])
+    for backend in ("chol", "ns"):
+        for where, device, dtype in (("card", DEVICE, torch.float32), ("cpu", "cpu", torch.float64)):
+            plant = base.to(device, dtype)
+            x0, args, cfg, sat = single_problem(systems, torch_mods, 1.0, device, dtype)
+            cfg = dataclasses.replace(cfg, qp_backend=backend)
+            sc = torch_mods["presets"].not_state(device=device, dtype=dtype)
+            for fn in counters.values():
+                fn.launches = 0
+            reads = host_flag.reads
+            t0 = time.perf_counter()
+            res = torch_mods["mpc"](x0, sc.model, plant, *args, cfg, sat, 0.5 * sat,
+                                    noise=noise.to(device, plant.dtype),
+                                    observe_fn=torch_mods["quantum_observe"])
+            rec[f"{where}_{backend}"] = {
+                "wall_s": time.perf_counter() - t0, "exit_code": int(res.exit_code),
+                "n_valid": int(res.n_valid), "p1": float(res.xs[3, -1].real),
+                "sqp_iters": int(res.sqp_iters.sum()), "host_reads": host_flag.reads - reads,
+                "launches": {k: fn.launches for k, fn in counters.items()}}
+        rec[f"p1_gap_vs_cpu_{backend}"] = abs(rec[f"card_{backend}"]["p1"]
+                                              - rec[f"cpu_{backend}"]["p1"])
     emit(rec)
-    require(rec["card"]["exit_code"] == 0 and rec["card"]["p1"] > SINGLE["p1"],
-            f"observe_eops gates: {rec}")
-    require(rec["card"]["launches"]["expm_small"] == 20, f"observe_eops launches {rec}")
-    require(rec["p1_gap_vs_cpu"] <= SINGLE["cpu_tol"], f"observe_eops vs cpu {rec}")
+    for backend in ("chol", "ns"):
+        card = rec[f"card_{backend}"]
+        require(card["exit_code"] == 0 and card["p1"] > SINGLE["p1"],
+                f"observe_eops {backend} gates: {rec}")
+        require(rec[f"p1_gap_vs_cpu_{backend}"] <= SINGLE["cpu_tol"],
+                f"observe_eops {backend} vs cpu {rec}")
+    require(rec["card_chol"]["launches"] == SINGLE["chol_launches"],
+            f"observe_eops chol launches {rec}")
+    # the kernel route: one boxqp_small launch an SQP iteration
+    ns = rec["card_ns"]
+    require(ns["launches"] == {"boxqp_small": ns["sqp_iters"], "expm_small": 20, "admm_big": 0},
+            f"observe_eops ns launches {rec}")
+    return rec
+
+
+def run_cli(cli_main, argv) -> tuple:
+    """`python -m mpc4quantum_tpu_torch` in this process: (its one JSON
+    line, what it wrote to stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    lines = out.getvalue().strip().splitlines()
+    require(rc == 0 and len(lines) == 1, f"CLI {argv}: rc {rc}, output {lines}, {err.getvalue()}")
+    return json.loads(lines[0]), err.getvalue()
+
+
+def counted(counters, host_flag, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (its result, the launches, the host reads)."""
+    for c in counters.values():
+        c.launches = 0
+    reads = host_flag.reads
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}, host_flag.reads - reads
+
+
+def phase_cli_rollout(cli_main, counters, host_flag) -> dict:
+    """One rollout of the flagship through the CLI on the card (the chol
+    QP), against its --cpu run in float64."""
+    (card, _), launches, reads = counted(counters, host_flag,
+                                         lambda: run_cli(cli_main, ["not_state"]))
+    cpu, _ = run_cli(cli_main, ["not_state", "--cpu"])
+    rec = {"phase": "cli_rollout", "card": card, "cpu": cpu, "launches": launches,
+           "host_reads": reads, "wall_s": card["elapsed_s"],
+           "fidelity_gap_vs_cpu": abs(card["fidelity"] - cpu["fidelity"]),
+           "gates": {"fidelity": CLI["fid"], "vs_cpu": CLI["cpu_tol"]}}
+    emit(rec)
+    require(set(card) == {"preset", "elapsed_s", "exit_code", "n_valid", "fidelity",
+                          "mean_sqp_iters"}, f"cli_rollout keys {rec}")
+    require(card["exit_code"] == 0 and card["n_valid"] == 20 and card["fidelity"] > CLI["fid"],
+            f"cli_rollout gates {rec}")
+    require(launches == CLI["launches"], f"cli_rollout launches {rec}")
+    require(rec["fidelity_gap_vs_cpu"] <= CLI["cpu_tol"], f"cli_rollout vs cpu {rec}")
+    return rec
+
+
+def lqr_step0(sc) -> tuple:
+    """The LQR of the scenario's first step, unclipped: the model
+    linearized along the guess repeat(lift(x0)) with zero controls (as
+    lqr_seed_guess takes it), the backward value iteration and the
+    rollout. :return: (gains (H, dim_u, dim_x+1), U (dim_u, H)) in float64
+    on the CPU."""
+    from mpc4quantum_tpu_torch.mpc.driver import bilinear_model
+    from mpc4quantum_tpu_torch.ops.bilinear import model_along_traj
+    from mpc4quantum_tpu_torch.solvers.lqr import lqr_quad_program
+
+    cfg, H = sc.config, sc.config.horizon
+    lx0 = sc.plant.lift(sc.x0[None])
+    Xg = lx0[:, :, None].expand(-1, -1, H)
+    Ug = torch.zeros((1, cfg.dim_u, H), dtype=sc.plant.real_dtype, device=lx0.device)
+    A_s, B_s, D_s = model_along_traj(bilinear_model(sc.model, cfg), Xg, Ug)
+    Q_s = torch.cat([sc.Q.expand(H, -1, -1), sc.Qf[None]], dim=0)
+    res = lqr_quad_program(lx0, sc.X_targ[:, :H + 1], sc.U_targ[:, :H], Q_s,
+                           sc.R.expand(H, -1, -1), A_s, B_s, sat=None, Delta_s=D_s)
+    return res.gains[0].cpu().to(torch.complex128), res.U[0].cpu().double()
+
+
+def phase_cli_lqr(cli_main, presets, mpc, counters, host_flag) -> dict:
+    """--solver lqr through the CLI on the card, and the same rollout
+    through mpc() on the card and in float64 on the CPU for its controls;
+    the first step's LQR gains and unclipped controls on the card against
+    float64 on the CPU on the same inputs."""
+    (card, _), launches, reads = counted(
+        counters, host_flag, lambda: run_cli(cli_main, ["not_state", "--solver", "lqr"]))
+    runs = {}
+    for where, device in (("card", DEVICE), ("cpu", "cpu")):
+        sc = presets.not_state(device=device)
+        sc = dataclasses.replace(sc, config=dataclasses.replace(sc.config, solver="lqr"))
+        res = mpc(**sc.mpc_args())
+        runs[where] = (res.us.detach().cpu().double(), float(res.xs[3, -1].real), sc.sat,
+                       lqr_step0(sc))
+    (us, p1, sat, (K, U0)), (us64, p1_64, _, (K64, U064)) = runs["card"], runs["cpu"]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    k = CLI["lqr_close_steps"]
+    rec = {"phase": "cli_lqr", "card": card, "launches": launches, "host_reads": reads,
+           "mpc_p1": p1, "cpu_p1": p1_64, "max_abs_u": float(us.abs().max()), "sat": sat,
+           f"max_du_first_{k}": float((us[:, :k] - us64[:, :k]).abs().max()),
+           "max_du": float((us - us64).abs().max()),
+           "step0_gain_rel": rel(K, K64), "step0_u_rel": rel(U0, U064),
+           "step0_max_abs_u": float(U064.abs().max()),
+           "gates": {"p1_card": CLI["lqr_p1_f32"], "p1_cpu_f64": SINGLE["p1"],
+                     "du_first_steps": CLI["lqr_close_tol"],
+                     "step0_rel": CLI["lqr_step0_rtol"]}}
+    emit(rec)
+    require(card["exit_code"] == 0 and card["n_valid"] == 20
+            and card["fidelity"] > CLI["lqr_p1_f32"] and p1 > CLI["lqr_p1_f32"]
+            and p1_64 > SINGLE["p1"], f"cli_lqr gates {rec}")
+    require(rec["max_abs_u"] <= sat * (1 + CLI["sat_rtol"]), f"cli_lqr controls leave sat {rec}")
+    require(rec[f"max_du_first_{k}"] <= CLI["lqr_close_tol"], f"cli_lqr vs cpu {rec}")
+    # the step-0 controls lie inside the box, so this holds the gain solve
+    # where no clip can hide it
+    require(rec["step0_max_abs_u"] < sat and rec["step0_gain_rel"] <= CLI["lqr_step0_rtol"]
+            and rec["step0_u_rel"] <= CLI["lqr_step0_rtol"], f"cli_lqr step-0 LQR vs cpu {rec}")
+    require(launches == CLI["launches"], f"cli_lqr launches {rec}")
+    return rec
+
+
+def phase_cli_batch(cli_main, presets, batched_mpc, fleet_fidelity, counters,
+                    host_flag) -> dict:
+    """--batch 1024 through the CLI on the card (batched_mpc, chol); its
+    first lanes again through batched_mpc on the card and in float64 on
+    the CPU."""
+    B, lanes = CLI["batch"], CLI["parity_lanes"]
+    (card, _), launches, reads = counted(
+        counters, host_flag, lambda: run_cli(cli_main, ["not_state", "--batch", str(B)]))
+    fids = {}
+    for where, device in (("card", DEVICE), ("cpu", "cpu")):
+        sc = presets.not_state(device=device)
+        plants = make_lanes(presets.not_state(device="cpu").plant, B)[:lanes]
+        res = batched_mpc(sc.x0, sc.model, plants.to(device, sc.plant.real_dtype), sc.X_targ,
+                          sc.U_targ, sc.Q, sc.R, sc.Qf, sc.config, sc.sat, du=sc.du)
+        fids[where] = fleet_fidelity(sc, res.xs[:, :, -1])
+    dfid = np.abs(fids["card"] - fids["cpu"])
+    rec = {"phase": "cli_batch", "card": card, "launches": launches, "host_reads": reads,
+           "rollouts_per_s": card["rollouts_per_s"], "parity_lanes": lanes,
+           "max_abs_dfid": float(dfid.max()),
+           "gates": {"fidelity_min": CLI["batch_fid_min"], "vs_cpu": CLI["cpu_tol"]}}
+    emit(rec)
+    require(card["completed_frac"] == 1.0 and card["fidelity_min"] > CLI["batch_fid_min"],
+            f"cli_batch gates {rec}")
+    require(launches == CLI["launches"], f"cli_batch launches {rec}")
+    require(float(dfid.max()) <= CLI["cpu_tol"], f"cli_batch vs cpu {rec}")
+    return rec
+
+
+def phase_fleet_checkpoint(cli_main, presets, fleet_runner, make_runner, counters,
+                           host_flag) -> dict:
+    """The flagship fleet (B = 16384) through `--hostloop --checkpoint P
+    --checkpoint-every 5`, then a recorded fleet-runner run that crashes
+    after step 9, resumed from its checkpoint and held against the
+    uninterrupted run with torch.equal."""
+    every, crash = CLI["ckpt_every"], CLI["crash_step"]
+    spec = FLEETS["not_state"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "fleet.npz")
+        argv = ["not_state", "--batch", str(spec["batch"]), "--hostloop", "--checkpoint", path,
+                "--checkpoint-every", str(every), "--progress-every", str(every)]
+        (card, err), launches, _ = counted(counters, host_flag, lambda: run_cli(cli_main, argv))
+        cli_left = os.path.exists(path)
+        sc = presets.not_state()
+        plants = make_lanes(presets.not_state(device="cpu").plant,
+                            spec["batch"]).to(DEVICE, sc.plant.real_dtype)
+        runner = make_runner(sc, plants)
+        args = (sc.x0, sc.model, plants, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf)
+        full = runner.run(*args, record=True)
+        orig, calls = fleet_runner.advance, {"n": 0}
+
+        def crashing(*a, **k):
+            calls["n"] += 1
+            if calls["n"] == crash + 1:
+                raise RuntimeError("simulated crash")
+            return orig(*a, **k)
+        fleet_runner.advance = crashing
+        try:
+            runner.run(*args, record=True, checkpoint_path=path, checkpoint_every=every)
+            crashed = False
+        except RuntimeError:
+            crashed = True
+        finally:
+            fleet_runner.advance = orig
+        saved_s = list(runner.checkpoint_seconds)
+        kept = os.path.exists(path)
+        resumed, resumed_launches, _ = counted(
+            counters, host_flag,
+            lambda: runner.run(*args, record=True, checkpoint_path=path,
+                               checkpoint_every=every))
+        left = os.path.exists(path)
+    keys = ("final_x", "exit_code", "xs", "us", "objs", "sqp_iters", "n_valid")
+    equal = {k: bool(torch.equal(resumed[k], full[k])) for k in keys}
+    rec = {"phase": "fleet_checkpoint", "batch": spec["batch"], "every": every,
+           "cli": {k: card[k] for k in ("rollouts_per_s", "first_run_s", "fidelity_min",
+                                        "completed_frac", "checkpoint_s")},
+           "launches": launches, "heartbeats": err.count("[fleet] step"),
+           "checkpoint_s": saved_s, "crashed_after_step": crash - 1,
+           "resumed_launches": resumed_launches, "resumed_equal": equal,
+           "checkpoint_left": {"cli": cli_left, "after_crash": kept, "after_resume": left}}
+    emit(rec)
+    require(launches == spec["launches"], f"fleet_checkpoint launches {rec}")
+    require(card["completed_frac"] == 1.0 and card["fidelity_min"] >= spec["fid_min"]
+            and len(card["checkpoint_s"]) == 3 and rec["heartbeats"] == 3,
+            f"fleet_checkpoint CLI run {rec}")
+    require(crashed and kept and not cli_left and not left, f"fleet_checkpoint files {rec}")
+    require(all(equal.values()), f"fleet_checkpoint: resumed != uninterrupted {rec}")
+    steady = sc.config.n_steps - crash
+    require(resumed_launches == {"boxqp_small": steady, "expm_small": steady, "admm_big": 0},
+            f"fleet_checkpoint resumed launches {rec}")
+    return rec
+
+
+def phase_chol_qp(solve_boxqp, BoxQPParams, boxqp_mod, host_flag) -> dict:
+    """solve_boxqp alone on the flagship's shape (B 16384, n 10, cold, the
+    library's 2x150) against its float64 solve of the same QPs on the CPU,
+    and boxqp_small 3x12 on them beside it; where the solve synchronizes
+    with the host (PyTorch's sync debug mode, by source line)."""
+    P, q, lb, ub = qp_batch(BATCH, 10, seed=21)
+    params = BoxQPParams()
+    ms = cuda_ms(lambda: solve_boxqp(P, q, lb, ub, params=params), reps=3)
+    reads = host_flag.reads
+    # every synchronizing call PyTorch makes in a (warm) solve, by its sync
+    # debug mode, counted by the Python line that made it: the host's reads
+    # of the done flags are utils/profiling.py's; reported, not gated
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = solve_boxqp(P, q, lb, ub, params=params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    reads = host_flag.reads - reads
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    res64 = solve_boxqp(*(t.cpu().double() for t in (P, q, lb, ub)), params=params)
+    both = res.converged.cpu() & res64.converged
+    dz = ((res.x.cpu().double() - res64.x).abs().amax(dim=1)
+          / torch.clamp(res64.x.abs().amax(dim=1), min=1.0))
+    diters = (res.iters.cpu() - res64.iters).abs()
+    rec = {"phase": "chol_qp", "B": BATCH, "n": 10, "gpu": smi_line(), "ms": ms,
+           "host_reads": reads, "sync_sites": sites,
+           "iters_mean": float(res.iters.float().mean()),
+           "iters_max": int(res.iters.max()), "iters_mean_f64": float(res64.iters.float().mean()),
+           "iters_equal_frac": float((diters == 0).float().mean()),
+           "iters_max_abs_diff": int(diters.max()),
+           "accepted_frac": float(res.converged.float().mean()),
+           "accepted_frac_f64": float(res64.converged.float().mean()),
+           "max_dz_rel_both_accepted": float(dz[both].max()),
+           "boxqp_small_3x12_ms": cuda_ms(lambda: boxqp_mod.boxqp_small(P, q, lb, ub, iters=12,
+                                                                        rounds=3)),
+           "gates": {"accepted": CLI["chol_accept"], "dz_rel": QP_TOL}}
+    emit(rec)
+    require(rec["accepted_frac"] >= CLI["chol_accept"]
+            and rec["accepted_frac_f64"] >= CLI["chol_accept"], f"chol_qp acceptance {rec}")
+    require(rec["max_dz_rel_both_accepted"] <= QP_TOL, f"chol_qp vs float64 {rec}")
+
     return rec
 
 
@@ -946,6 +1254,11 @@ def main() -> int:
     from mpc4quantum_tpu_torch import systems
     from mpc4quantum_tpu_torch.models import dmdc
     from mpc4quantum_tpu_torch.ops.library import control_powers, lift_controls
+    from mpc4quantum_tpu_torch.__main__ import main as cli_main
+    from mpc4quantum_tpu_torch.benchfleet import make_runner
+    from mpc4quantum_tpu_torch.mpc import fleet_runner
+    from mpc4quantum_tpu_torch.solvers.boxqp import solve_boxqp
+    from mpc4quantum_tpu_torch.utils.profiling import host_flag
 
     torch_mods = {"presets": presets, "control_powers": control_powers,
                   "lift_controls": lift_controls,
@@ -978,11 +1291,21 @@ def main() -> int:
         rec = phase_learned_fleet(kind, presets, dmdc, run_hostloop_fleet, fleet_fidelity,
                                   counters, flagship)
         total = add(rec["launches"])
-    rec = phase_train_then_control(systems, torch_mods, counters)
+    rec = phase_train_then_control(systems, torch_mods, counters, host_flag)
     total = add(rec["card"]["mpc_launches"])
     total = add(rec["card"]["simulate_launches"])
-    rec = phase_observe_eops(systems, torch_mods, counters)
-    total = add(rec["card"]["launches"])
+    rec = phase_observe_eops(systems, torch_mods, counters, host_flag)
+    total = add(rec["card_chol"]["launches"])
+    total = add(rec["card_ns"]["launches"])
+    total = add(phase_cli_rollout(cli_main, counters, host_flag)["launches"])
+    total = add(phase_cli_lqr(cli_main, presets, port.mpc, counters, host_flag)["launches"])
+    total = add(phase_cli_batch(cli_main, presets, port.batched_mpc, fleet_fidelity, counters,
+                                host_flag)["launches"])
+    rec = phase_fleet_checkpoint(cli_main, presets, fleet_runner, make_runner, counters,
+                                 host_flag)
+    total = add(rec["launches"])
+    total = add(rec["resumed_launches"])
+    phase_chol_qp(solve_boxqp, BoxQPParams, boxqp_mod, host_flag)
 
     gpu = smi_line()
     print(gpu, flush=True)

@@ -22,6 +22,12 @@ returns an MPCResult; a model from models.dmdc (OnlineDMDc, DiscrepDMDc,
 HistoryState) with config.streaming and `model_update_fn` refits online,
 per lane in a fleet; `train_model` fits a DiscrepDMDc from data made by
 `quantum_simulate`; measurement noise is a tensor or a torch.Generator's.
+
+Single rollouts and lane batches: `mpc()` and `batched_mpc` solve each step
+by config.qp_backend ("chol", the adaptive Cholesky ADMM `solve_boxqp`, by
+default; "ns" the kernels) or the clipped LQR (config.solver="lqr"); the
+fleet runner checkpoints and resumes (`checkpoint_path=`). The CLI is
+`python -m mpc4quantum_tpu_torch <preset>` (`--cpu` for the CPU).
 """
 
 from . import presets
@@ -34,9 +40,14 @@ from .models.dmdc import (DiscrepDMDc, DMDcModel, HistoryState, OnlineDMDc, disc
                           with_history)
 from .models.training import prediction_loss, train_model
 from .mpc.clock import StepClock, val_to_str
-from .mpc.driver import MPCConfig, MPCResult, mpc, trim
+from .mpc.driver import MPCConfig, MPCResult, lqr_seed_guess, trim
+from .mpc.fleet_runner import batched_mpc, mpc
+from .parallel.fleet import fleet_summary, make_scenario_batch
 from .plants.quantum import (QuantumPlant, quantum_expectations, quantum_observe,
                              quantum_simulate)
+from .solvers.boxqp import BoxQPParams, solve_boxqp
+from .solvers.condense import condense_horizon, quad_program
+from .solvers.lqr import lqr_quad_program
 
 __all__ = [
     "presets", "rescue_pass", "run_hostloop_fleet",
@@ -45,6 +56,8 @@ __all__ = [
     "dmdc_from_operator", "history_p_snapshots", "history_snapshots", "history_update",
     "online_fit_iteration", "online_from_bootstrap", "online_from_data", "online_from_randn",
     "predict", "with_history", "prediction_loss", "train_model", "StepClock", "val_to_str",
-    "MPCConfig", "MPCResult", "mpc", "trim", "QuantumPlant", "quantum_expectations",
-    "quantum_observe", "quantum_simulate",
+    "MPCConfig", "MPCResult", "lqr_seed_guess", "mpc", "trim", "batched_mpc",
+    "fleet_summary", "make_scenario_batch", "QuantumPlant", "quantum_expectations",
+    "quantum_observe", "quantum_simulate", "BoxQPParams", "solve_boxqp", "condense_horizon",
+    "quad_program", "lqr_quad_program",
 ]

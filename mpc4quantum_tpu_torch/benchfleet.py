@@ -114,20 +114,25 @@ def make_runner(sc: Scenario, plants: Plant, expm_budget: str = "auto") -> Fleet
     (tests/test_torch_learn.py::test_reference_loses_the_same_lanes)."""
     if sc.name not in PRESET_WARM_ITERS:
         raise NotImplementedError(f"preset {sc.name!r} has no tuned budgets")
+    if sc.config.solver != "qp":
+        raise ValueError("the fleets run the condensed box-QP kernels and cannot honor "
+                         f"config.solver={sc.config.solver!r}; use mpc() or batched_mpc")
     tuned = PRESET_STEADY_BUDGET.get(sc.name)
     taylor_k, max_sq = expm_budget_for(plants, sc.config.dt, sc.sat, expm_budget)
     kw = dict(du=sc.du, warm_sqp_iters=PRESET_WARM_ITERS[sc.name], expm_taylor_k=taylor_k,
               expm_max_squarings=max_sq, exit_condition=sc.exit_condition)
-    if sc.config.streaming:
-        return FleetRunner(sc.config, sc.sat, steady_qp_params=None, carry_duals=False, **kw)
+    # the kernel route whatever the config's qp_backend (the reference's
+    # HostLoopMPC with qp_impl="pallas")
+    cfg = dataclasses.replace(sc.config, qp_backend="ns")
+    if cfg.streaming:
+        return FleetRunner(cfg, sc.sat, steady_qp_params=None, carry_duals=False, **kw)
     if tuned is None:
-        return FleetRunner(sc.config, sc.sat, steady_qp_params=None, **kw)
-    own = sc.config.qp_params
+        return FleetRunner(cfg, sc.sat, steady_qp_params=None, **kw)
+    own = cfg.qp_params
     qp = dataclasses.replace(own, rho0=tuned.get("rho0", own.rho0))
     warm_budget = PRESET_WARM_BUDGET.get(sc.name)
     if warm_budget is not None and (qp.n_rounds, qp.max_iter) == warm_budget[0]:
         qp = dataclasses.replace(qp, n_rounds=warm_budget[1][0], max_iter=warm_budget[1][1])
-    cfg = sc.config
     if cfg.horizon * cfg.dim_u <= 16 and (qp.n_rounds, qp.max_iter) == (
             BoxQPParams.n_rounds, BoxQPParams.max_iter):
         rounds, iters = SMALL_WARM_BUDGET[sc.name]
@@ -193,7 +198,9 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
                        record: bool = False, noise: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None,
                        model_update_fn: Optional[Callable] = None,
-                       observe_fn: Optional[Callable] = None):
+                       observe_fn: Optional[Callable] = None,
+                       checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
+                       progress_every: int = 0):
     """Run a `batch`-lane detuning-sweep fleet of `sc` on the scenario's device.
 
     :param plants: an explicit lane batch (e.g. JAX-drawn plants through
@@ -210,6 +217,11 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
         (n_steps, batch, n_obs) tensor or drawn by the generator each run;
         the per-lane streaming refit of sc.model under
         sc.config.streaming; the observation).
+    :param checkpoint_path, checkpoint_every, progress_every: the first
+        run's checkpoint / resume and heartbeat (`FleetRunner.run`); the
+        timing repetitions run the whole loop without them. With a
+        checkpoint path the metrics carry checkpoint_s, the seconds of each
+        checkpoint written.
     :return: (metrics dict, the last run's output: "final_x", "exit_code",
         "model_state", and the record's keys with `record`).
     """
@@ -230,14 +242,16 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
     run_kw = dict(record=record, noise=noise, generator=generator,
                   model_update_fn=model_update_fn, observe_fn=observe_fn)
 
-    def timed():
+    def timed(**first_only):
         t0 = time.perf_counter()
-        out = runner.run(*args, **run_kw)
+        out = runner.run(*args, **run_kw, **first_only)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return out, time.perf_counter() - t0
 
-    out, first_s = timed()
+    out, first_s = timed(checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+                         progress_every=progress_every)
+    checkpoint_s = list(runner.checkpoint_seconds)
     rep_s = []
     for _ in range(max(reps - 1, 0)):
         out, t = timed()
@@ -267,8 +281,18 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
         "warm_budget": f"{warm.n_rounds}x{warm.max_iter}",
         "qp_scale": steady.scale,
         "qp_kernel": runner.qp_kernel,
+        # the reference's keys: where the QP and the plant step run (the
+        # wrappers run their plain versions on a CPU tensor), the carried
+        # duals, the LQR seed and the K-inverse carry (not ported)
+        "qp_impl": "cuda" if device.type == "cuda" else "plain",
+        "plant_impl": "cuda" if device.type == "cuda" else "plain",
+        "warm_duals": runner.carry_duals and runner.config.warm_start,
+        "lqr_seed": bool(sc.config.lqr_seed),
+        "warm_kinv": False,
         "warm_sqp_iters": list(runner.warm_sqp_iters),
         "expm_budget": [runner.expm_taylor_k, runner.expm_max_squarings],
         **rescue_info,
     }
+    if checkpoint_path:
+        metrics["checkpoint_s"] = checkpoint_s
     return metrics, out

@@ -23,8 +23,10 @@ Reference behaviour kept on purpose:
   - the streaming refit sees (lift(x_next), lift(x_cur), f(u) (kr) lift(x_cur))
     and is held on lanes that are done or whose step failed.
 
-`mpc()` is one lane of the fleet runner (mpc/fleet_runner.py); `trim` cuts
-its record to the executed steps.
+The fleet runner (mpc/fleet_runner.py) drives these pieces; `mpc()` and
+`batched_mpc` live there. `trim` cuts a rollout's record to the executed
+steps. `lqr_seed_guess` is the LQR-seeded initial guess of
+config.lqr_seed.
 """
 
 from __future__ import annotations
@@ -34,13 +36,13 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..models.dmdc import predict, tree_map, tree_where
-from ..ops.expm import taylor_budget
+from ..models.dmdc import predict, tree_where
 from ..ops.library import krtimes
-from ..ops.bilinear import BilinearModel
+from ..ops.bilinear import BilinearModel, model_along_traj
 from ..plants.base import Plant
 from ..solvers.boxqp import BoxQPParams
 from ..solvers.condense import QPResult, objective_value
+from ..solvers.lqr import lqr_quad_program
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,19 @@ class MPCConfig:
     streaming: bool = False
     step_tol: float = 1e-4
     qp_params: BoxQPParams = dataclasses.field(default_factory=BoxQPParams)
+    # "qp": the condensed box QP; "lqr": the clipped affine-tracking LQR
+    # (no slew box, no iterative solver) - `mpc()` and `batched_mpc` only
+    solver: str = "qp"
+    # box-QP solver of `mpc()` and `batched_mpc`: "chol" the adaptive
+    # Cholesky ADMM, "ns" the fixed-budget kernel route; the fleets of
+    # benchfleet run the kernels whatever it says
+    qp_backend: str = "chol"
+    # seed each steady (single-shot) QP from the previous solve's shifted
+    # dual and rho; off: every QP starts cold, as the reference's default
+    qp_warm_duals: bool = False
+    # start from the clipped LQR rollout of the step-0 linearization
+    # (`lqr_seed_guess`) instead of repeat(lift(x0)) and zero controls
+    lqr_seed: bool = False
 
 
 class Carry(NamedTuple):
@@ -213,12 +228,16 @@ def sqp_update_from_qp(s: SQPState, res: QPResult, X_ref, U_ref, Q_s, R_s,
         iqp_done = small | (code > 0)
     ok = code == 0
     step = ok.to(alpha.dtype) * alpha
+    # the dual carriers take a successful solve's (y, rho); a solver
+    # without duals (the LQR) leaves them as they are
+    y, rho = s.y, s.rho
+    if res.y is not None:
+        y = torch.where(ok[:, None], res.y.to(s.y.dtype), s.y)
+        rho = torch.where(ok, res.rho.to(s.rho.dtype), s.rho)
     return SQPState(
         s.Xg + _lane(step, s.Xg) * (res.X - s.Xg),
         s.Ug + _lane(step, s.Ug) * (res.U - s.Ug),
-        res.X, res.U, res.obj, s.n_iter + 1, iqp_done, code,
-        torch.where(ok[:, None], res.y.to(s.y.dtype), s.y),
-        torch.where(ok, res.rho.to(s.rho.dtype), s.rho),
+        res.X, res.U, res.obj, s.n_iter + 1, iqp_done, code, y, rho,
     )
 
 
@@ -308,48 +327,28 @@ def record_row(carry: Carry, s: SQPState):
             torch.where(carry.done, 0.0, s.obj), torch.where(carry.done, 0, s.n_iter), active)
 
 
-def mpc(x0, model_state, plant: Plant, X_targ, U_targ, Q, R, Qf, config: MPCConfig, sat,
-        du=None, *, noise: Optional[torch.Tensor] = None,
-        generator: Optional[torch.Generator] = None, model_update_fn: Optional[Callable] = None,
-        exit_condition: Optional[Callable] = None,
-        observe_fn: Optional[Callable] = None) -> MPCResult:
-    """One closed-loop rollout: a one-lane run of the fleet runner on the
-    plant's device (the card unless the caller built the plant elsewhere).
+def lqr_seed_guess(model_A, lift_x0, X_targ, U_targ, Q_s, R_s, sat, config: MPCConfig):
+    """The initial guess of config.lqr_seed: the model linearized along the
+    reference's guess (repeat(lift(x0)), zero controls), the horizon solved
+    by the clipped affine LQR, and its rollout taken as the guess; a lane
+    whose rollout is not finite keeps the reference's guess.
 
-    Warm steps take up to config.max_iter line-searched SQP iterations and
-    stop once the lane's SQP is done (one host read of its done flag an
-    iteration, in this entry only); steady steps one single-shot QP,
-    started cold like the warm ones (the reference loop carries no duals).
-    Every QP takes config.qp_params; the plant expm the budget of the
-    plant's norm bound over the control box (ops.expm.taylor_budget).
-
-    :param plant: one plant (no lane axis); x0 (dim_e,), X_targ, U_targ,
-        Q, R, Qf as in a Scenario.
-    :param model_state: a model (DMDcModel, OnlineDMDc, DiscrepDMDc,
-        HistoryState); refit with model_update_fn when config.streaming.
-    :param noise: None, or (n_steps, n_obs) complex standard normal draws of
-        the observations; or draw them from `generator`. A plant with
-        sigma > 0 needs one of the two.
-    :param exit_condition: None, or (x_next, x_cur, u) -> bool on one lane
-        of shape (1, ...), e.g. presets.DistanceExit.
-    :param observe_fn: None, or (plants, x (1, dim_e), noise (1, n_obs))
-        -> (1, dim_e), e.g. plants.quantum.quantum_observe.
+    :param model_A: (dim_x, dim_z) stacked operator, shared, or (B, dim_x,
+        dim_z) per lane; lift_x0: (B, dim_x) model-space initial states.
+    :param X_targ, U_targ, Q_s, R_s: as the fleet runner holds them.
+    :return: (X_guess (B, dim_x, H+1) complex, U_guess (B, dim_u, H) real).
     """
-    from .fleet_runner import FleetRunner
-
-    plants = plant[None]
-    taylor_k, max_sq = taylor_budget(plants.norm_bound(config.dt, sat))
-    runner = FleetRunner(config, float(sat), du=du, warm_sqp_iters=(config.max_iter,),
-                         expm_taylor_k=taylor_k, expm_max_squarings=max_sq,
-                         exit_condition=exit_condition, carry_duals=False, early_exit=True)
-    out = runner.run(x0, model_state, plants, X_targ, U_targ, Q, R, Qf, record=True,
-                     noise=None if noise is None else noise[:, None],
-                     generator=generator, model_update_fn=model_update_fn,
-                     observe_fn=observe_fn)
-    lane = lambda t: t.detach()[0]
-    model = out["model_state"]
-    if model.A.dim() == 3:
-        model = tree_map(lambda t: t[0], model)
-    return MPCResult(xs=lane(out["xs"]), us=lane(out["us"]), exit_code=lane(out["exit_code"]),
-                     n_valid=lane(out["n_valid"]), objs=lane(out["objs"]),
-                     sqp_iters=lane(out["sqp_iters"]), model_A=model.A, model_state=model)
+    H, dim_u = config.horizon, config.dim_u
+    B, dim_x = lift_x0.shape
+    cdtype = model_A.dtype
+    Xg = lift_x0.to(cdtype)[:, :, None].expand(-1, -1, H + 1)
+    Ug = torch.zeros((B, dim_u, H), dtype=lift_x0.real.dtype, device=lift_x0.device)
+    bmodel = BilinearModel.from_stacked(model_A[..., :dim_x], model_A[..., dim_x:], dim_u,
+                                        config.order)
+    A_s, B_s, D_s = model_along_traj(bmodel, Xg[:, :, :H], Ug)
+    res = lqr_quad_program(lift_x0.to(cdtype), X_targ[:, :H + 1].to(cdtype),
+                           U_targ[:, :H].to(Ug.dtype), Q_s, R_s, A_s, B_s, sat=sat,
+                           Delta_s=D_s)
+    finite = lambda t: torch.isfinite(t).flatten(1).all(dim=1)[:, None, None]
+    return (torch.where(finite(res.X.abs()), res.X, Xg).clone(),
+            torch.where(finite(res.U), res.U.to(Ug.dtype), Ug))

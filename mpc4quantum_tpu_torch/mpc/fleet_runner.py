@@ -20,23 +20,42 @@ P' = kron(U, U^*) P in process space, or x' = exp(dt A(u)) x on an open
 system) and books the scenario's exit condition. Every step runs for every
 lane: lanes that are done stay frozen.
 
-All state stays on the plants' device; the loop makes no host copy.
+config.solver and config.qp_backend choose a step's solve: solver "lqr"
+the clipped affine LQR, qp_backend "chol" the adaptive Cholesky ADMM (both
+plain PyTorch, as the reference computes them outside its kernels), "ns"
+the kernel route above. The preset fleets (benchfleet.make_runner) run "ns"
+(the reference's HostLoopMPC with qp_impl="pallas"); `mpc()` and
+`batched_mpc` (below) run the config they are given.
+
+All state stays on the plants' device; the loop makes no host copy. With a
+checkpoint path, every `checkpoint_every` steps the whole loop state (carry,
+duals, models, noise, the record so far, the step cursor) is copied to the
+host and written atomically; a run started again with the same path resumes
+from it and returns what the uninterrupted run returns.
 """
 
 from __future__ import annotations
 
+import os
+import sys
+import time
 from typing import Callable, Optional, Sequence
 
 import torch
 
-from ..kernels.boxqp import MAX_N as SMALL_MAX_N, boxqp_accept, boxqp_big, boxqp_small
-from ..models.dmdc import models_to, tile_lanes
+from ..kernels.boxqp import MAX_N as SMALL_MAX_N
+from ..models.dmdc import models_to, tile_lanes, tree_map
 from ..ops.bilinear import BilinearModel, model_along_traj
+from ..ops.expm import taylor_budget
 from ..plants.base import Plant
 from ..solvers.boxqp import BoxQPParams
-from ..solvers.condense import QPResult, qp_data, qp_finish
-from .driver import (Carry, MPCConfig, SQPState, StepContext, advance, bilinear_model,
-                     context, record_row, select, sqp_init, sqp_update_from_qp)
+from ..solvers.condense import QPResult, quad_program
+from ..solvers.lqr import lqr_quad_program
+from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+from ..utils.profiling import host_flag
+from .driver import (Carry, MPCConfig, MPCResult, SQPState, StepContext, advance,
+                     bilinear_model, context, lqr_seed_guess, record_row, select, sqp_init,
+                     sqp_update_from_qp)
 
 
 class FleetRunner:
@@ -66,6 +85,8 @@ class FleetRunner:
             by a host read of the done flags after each iteration
             (`mpc()`; the results are those of the full budget, since done
             lanes are frozen)."""
+        if config.solver not in ("qp", "lqr"):
+            raise ValueError(f"config.solver={config.solver!r} is not 'qp' or 'lqr'")
         if not warm_sqp_iters or any(int(v) < 1 for v in warm_sqp_iters):
             raise ValueError(f"warm_sqp_iters={warm_sqp_iters!r}: need >= 1 per warm step")
         self.config = config
@@ -78,32 +99,33 @@ class FleetRunner:
         self.exit_condition = exit_condition
         self.carry_duals = carry_duals
         self.early_exit = early_exit
-        self.qp_kernel = "small" if config.horizon * config.dim_u <= SMALL_MAX_N else "big"
+        kernel = "small" if config.horizon * config.dim_u <= SMALL_MAX_N else "big"
+        # what solves a step: the kernel "small" or "big", or plain "chol" or "lqr"
+        self.qp_kernel = ("lqr" if config.solver == "lqr" else
+                          kernel if config.qp_backend == "ns" else config.qp_backend)
+        # seconds of each checkpoint written by the last run
+        self.checkpoint_seconds: list = []
 
     def _sqp_iter(self, s: SQPState, ctx: StepContext, bmodel: BilinearModel, Q_s, R_s,
                   qp: BoxQPParams, single_shot: bool) -> SQPState:
         H = self.config.horizon
         A_s, B_s, D_s = model_along_traj(bmodel, s.Xg[:, :, :H], s.Ug)
-        P, q, lb, ub, w, M = qp_data(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s,
-                                     A_s, B_s, D_s, ctx.u_prev, self.sat, self.du)
-        U_warm = s.Ug.transpose(1, 2).reshape(s.Ug.shape[0], -1)
-        kw = dict(iters=qp.max_iter, rounds=qp.n_rounds, rho_scale=qp.rho0, sigma=qp.sigma,
-                  alpha=qp.alpha, eps_abs=qp.eps_abs, eps_rel=qp.eps_rel,
-                  acc_abs=qp.accept_abs, acc_rel=qp.accept_rel, scale=qp.scale)
-        if self.qp_kernel == "small":
-            solve = boxqp_small
+        if self.qp_kernel == "lqr":
+            lres = lqr_quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s,
+                                    sat=self.sat, Delta_s=D_s)
+            # a non-finite rollout (NaN or inf gains) is a solver failure
+            ok = (torch.isfinite(lres.X.abs()).flatten(1).all(dim=1)
+                  & torch.isfinite(lres.U).flatten(1).all(dim=1))
+            res = QPResult(X=lres.X, U=lres.U, obj=lres.cost, converged=ok)
         else:
-            solve = boxqp_big
-            kw.update(kinv_method=qp.kinv, ns_iters=qp.ns_iters)
-        # carried duals seed single-shot (steady) solves only; warm-phase
-        # iterations re-linearize aggressively and run cold. y crosses the
-        # warm/steady seam unscaled, rho in the solver's space.
-        seeded = single_shot and self.carry_duals
-        z, y, aux = solve(P, q, lb, ub, x0=U_warm, y0=s.y if seeded else None,
-                          rho0=s.rho if seeded else None, **kw)
-        conv = boxqp_accept(aux, qp.eps_abs, qp.eps_rel, qp.accept_abs, qp.accept_rel)
-        X_opt, U_opt, obj = qp_finish(w, M, z.to(P.dtype), ctx.X_ref, ctx.U_ref, Q_s, R_s)
-        res = QPResult(X=X_opt, U=U_opt, obj=obj, converged=conv, y=y, rho=aux.rho)
+            # carried duals seed single-shot (steady) solves only; warm-phase
+            # iterations re-linearize aggressively and run cold. y crosses the
+            # warm/steady seam unscaled, rho in the solver's space.
+            seeded = single_shot and self.carry_duals
+            res = quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s, D_s,
+                               ctx.u_prev, self.sat, self.du, U_warm=s.Ug, params=qp,
+                               backend=self.config.qp_backend, Y_warm=s.y if seeded else None,
+                               rho_warm=s.rho if seeded else None)
         s_new = sqp_update_from_qp(s, res, ctx.X_ref, ctx.U_ref, Q_s, R_s,
                                    single_shot, self.config.step_tol)
         return select(s.done, s, s_new)
@@ -114,7 +136,9 @@ class FleetRunner:
             noise: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None,
             model_update_fn: Optional[Callable] = None,
-            observe_fn: Optional[Callable] = None) -> dict:
+            observe_fn: Optional[Callable] = None,
+            checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
+            resume: bool = True, progress_every: int = 0) -> dict:
         """Run the batched loop on the plants' device.
 
         :param x0: (dim_e,) shared or (B, dim_e) per-lane initial states.
@@ -135,6 +159,16 @@ class FleetRunner:
         :param observe_fn: None (x + sigma noise) or
             (plants, x (B, dim_e), noise (B, n_obs) or None) -> (B, dim_e),
             e.g. plants.quantum.quantum_observe.
+        :param checkpoint_path: None, or a file: with checkpoint_every = k
+            the loop state is written there after every k-th step
+            (utils.checkpoint; not after the last). With `resume` and the
+            file present, the run restores it and continues from its step;
+            its outputs, the record included, are those of the
+            uninterrupted run. resume=False starts cold. A completed run
+            deletes the file.
+        :param progress_every: every k steps a heartbeat line on stderr
+            (step, steps/s, lane-steps/s, the done fraction: one host read);
+            0 = silent.
         :return: {"final_x": (B, dim_e) complex, "exit_code": (B,) int32,
             "model_state": the final model}, and with `record`: "xs"
             (B, dim_e, n_steps + 1) observed states with x0 first, "us"
@@ -165,32 +199,53 @@ class FleetRunner:
         model = models_to(model, dev)
         if streaming and model.A.dim() == 2:
             model = tile_lanes(model, B)
+        Q_s = torch.cat([Q.expand(H, -1, -1), Qf[None]], dim=0)
+        R_s = R.expand(H, -1, -1)
         lx0 = plants.lift(x0)
+        X_guess = lx0[:, :, None].expand(-1, -1, H + 1).clone()
+        U_guess = torch.zeros((B, dim_u, H), dtype=rdtype, device=dev)
+        if cfg.lqr_seed:
+            X_guess, U_guess = lqr_seed_guess(model.A, lx0, X_targ, U_targ, Q_s, R_s, self.sat,
+                                              cfg)
         carry = Carry(
-            x_cur=x0, x_true=x0.clone(),
-            X_guess=lx0[:, :, None].expand(-1, -1, H + 1).clone(),
-            U_guess=torch.zeros((B, dim_u, H), dtype=rdtype, device=dev),
+            x_cur=x0, x_true=x0.clone(), X_guess=X_guess, U_guess=U_guess,
             u_last=U_targ[:, 0].to(rdtype).expand(B, -1).clone(),
             exit_code=torch.zeros(B, dtype=torch.int32, device=dev),
             done=torch.zeros(B, dtype=torch.bool, device=dev))
         duals = (torch.zeros((B, H * dim_u), dtype=rdtype, device=dev),
                  torch.zeros(B, dtype=rdtype, device=dev))
-        Q_s = torch.cat([Q.expand(H, -1, -1), Qf[None]], dim=0)
-        R_s = R.expand(H, -1, -1)
-        bmodel = bilinear_model(model, cfg)
+        rec = None
         if record:
             n = cfg.n_steps
-            xs = torch.empty((B, x0.shape[1], n + 1), dtype=x0.dtype, device=dev)
-            xs[:, :, 0] = x0
-            us = torch.empty((B, dim_u, n), dtype=rdtype, device=dev)
-            objs = torch.empty((B, n), dtype=rdtype, device=dev)
-            iters = torch.empty((B, n), dtype=torch.int32, device=dev)
-            active = torch.empty((B, n), dtype=torch.bool, device=dev)
+            rec = (torch.zeros((B, x0.shape[1], n + 1), dtype=x0.dtype, device=dev),   # xs
+                   torch.zeros((B, dim_u, n), dtype=rdtype, device=dev),               # us
+                   torch.zeros((B, n), dtype=rdtype, device=dev),                      # objs
+                   torch.zeros((B, n), dtype=torch.int32, device=dev),                 # iters
+                   torch.zeros((B, n), dtype=torch.bool, device=dev))                  # active
+            rec[0][:, :, 0] = x0
+        start = 0
+        self.checkpoint_seconds = []
+        checkpointing = bool(checkpoint_path) and checkpoint_every > 0
+        if checkpoint_path and resume and os.path.exists(checkpoint_path):
+            state = restore_checkpoint(checkpoint_path, self._state(0, carry, duals, model,
+                                                                    noise, rec))
+            start, carry, duals, model, noise, rec = self._unpack(state)
+        bmodel = bilinear_model(model, cfg)
 
         def plant_step(x_true, u):
             return plants.step(x_true, u, cfg.dt, self.expm_taylor_k, self.expm_max_squarings)
 
-        for step in range(cfg.n_steps):
+        last_saved = last_beat = start
+        t_beat = time.perf_counter()
+        for step in range(start, cfg.n_steps):
+            if progress_every and step - last_beat >= progress_every:
+                elapsed = max(time.perf_counter() - t_beat, 1e-9)
+                rate = (step - start) / elapsed
+                print(f"[fleet] step {step}/{cfg.n_steps} B={B} {rate:.2f} steps/s "
+                      f"({B * rate:.0f} lane-steps/s) "
+                      f"done_frac={float(carry.done.float().mean()):.3f} "
+                      f"elapsed={elapsed:.1f}s", file=sys.stderr, flush=True)
+                last_beat = step
             warm = step <= 1 if cfg.warm_start else True
             ctx = context(carry, step, cfg, X_targ, U_targ, plants)
             s = sqp_init(carry, duals)
@@ -198,12 +253,12 @@ class FleetRunner:
                 n_it = self.warm_sqp_iters[min(step, len(self.warm_sqp_iters) - 1)]
                 for it in range(n_it):
                     s = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, cfg.qp_params, False)
-                    if self.early_exit and it + 1 < n_it and bool(s.done.all()):
+                    if self.early_exit and it + 1 < n_it and host_flag(s.done.all()):
                         break
             else:
                 s = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, self.steady_qp_params, True)
             if record:
-                us[:, :, step], objs[:, step], iters[:, step], active[:, step] = \
+                rec[1][:, :, step], rec[2][:, step], rec[3][:, step], rec[4][:, step] = \
                     record_row(carry, s)
             carry, duals, model = advance(
                 carry, s, step, cfg, ctx, bmodel, model, plants, plant_step,
@@ -212,9 +267,106 @@ class FleetRunner:
             if streaming:
                 bmodel = bilinear_model(model, cfg)
             if record:
-                xs[:, :, step + 1] = carry.x_cur
+                rec[0][:, :, step + 1] = carry.x_cur
+            if (checkpointing and step + 1 - last_saved >= checkpoint_every
+                    and step + 1 < cfg.n_steps):
+                t0 = time.perf_counter()
+                save_checkpoint(checkpoint_path,
+                                self._state(step + 1, carry, duals, model, noise, rec))
+                self.checkpoint_seconds.append(time.perf_counter() - t0)
+                last_saved = step + 1
         out = {"final_x": carry.x_cur, "exit_code": carry.exit_code, "model_state": model}
         if record:
+            xs, us, objs, iters, active = rec
             out.update(xs=xs, us=us, objs=objs, sqp_iters=iters,
                        n_valid=active.sum(dim=1, dtype=torch.int32))
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            os.remove(checkpoint_path)
         return out
+
+    @staticmethod
+    def _state(step: int, carry, duals, model, noise, rec) -> dict:
+        """The loop state a checkpoint holds."""
+        return {"step": torch.tensor(step), "carry": carry, "duals": duals, "model": model,
+                "noise": noise, "record": rec}
+
+    @staticmethod
+    def _unpack(state: dict):
+        return (int(state["step"]), state["carry"], state["duals"], state["model"],
+                state["noise"], state["record"])
+
+
+def batched_mpc(x0, model_state, plants: Plant, X_targ, U_targ, Q, R, Qf,
+                config: MPCConfig, sat, du=None, *, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                model_update_fn: Optional[Callable] = None,
+                exit_condition: Optional[Callable] = None,
+                observe_fn: Optional[Callable] = None) -> MPCResult:
+    """`mpc()` over a lane batch of plants with the semantics of the
+    reference's `vmap(mpc)`: one fleet runner on the plants' device, warm
+    steps of up to config.max_iter SQP iterations that end once every lane
+    is done (a host read of the lanes' done flags after each iteration),
+    steady QPs cold unless config.qp_warm_duals, the QP route of
+    config.solver and config.qp_backend, per-lane exit codes.
+
+    :param x0: (dim_e,) shared or (B, dim_e) per lane.
+    :param plants: a lane batch (leading axis B).
+    :param noise: None, or (n_steps, B, n_obs) complex standard normal
+        draws; or draw them from `generator`.
+    :return: MPCResult with a leading lane axis on every field but the
+        model's, which keeps the lane axis only where it was refit per lane.
+    """
+    taylor_k, max_sq = taylor_budget(plants.norm_bound(config.dt, sat))
+    runner = FleetRunner(config, float(sat), du=du, warm_sqp_iters=(config.max_iter,),
+                         expm_taylor_k=taylor_k, expm_max_squarings=max_sq,
+                         exit_condition=exit_condition, carry_duals=config.qp_warm_duals,
+                         early_exit=True)
+    out = runner.run(x0, model_state, plants, X_targ, U_targ, Q, R, Qf, record=True,
+                     noise=noise, generator=generator, model_update_fn=model_update_fn,
+                     observe_fn=observe_fn)
+    model = out["model_state"]
+    return MPCResult(xs=out["xs"], us=out["us"], exit_code=out["exit_code"],
+                     n_valid=out["n_valid"], objs=out["objs"], sqp_iters=out["sqp_iters"],
+                     model_A=model.A, model_state=model)
+
+
+def mpc(x0, model_state, plant: Plant, X_targ, U_targ, Q, R, Qf, config: MPCConfig, sat,
+        du=None, *, noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None, model_update_fn: Optional[Callable] = None,
+        exit_condition: Optional[Callable] = None,
+        observe_fn: Optional[Callable] = None) -> MPCResult:
+    """One closed-loop rollout: the one-lane `batched_mpc` on the plant's
+    device (the card unless the caller built the plant elsewhere).
+
+    Warm steps take up to config.max_iter line-searched SQP iterations and
+    stop once the SQP is done (one host read of its done flag an
+    iteration); steady steps one single-shot solve, cold unless
+    config.qp_warm_duals. Each solve is config.solver's: the condensed QP
+    on config.qp_backend ("chol", the reference's default; "ns" the
+    `boxqp_small` / `boxqp_big` kernels) at config.qp_params, or the
+    clipped LQR. The plant expm takes the budget of the plant's norm bound
+    over the control box (ops.expm.taylor_budget).
+
+    :param plant: one plant (no lane axis); x0 (dim_e,), X_targ, U_targ,
+        Q, R, Qf as in a Scenario.
+    :param model_state: a model (DMDcModel, OnlineDMDc, DiscrepDMDc,
+        HistoryState); refit with model_update_fn when config.streaming.
+    :param noise: None, or (n_steps, n_obs) complex standard normal draws of
+        the observations; or draw them from `generator`. A plant with
+        sigma > 0 needs one of the two.
+    :param exit_condition: None, or (x_next, x_cur, u) -> bool on one lane
+        of shape (1, ...), e.g. presets.DistanceExit.
+    :param observe_fn: None, or (plants, x (1, dim_e), noise (1, n_obs))
+        -> (1, dim_e), e.g. plants.quantum.quantum_observe.
+    """
+    res = batched_mpc(x0, model_state, plant[None], X_targ, U_targ, Q, R, Qf, config, sat,
+                      du, noise=None if noise is None else noise[:, None], generator=generator,
+                      model_update_fn=model_update_fn, exit_condition=exit_condition,
+                      observe_fn=observe_fn)
+    model = res.model_state
+    if model.A.dim() == 3:
+        model = tree_map(lambda t: t[0], model)
+    lane = lambda t: t[0]
+    return MPCResult(xs=lane(res.xs), us=lane(res.us), exit_code=lane(res.exit_code),
+                     n_valid=lane(res.n_valid), objs=lane(res.objs),
+                     sqp_iters=lane(res.sqp_iters), model_A=model.A, model_state=model)

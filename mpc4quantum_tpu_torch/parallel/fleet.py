@@ -1,5 +1,7 @@
-"""Lane batches of perturbed plants (counterpart of
-mpc4quantum_tpu/parallel/fleet.py `make_scenario_batch`)."""
+"""Lane batches of perturbed plants and batched rollouts (counterpart of
+mpc4quantum_tpu/parallel/fleet.py `make_scenario_batch`, `batched_mpc` and
+`fleet_summary`; `batched_mpc` is the fleet runner's, mpc/fleet_runner.py;
+the sharded forms wait for the multi-device layer)."""
 
 from __future__ import annotations
 
@@ -8,8 +10,12 @@ from typing import Optional
 
 import torch
 
+from ..mpc.driver import MPCResult
+from ..mpc.fleet_runner import batched_mpc
 from ..plants.base import Plant
 from ..plants.lindblad import LindbladPlant
+
+__all__ = ["make_scenario_batch", "batched_mpc", "fleet_summary"]
 
 
 def make_scenario_batch(base_plant: Plant, n: int, detune_scale: float = 0.01,
@@ -40,3 +46,19 @@ def make_scenario_batch(base_plant: Plant, n: int, detune_scale: float = 0.01,
     return dataclasses.replace(base_plant, **fields).to(
         base_plant.device if device is None else device,
         base_plant.real_dtype if dtype is None else dtype)
+
+
+def fleet_summary(result: MPCResult, target) -> dict:
+    """The batch's summary scalars: fidelity Re <target, x_final> (mean and
+    min), the completed fraction (exit code 0 or 1) and the mean SQP
+    iterations a step, as 0-dim tensors on the result's device.
+
+    :param target: (dim_e,) target state.
+    """
+    xf = result.xs[..., -1]
+    target = torch.as_tensor(target).to(xf.device, xf.dtype)
+    fid = (xf * target.conj()).sum(dim=-1).real
+    ok = (result.exit_code == 0) | (result.exit_code == 1)
+    return {"fidelity_mean": fid.mean(), "fidelity_min": fid.min(),
+            "completed_frac": ok.float().mean(),
+            "sqp_iters_mean": result.sqp_iters.float().mean()}

@@ -50,7 +50,8 @@ from .systems import SX, matrix_units, rx_rotation
 
 @dataclasses.dataclass(frozen=True)
 class Scenario:
-    """Everything a fleet run needs, as tensors on one device."""
+    """Everything a fleet run or `mpc(**scenario.mpc_args())` needs, as
+    tensors on one device."""
 
     name: str
     x0: torch.Tensor            # (dim_e,) complex initial state, experiment space
@@ -67,6 +68,14 @@ class Scenario:
     target_state: torch.Tensor  # (dim_e,) for the fidelity, experiment space
     # batched (x_next, x_cur, u) -> (B,) bool; None = run every step
     exit_condition: Optional[Callable] = None
+
+    def mpc_args(self) -> dict:
+        """The keyword arguments of `mpc(**scenario.mpc_args())`: one
+        rollout of the nominal plant."""
+        return dict(x0=self.x0, model_state=self.model, plant=self.plant,
+                    X_targ=self.X_targ, U_targ=self.U_targ, Q=self.Q, R=self.R, Qf=self.Qf,
+                    config=self.config, sat=self.sat, du=self.du,
+                    exit_condition=self.exit_condition)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,8 +152,10 @@ def _targets(targ, dim_u, n_steps, H):
 
 def not_state(order: int = 2, detune: float = 0.99, device="cuda",
               dtype: Optional[torch.dtype] = None) -> Scenario:
-    """Ideal qubit |0> -> |1> on a 1%-detuned plant: dt = 1, H = 10,
-    n_steps = 20, sat = 2 pi 0.1, du = 0.5 sat."""
+    """The flagship: a qubit steered |0> -> |1> on a 1%-detuned plant (QP n = 10).
+
+    Ideal-model qubit, dt = 1, H = 10, n_steps = 20, sat = 2 pi 0.1,
+    du = 0.5 sat."""
     dt, H, n_steps = 1.0, 10, 20
     sat = 2 * np.pi * 0.1
     A, plant, rho0, targ, Q = _qubit_not(detune, dt, order)
@@ -158,8 +169,10 @@ def not_state(order: int = 2, detune: float = 0.99, device="cuda",
 
 def not_state_freq(order: int = 1, detune: float = 0.99, device="cuda",
                    dtype: Optional[torch.dtype] = None) -> Scenario:
-    """The NOT-state qubit measured every 5th step (measure_freq = 5):
-    dt = 0.2, H = 50, n_steps = 100, sat = 2 pi 0.1, du = 0.1 sat."""
+    """The NOT-state qubit measured every 5th step (QP n = 50).
+
+    measure_freq = 5, dt = 0.2, H = 50, n_steps = 100, sat = 2 pi 0.1,
+    du = 0.1 sat."""
     dt, H, n_steps = 0.2, 50, 100
     sat = 2 * np.pi * 0.1
     A, plant, rho0, targ, Q = _qubit_not(detune, dt, order)
@@ -173,8 +186,9 @@ def not_state_freq(order: int = 1, detune: float = 0.99, device="cuda",
 
 
 def drag_state(order: int = 1, device="cuda", dtype: Optional[torch.dtype] = None) -> Scenario:
-    """3-level transmon |0> -> |1> with a leakage-penalized cost, which
-    recovers DRAG-like pulses: dt = 0.25, H = 16, n_steps = 20,
+    """A 3-level transmon |0> -> |1> with a leakage-penalized cost (QP n = 32).
+
+    The cost recovers DRAG-like pulses: dt = 0.25, H = 16, n_steps = 20,
     sat = 2 pi 0.25, anharmonicity -2 pi 0.1 / dt, du = 0.5 sat."""
     dt, H, n_steps = 0.25, 16, 20
     sat = 2 * np.pi * 0.25
@@ -205,7 +219,9 @@ def drag_state(order: int = 1, device="cuda", dtype: Optional[torch.dtype] = Non
 
 def not_gate(order: int = 1, n_steps: int = 50, device="cuda",
              dtype: Optional[torch.dtype] = None) -> Scenario:
-    """NOT-gate synthesis in process-matrix space (dim 16): dt = 0.05,
+    """NOT-gate synthesis in process-matrix space, dim 16 (QP n = 15).
+
+    dt = 0.05,
     H = 15, sat = 1, du = 0.25, benchmark control 0.5, Qf = 10 Q, exit
     once the process cost ||P - P_target||^2 < 1e-2.
 
@@ -236,8 +252,9 @@ def not_gate(order: int = 1, n_steps: int = 50, device="cuda",
 
 def lindblad_state(order: int = 2, detune: float = 0.99, gamma: float = 0.005, device="cuda",
                    dtype: Optional[torch.dtype] = None) -> Scenario:
-    """T1-limited qubit |0> -> |1>: the flagship's workload on an open
-    system, amplitude damping L = sqrt(gamma) sigma_- in both the model (the
+    """The flagship's state preparation on a T1-limited open system (QP n = 10).
+
+    The flagship's workload on an open system, amplitude damping L = sqrt(gamma) sigma_- in both the model (the
     order-k discretization of the Lindbladian drift) and the plant; dt = 1,
     H = 10, n_steps = 20, sat = 2 pi 0.1, du = 0.5 sat."""
     dt, H, n_steps = 1.0, 10, 20
@@ -274,8 +291,9 @@ def _ground_pair(theta: float):
 
 def crosstalk(order: int = 1, coupling: float = 0.0, device="cuda",
               dtype: Optional[torch.dtype] = None) -> Scenario:
-    """Two qubits controlled through per-qubit models while the plant carries
-    Z (x) Z crosstalk of strength `coupling`: partial-trace lift (model space
+    """Two qubits through per-qubit models on a plant with Z (x) Z crosstalk (QP n = 40).
+
+    The crosstalk has strength `coupling`; partial-trace lift (model space
     dim 8, experiment space dim 16), measure_freq = 2, warm_start = False,
     dt = 0.5, H = 20, n_steps = 50, sat = 2 pi 0.1, du = 0.25. x0 and
     target_state are in experiment space, X_targ in model space.
@@ -319,8 +337,9 @@ def crosstalk(order: int = 1, coupling: float = 0.0, device="cuda",
 
 
 def cnot_state(order: int = 1, device="cuda", dtype: Optional[torch.dtype] = None) -> Scenario:
-    """Entangling state preparation on an always-coupled pair with a ramped
-    target min(1, 2k / n_steps): dt = 0.25, H = 50, n_steps = 200,
+    """Entangling state preparation on an always-coupled pair (QP n = 150).
+
+    The target is ramped, min(1, 2k / n_steps): dt = 0.25, H = 50, n_steps = 200,
     sat = 2 pi 0.05, du = sat; state dim 16, three controls (QP n = 150).
 
     The condensed QP is ill-conditioned and acceptance at the solver's

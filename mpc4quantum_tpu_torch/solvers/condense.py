@@ -5,16 +5,22 @@ The dynamics x_{t+1} = Delta_t + A_t x_t + B_t u_t, x_0 = x_init are
 eliminated: x = w + M vec(U), vec(U) time-major. The tracking cost
 sum_t Re[(x_t - xbm_t)^H Q_t (x_t - xbm_t)] + (u_t - ubm_t)^T R_t (u_t - ubm_t)
 becomes U^T P U + 2 q^T U + const, and saturation plus the first-step slew
-limit collapse into one box on U.
+limit collapse into one box on U. `quad_program` solves it by the adaptive
+Cholesky ADMM (backend "chol", the reference's default) or the fixed-budget
+kernel route (backend "ns").
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels.boxqp import MAX_N, boxqp_accept, boxqp_big, boxqp_small
 from ..utils.linalg import cx_mm
+from .boxqp import BoxQPParams, check_ported, solve_boxqp
+
+QP_BACKENDS = ("chol", "ns")
 
 
 class QPResult(NamedTuple):
@@ -22,8 +28,11 @@ class QPResult(NamedTuple):
     U: torch.Tensor          # (B, dim_u, H) real optimal controls
     obj: torch.Tensor        # (B,)
     converged: torch.Tensor  # (B,) bool
-    y: torch.Tensor          # (B, H*dim_u) final ADMM dual, time-major
-    rho: torch.Tensor        # (B,) final ADMM penalty
+    # the final ADMM dual (B, H*dim_u, time-major) and penalty (B,) that
+    # seed the next solve; None where the solver has none (the LQR)
+    y: Optional[torch.Tensor] = None
+    rho: Optional[torch.Tensor] = None
+    iters: Optional[torch.Tensor] = None  # (B,) ADMM iterations (chol only)
 
 
 def condense_horizon(A_s, B_s, Delta_s, x_init):
@@ -66,20 +75,23 @@ def _assemble_cost(w, M, X_bm, U_bm, Q_s, R_s):
     return P + Pu, q - Pu @ ubm
 
 
-def _box_bounds(dim_u, H, sat, u_prev, du, dtype):
-    """Saturation |u_t| <= sat for every step, intersected with the slew
-    box |u_0 - u_prev| <= du on the first step. u_prev is (B, dim_u)."""
-    sat_v = torch.full((dim_u,), float(sat), dtype=dtype, device=u_prev.device)
-    lb = (-sat_v).repeat(H).expand(u_prev.shape[0], -1).clone()
-    ub = sat_v.repeat(H).expand(u_prev.shape[0], -1).clone()
-    if du is not None:
+def _box_bounds(dim_u, H, sat, u_prev, du, dtype, B, device):
+    """Saturation |u_t| <= sat for every step (none where sat is None),
+    intersected with the slew box |u_0 - u_prev| <= du on the first step
+    where both are given. u_prev is (B, dim_u)."""
+    sat = float("inf") if sat is None else float(sat)
+    sat_v = torch.full((dim_u,), sat, dtype=dtype, device=device)
+    lb = (-sat_v).repeat(H).expand(B, -1).clone()
+    ub = sat_v.repeat(H).expand(B, -1).clone()
+    if du is not None and u_prev is not None:
         u_prev = u_prev.to(dtype)
         lb[:, :dim_u] = torch.maximum(-sat_v, u_prev - du)
         ub[:, :dim_u] = torch.minimum(sat_v, u_prev + du)
     return lb, ub
 
 
-def qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev, sat, du=None):
+def qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, sat=None,
+            du=None):
     """Condense and assemble the batch's box QPs without solving them.
 
     :return: (P, q, lb, ub, w, M).
@@ -87,7 +99,7 @@ def qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev, sat, du=Non
     dim_u, H = U_bm.shape
     w, M = condense_horizon(A_s, B_s, Delta_s, x_init)
     P, q = _assemble_cost(w, M, X_bm, U_bm, Q_s, R_s)
-    lb, ub = _box_bounds(dim_u, H, sat, u_prev, du, P.dtype)
+    lb, ub = _box_bounds(dim_u, H, sat, u_prev, du, P.dtype, P.shape[0], P.device)
     return P, q, lb, ub, w, M
 
 
@@ -111,3 +123,62 @@ def objective_value(X, U, X_bm, U_bm, Q_s, R_s):
     jx = torch.einsum("btx,txy,bty->b", ex.conj(), Q_s, ex).real
     ju = torch.einsum("bti,tij,btj->b", eu, R_s.real.to(eu.dtype), eu)
     return jx + ju
+
+
+def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, sat=None,
+                 du=None, U_warm=None, params: BoxQPParams | None = None,
+                 backend: str = "chol", Y_warm=None, rho_warm=None) -> QPResult:
+    """Solve the lanes' LTV horizon tracking QPs (the reference's
+    `quad_program`, batched).
+
+    :param x_init: (B, dim_x) complex initial states, or (dim_x,) for one
+        lane, with A_s (B, H, dim_x, dim_x), B_s, Delta_s, u_prev, U_warm,
+        Y_warm and rho_warm then without the lane axis too.
+    :param X_bm: (dim_x, H+1); U_bm: (dim_u, H); Q_s (H+1, dim_x, dim_x),
+        R_s (H, dim_u, dim_u).
+    :param u_prev: (B, dim_u) anchor of the first-step slew box |u_0 -
+        u_prev| <= du; sat: the saturation (None = none).
+    :param U_warm: optional (B, dim_u, H) ADMM warm start.
+    :param backend: "chol", the adaptive Cholesky ADMM (`solve_boxqp`); or
+        "ns", the fixed-budget route of the fleets: the `boxqp_small`
+        kernel at n = H dim_u <= 16 (Gauss-Jordan inverse whatever
+        params.kinv says), `boxqp_big` above it (params.kinv "gj" or "ns").
+    :param Y_warm: optional (B, H*dim_u) time-major dual warm start;
+        rho_warm: optional (B,) penalty warm start (<= 0 = cold).
+    :return: QPResult with the exact rollout of the solved controls; `iters`
+        on the chol backend only.
+    """
+    if x_init.dim() == 1:
+        one = lambda t: None if t is None or not torch.is_tensor(t) else t[None]
+        res = quad_program(x_init[None], X_bm, U_bm, Q_s, R_s, A_s[None], B_s[None],
+                           Delta_s[None], one(u_prev), sat, du, one(U_warm), params, backend,
+                           one(Y_warm), None if rho_warm is None else torch.as_tensor(
+                               rho_warm, dtype=x_init.real.dtype, device=x_init.device).reshape(1))
+        return QPResult(*(None if t is None else t[0] for t in res))
+    params = BoxQPParams() if params is None else params
+    if backend not in QP_BACKENDS:
+        raise ValueError(f"backend={backend!r} is not one of {QP_BACKENDS}")
+    check_ported(params)
+    P, q, lb, ub, w, M = qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev,
+                                 sat, du)
+    x0 = None if U_warm is None else U_warm.transpose(1, 2).reshape(P.shape[0], -1).to(P.dtype)
+    iters = None
+    if backend == "chol":
+        res = solve_boxqp(P, q, lb, ub, x0=x0, params=params, y0=Y_warm, rho0=rho_warm)
+        z, y, rho, converged, iters = res.x, res.y, res.rho, res.converged, res.iters
+    else:
+        kw = dict(iters=params.max_iter, rounds=params.n_rounds, rho_scale=params.rho0,
+                  sigma=params.sigma, alpha=params.alpha, eps_abs=params.eps_abs,
+                  eps_rel=params.eps_rel, acc_abs=params.accept_abs,
+                  acc_rel=params.accept_rel, scale=params.scale)
+        if P.shape[-1] <= MAX_N:
+            solve = boxqp_small
+        else:
+            solve = boxqp_big
+            kw.update(kinv_method=params.kinv, ns_iters=params.ns_iters)
+        z, y, aux = solve(P, q, lb, ub, x0=x0, y0=Y_warm, rho0=rho_warm, **kw)
+        rho = aux.rho
+        converged = boxqp_accept(aux, params.eps_abs, params.eps_rel, params.accept_abs,
+                                 params.accept_rel)
+    X_opt, U_opt, obj = qp_finish(w, M, z.to(P.dtype), X_bm, U_bm, Q_s, R_s)
+    return QPResult(X=X_opt, U=U_opt, obj=obj, converged=converged, y=y, rho=rho, iters=iters)

@@ -19,6 +19,20 @@ def cx_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def cx_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Batched solve A X = B for complex A through the real block embedding
+    [[Re, -Im], [Im, Re]] and one real LU, as the reference solves it. A
+    singular system gives NaN (torch.linalg.solve would raise for the
+    whole batch)."""
+    d = A.shape[-1]
+    Ar = torch.cat([torch.cat([A.real, -A.imag], dim=-1),
+                    torch.cat([A.imag, A.real], dim=-1)], dim=-2)
+    B = B.to(A.dtype)
+    X, info = torch.linalg.solve_ex(Ar, torch.cat([B.real, B.imag], dim=-2))
+    X = torch.where((info == 0).reshape(info.shape + (1, 1)), X, float("nan"))
+    return torch.complex(X[..., :d, :], X[..., d:, :])
+
+
 def gj_inverse(K: torch.Tensor) -> torch.Tensor:
     """Inverse of a batched (..., n, n) matrix by unpivoted Gauss-Jordan in
     matrix form: n column-elimination steps of whole-tensor elementwise ops.

@@ -499,3 +499,35 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         admm_big(K, w, w, w, r, w, w, w, iters=1, sigma=1e-6, alpha=1.6)
     with pytest.raises(ValueError, match="contiguous"):
         admm_big(P.transpose(1, 2), v, v, v, r, v, v, v, iters=1, sigma=1e-6, alpha=1.6)
+
+
+def test_solve_boxqp_on_the_card_matches_the_cpu(cuda):
+    """The adaptive Cholesky box-QP on the card in float32 against float64
+    on the CPU, cold at the library's 2x150; a NaN lane never converges
+    and nothing raises."""
+    from mpc4quantum_tpu_torch.solvers.boxqp import solve_boxqp
+
+    P, q, lb, ub = qp_batch(512, 10, seed=9, device=cuda)
+    P[3, 0, 0] = float("nan")
+    card = solve_boxqp(P, q, lb, ub)
+    cpu = solve_boxqp(*(t.cpu().double() for t in (P, q, lb, ub)))
+    assert not bool(card.converged[3]) and bool(torch.isnan(card.x[3]).all())
+    both = card.converged.cpu() & cpu.converged
+    assert float(both.float().mean()) >= 0.99
+    dz = ((card.x.cpu().double() - cpu.x).abs().amax(dim=1)
+          / torch.clamp(cpu.x.abs().amax(dim=1), min=1.0))
+    assert float(dz[both].max()) <= 1e-3
+
+
+def test_cli_on_the_card(cuda, capsys):
+    """`python -m mpc4quantum_tpu_torch not_state` on the card: the chol QP
+    launches no QP kernel, the plant one expm_small a step."""
+    import json
+
+    from mpc4quantum_tpu_torch.__main__ import main
+
+    before = (boxqp_small.launches, expm_small.launches)
+    assert main(["not_state"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["exit_code"] == 0 and out["n_valid"] == 20 and out["fidelity"] > 0.995
+    assert (boxqp_small.launches - before[0], expm_small.launches - before[1]) == (0, 20)

@@ -375,7 +375,8 @@ def test_pair_fleet_float64_matches_jax(reference):
     np.testing.assert_allclose(out["final_x"].numpy(), out_j["final_x"], rtol=0, atol=FLEET_TOL)
     np.testing.assert_array_equal(out["exit_code"].numpy(), out_j["exit_code"])
     for key in ("fidelity_mean", "fidelity_min", "completed_frac", "exit_early_frac",
-                "qp_fail_frac", "steady_budget", "warm_budget", "warm_sqp_iters", "qp_scale"):
+                "qp_fail_frac", "steady_budget", "warm_budget", "warm_sqp_iters", "qp_scale",
+                "warm_duals"):
         assert m[key] == m_j[key], key
     assert m["qp_kernel"] == "big" and m["completed_frac"] == 1.0 and m["qp_fail_frac"] == 0.0
     assert m["expm_budget"] == [12, 0] and "rescued_lanes" not in m

@@ -36,10 +36,16 @@ marginal drives the rescue pass on the card. Then the learned-model and
 single-rollout phases, and the command line (`python -m
 mpc4quantum_tpu_torch`): one rollout on the adaptive Cholesky QP, the LQR
 rollout, `--batch 1024`, the flagship fleet through `--hostloop` with
-checkpoints plus a crashed and resumed run, and `solve_boxqp` alone. One JSON
-line per phase; then the card's name and power limit, the per-kernel
-record, and last {"ok": true, "device": {...}}. Any failure raises and
-exits non-zero. Without a CUDA device it exits 1 and prints no result.
+checkpoints plus a crashed and resumed run, and `solve_boxqp` alone. The
+K-inverse family and the real-state path: the four K^-1 forms (Newton-
+Schulz, Gauss-Jordan, Riccati, its scan) timed at the large-n fleets'
+shapes, cnot and freq under the Riccati inverses, freq and drag with the
+steady K-inverse carry, the Van der Pol Koopman MPC (mpc() on both QP
+routes, batched_mpc at B 1024) and the flagship in its real embedding
+against the complex problem. One JSON line per phase; then the card's
+name and power limit, the per-kernel record, and last {"ok": true,
+"device": {...}}. Any failure raises and exits non-zero. Without a CUDA
+device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -89,8 +95,9 @@ FLEET_REPS = 4             # one warm-up run, then 3 timed runs (a fleet's "reps
 # (cold warm phase, warm-started steady phase, that form Jacobi-scaled),
 # not_gate's n = 15 (57.6 KB of shared memory a block), and the single
 # rollout's n = 10 at B = 1, every solve cold at the library's 2x150 (the
-# learned-model fleets solve the flagship's shape at that budget); the warm
-# forms start from the cold solve's dual and rho
+# learned-model fleets solve the flagship's shape at that budget), and the
+# embedded phase's batched_mpc at that budget on B = 1024; the warm forms
+# start from the cold solve's dual and rho
 QP_FORMS = {
     (10, BATCH): {"cold_3x12": dict(iters=12, rounds=3),
                   "warm_2x10": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3),
@@ -100,6 +107,7 @@ QP_FORMS = {
     (15, 1024): {"cold_3x12": dict(iters=12, rounds=3),
                  "warm_2x10": dict(iters=10, rounds=2, acc_abs=4e-3, acc_rel=4e-3)},
     (10, 1): {"cold_2x150": dict(iters=150, rounds=2)},
+    (10, 1024): {"cold_2x150": dict(iters=150, rounds=2)},
 }
 # Fleets: lanes, kernel launches per run, the fidelity gates (mean and
 # minimum; None = no gate), the fraction of lanes that must exit early, and
@@ -219,11 +227,62 @@ CLI = dict(fid=0.995, cpu_tol=1e-4, lqr_close_steps=10, lqr_close_tol=1e-4, sat_
            batch=1024, batch_fid_min=0.998, parity_lanes=8, ckpt_every=5, crash_step=10,
            chol_accept=0.99,
            launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 0})
+# The K-inverse family and the real-state path. kinv_builds: the four
+# K^-1 forms (Newton-Schulz at the warm phase's ns_iters, Gauss-Jordan, the
+# Riccati factorization and its log-depth scan) on a real linearization of
+# each large-n fleet - its last warm-phase solve, K = P + (sigma + rho) I
+# at the cold rho - timed by CUDA events; each residual ||I - K X||_inf
+# (largest row sum, worst lane) and the gap to numpy's float64 inverse of
+# the same K on 4 lanes, relative to its largest entry: within 1e-3 for the
+# exact forms (the card: 4.4e-5 and 1.8e-6 at conditions 65-274), within
+# 1e-2 for Newton-Schulz, whose residual is its truncation at the budget
+# (freq's 20 steps: 2.1e-4 and 1.1e-4). riccati_fleet: cnot
+# under kinv="riccati" and freq under "riccati_pscan" with the default
+# phases' gates, launches and float64 lane bounds; the float64 reference is
+# the default phase's own (in float64 the four inverses agree to 1e-14, so
+# the closed loop does not see which one ran: tests/test_torch_riccati.py).
+# warm_kinv_fleet: the steady K-inverse carry on freq, and on drag with
+# kinv="ns" (its tuned Gauss-Jordan inverse leaves nothing to carry). On
+# these fleets the carried inverse drifts out of the guard's contraction
+# region at a drift spike (freq: step 21, guard residual 3-8; drag: every
+# step rebuilds P), the guard sends every lane to the cold init at the
+# refresh budget, and every lane then fails its QP: the JAX package's own
+# run of this carry on its chip loses every lane (freq fidelity
+# 0.69850 / 0.69489, drag 0.23165 / 0.23121, experiments/logs/
+# r4_warm_kinv.log), and so does the port in float64 on the CPU (0.69779,
+# 0.23145). So the phase holds the carry to the float64 CPU path of the
+# same carried fleet (8 lanes: exit codes equal, fidelity within the
+# default phase's bound), requires the carry to engage and the fallbacks to
+# be counted, and reports the fleet without the carry beside it.
+KINV = dict(fleets={"not_state_freq": 1024, "drag_state": 2048, "cnot_state": 128},
+            forms=("ns", "gj", "riccati", "riccati_pscan"), ref_lanes=4,
+            tol={"ns": 1e-2, "gj": 1e-3, "riccati": 1e-3, "riccati_pscan": 1e-3})
+RICCATI_FLEETS = {"cnot_state": "riccati", "not_state_freq": "riccati_pscan"}
+WARM_KINV_FLEETS = {"not_state_freq": None, "drag_state": "ns"}
+# classical: the Van der Pol Koopman MPC of tests/test_classical_mpc.py (mu
+# 1, dt 0.1, 400 random-drive training steps from numpy seed 0, the lift
+# [x1, x2, x1^2, x1^2 x2], H 20, 60 steps, sat 4, from (1.5, 0)), mpc() on
+# the chol default and on the kernel route (n = 20: boxqp_big, one admm_big
+# launch a rho round), |x_final| < 0.2 on both (JAX's bar); then
+# batched_mpc on the kernel route at B 1024 from the 1.5-radius circle, 8
+# lanes held to 1e-3 of float64 on the CPU in the final state (the card:
+# 1.8e-7). embedded: the flagship's mpc() (B 1) and batched_mpc (B 1024)
+# on the kernel route in the real embedding against the complex problem:
+# |du| <= 1e-4 on the rollout (the card: 1.2e-5); on the batch 5e-4, since
+# float32 alone moves its controls by about 1e-4: the phase also runs the
+# complex batch in float64 on the CPU and reports the card's complex
+# controls' distance from it beside the embedded one's (tests/
+# test_torch_realstate.py holds the two loops equal in float64).
+CLASSICAL = dict(mu=1.0, dt=0.1, train_steps=400, H=20, n_steps=60, sat=4.0, x0=(1.5, 0.0),
+                 x_final=0.2, batch=1024, radius=1.5, parity_lanes=8, parity_tol=1e-3)
+EMBEDDED = dict(batch=1024, du_tol={"mpc": 1e-4, "batched": 5e-4})
 # admm_big alone: (B, n, iters) of the large-n presets' solves, cnot's
 # n = 150 (rows split over 4 threads) and the largest n the kernel takes
-# (part of each row in shared memory); then crosstalk's and cnot's own
+# (part of each row in shared memory); then crosstalk's and cnot's own, and
+# the classical phase's Koopman QP (n = 20: 12 of the n <= 32 instance's
+# columns idle) at B 1024 and at B 1 (three of a block's four lanes empty)
 ADMM_SHAPES = ((2048, 32, 50), (2048, 32, 19), (1024, 50, 40), (256, 150, 50), (256, 239, 50),
-               (1024, 40, 150), (128, 150, 100), (128, 150, 80))
+               (1024, 40, 150), (128, 150, 100), (128, 150, 80), (1024, 20, 150), (1, 20, 150))
 # the bound's peaks: one H100 SXM at its 700 W limit (NVIDIA's data sheet),
 # float32 outside the tensor cores and device memory
 PEAK_FLOPS = 67e12
@@ -415,7 +474,7 @@ def compare_solves(name, kernel_out, plain_out, kw, accept, accept_thresholds,
     one; flags may differ only where a residual sits within BORDERLINE of
     its threshold in the plain solve, and with rho_resolved_only rho only
     where the plain prim is float32 rounding."""
-    (zk, yk, ak), (zp, yp, ap) = kernel_out, plain_out
+    (zk, yk, ak), (zp, yp, ap) = kernel_out[:3], plain_out[:3]
     acc = (kw.get("eps_abs", 1e-6), kw.get("eps_rel", 1e-6), kw.get("acc_abs", 1e-3),
            kw.get("acc_rel", 1e-3))
     fk, fp = accept(ak, *acc), accept(ap, *acc)
@@ -721,7 +780,7 @@ def phase_parity(name, presets, run_hostloop_fleet, fleet_fidelity, sc, plants64
     emit(rec)
     require(float(dfid.max()) <= bound and codes_equal,
             f"{name}: first {lanes} lanes differ from the float64 CPU path: {rec}")
-    return rec
+    return rec, fleet_fidelity(sc64, out64["final_x"]), out64["exit_code"]
 
 
 def fleet_preset(presets, name):
@@ -1235,6 +1294,337 @@ def phase_chol_qp(solve_boxqp, BoxQPParams, boxqp_mod, host_flag) -> dict:
     return rec
 
 
+def warm_linearization(presets, name, fleet_runner, run_hostloop_fleet, B):
+    """The last warm-phase solve of the preset's fleet on B card lanes (a
+    2-step run, its quad_program calls recorded): (K (B, n, n) contiguous,
+    rho (B,), the real-embedded LQR data, the phase's BoxQPParams)."""
+    from mpc4quantum_tpu_torch.solvers.boxqp import warm_rho
+    from mpc4quantum_tpu_torch.solvers.condense import qp_data
+    from mpc4quantum_tpu_torch.solvers.riccati import embed_costs, embed_ltv
+
+    make = fleet_preset(presets, name)
+    sc = make()
+    sc = dataclasses.replace(sc, config=dataclasses.replace(sc.config, n_steps=2))
+    plants = make_lanes(make(device="cpu").plant, B).to(DEVICE, torch.float32)
+    calls, orig = [], fleet_runner.quad_program
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+    fleet_runner.quad_program = record
+    try:
+        run_hostloop_fleet(sc, B, plants=plants)
+    finally:
+        fleet_runner.quad_program = orig
+    args, kw = calls[-1]
+    x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, D_s, u_prev, sat, du = args
+    params = kw["params"]
+    P = qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, D_s, u_prev, sat, du)[0]
+    P = 0.5 * (P + P.transpose(-1, -2))
+    diag = torch.clamp(torch.diagonal(P, dim1=-2, dim2=-1).mean(dim=-1), min=1e-12)
+    rho = warm_rho(kw["rho_warm"], params.rho0 * diag, diag)
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    K = (P + (params.sigma + rho)[:, None, None] * eye).contiguous()
+    lqr = tuple(t.contiguous() for t in embed_ltv(A_s, B_s) + embed_costs(Q_s, R_s))
+    return K, rho, lqr, params
+
+
+def phase_kinv_builds(presets, fleet_runner, run_hostloop_fleet) -> dict:
+    """The four K^-1 forms at the large-n fleets' shapes (KINV), plain
+    PyTorch on the card: device ms a build (CUDA events, 20 builds after a
+    warm-up), the residual and the gap to float64."""
+    from mpc4quantum_tpu_torch.solvers.boxqp import ns_inverse
+    from mpc4quantum_tpu_torch.solvers.riccati import riccati_kinv_batch
+    from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
+
+    rec = {"phase": "kinv_builds", "gpu": smi_line(), "gates": KINV["tol"]}
+    for name, B in KINV["fleets"].items():
+        K, rho, lqr, params = warm_linearization(presets, name, fleet_runner,
+                                                 run_hostloop_fleet, B)
+        H, m, du = lqr[1].shape[-3:]
+        builds = {"ns": lambda: ns_inverse(K, params.ns_iters), "gj": lambda: gj_inverse(K),
+                  "riccati": lambda: riccati_kinv_batch(*lqr, rho, params.sigma),
+                  "riccati_pscan": lambda: riccati_kinv_batch(*lqr, rho, params.sigma,
+                                                              pscan=True)}
+        lanes = KINV["ref_lanes"]
+        K64 = K[:lanes].double().cpu().numpy()
+        ref = np.linalg.inv(K64)
+        eye = torch.eye(K.shape[-1], device=DEVICE)
+        cell = {"B": B, "H": int(H), "m": int(m), "du": int(du), "n": int(K.shape[-1]),
+                "ns_iters": params.ns_iters,
+                "cond_lane0": float(np.linalg.cond(K64[0]))}
+        for form in KINV["forms"]:
+            X = builds[form]()
+            torch.cuda.synchronize()
+            resid = float((eye - K @ X).abs().sum(dim=-1).amax())
+            gap = float(np.abs(X[:lanes].double().cpu().numpy() - ref).max() / np.abs(ref).max())
+            cell[form] = {"ms": cuda_ms(builds[form]), "residual": resid, "gap_f64": gap}
+        rec[name] = cell
+    emit(rec)
+    for name in KINV["fleets"]:
+        for form in KINV["forms"]:
+            r, tol = rec[name][form], KINV["tol"][form]
+            require(r["residual"] <= tol and r["gap_f64"] <= tol,
+                    f"kinv_builds {name} {form}: {r}")
+    return rec
+
+
+def phase_kinv_fleet(kind, presets, run_hostloop_fleet, fleet_fidelity, counters, defaults):
+    """riccati_fleet (kind "riccati": RICCATI_FLEETS' K-inverse forced) or
+    warm_kinv_fleet ("warm_kinv": the steady carry, WARM_KINV_FLEETS' forced
+    K-inverse): each fleet with the default phase's launch counts (one
+    warm-up and one timed run) and the default run's rate beside it.
+    riccati: the default phase's fidelity gates, and 8 lanes against its
+    float64 CPU lanes; warm_kinv: 8 lanes against the float64 CPU path of
+    the same carried fleet, and the fleet without the carry reported (freq's
+    is the default phase's run on the same plants)."""
+    fleets = RICCATI_FLEETS if kind == "riccati" else WARM_KINV_FLEETS
+    rec = {"phase": f"{kind}_fleet", "gpu": smi_line()}
+    total = dict.fromkeys(counters, 0)
+    lanes = 8
+    for name, kinv in fleets.items():
+        spec, reps = FLEETS[name], 2
+        make = fleet_preset(presets, name)
+        sc = make()
+        plants64 = make_lanes(make(device="cpu").plant, spec["batch"])
+        kw = {"kinv": kinv} if kind == "riccati" else {"kinv": kinv, "warm_kinv": True}
+        for fn in counters.values():
+            fn.launches = 0
+        metrics, out = run_hostloop_fleet(sc, spec["batch"],
+                                          plants=plants64.to(DEVICE, torch.float32), reps=reps,
+                                          rescue=rescue_spec(presets, name), **kw)
+        rescued = metrics.get("rescue_launches", {})
+        launches = {k: fn.launches - rescued.get(k, 0) for k, fn in counters.items()}
+        total = {k: total[k] + launches[k] for k in total}
+        default = defaults[name]
+        cell = {k: metrics[k] for k in ("rollouts_per_s", "first_run_s", "fidelity_mean",
+                                        "fidelity_min", "completed_frac", "qp_fail_frac",
+                                        "kinv", "warm_kinv", "kinv_warm_solves",
+                                        "kinv_guard_cold")}
+        cell.update(launches=launches, runs=reps,
+                    default_rollouts_per_s=default["metrics"]["rollouts_per_s"],
+                    rate_vs_default=metrics["rollouts_per_s"]
+                    / default["metrics"]["rollouts_per_s"],
+                    rescued_lanes=metrics.get("rescued_lanes", 0))
+        fid = fleet_fidelity(sc, out["final_x"])
+        codes = out["exit_code"][:lanes].cpu()
+        if kind == "riccati":
+            # in float64 the closed loop does not see which inverse ran
+            ref, ref_codes = default["fid64"][:lanes], default["codes64"][:lanes]
+        else:
+            sc64 = make(device="cpu", dtype=torch.float64)
+            m64, out64 = run_hostloop_fleet(sc64, lanes, plants=plants64[:lanes], **kw)
+            ref, ref_codes = fleet_fidelity(sc64, out64["final_x"]), out64["exit_code"]
+            cell["cpu_f64"] = {k: m64[k] for k in ("fidelity_mean", "fidelity_min",
+                                                   "qp_fail_frac", "kinv_warm_solves",
+                                                   "kinv_guard_cold")}
+            if kinv is None and not default["metrics"]["warm_kinv"]:
+                # the default phase ran this fleet on these plants without it
+                m0, fid0 = default["metrics"], default["fid"]
+            else:
+                m0, out0 = run_hostloop_fleet(sc, spec["batch"],
+                                              plants=plants64.to(DEVICE, torch.float32),
+                                              reps=reps, kinv=kinv, warm_kinv=False)
+                fid0 = fleet_fidelity(sc, out0["final_x"])
+            cell["no_carry"] = {k: m0[k] for k in ("rollouts_per_s", "fidelity_mean",
+                                                   "fidelity_min", "qp_fail_frac", "warm_kinv")}
+            cell["no_carry"]["max_abs_dfid"] = float(np.abs(fid - fid0).max())
+        dfid = np.abs(fid[:lanes] - ref)
+        codes_equal = bool(torch.equal(codes, ref_codes.cpu()))
+        cell["lane_parity"] = {"lanes": lanes, "max_abs_dfid": float(dfid.max()),
+                               "bound": spec["parity_tol"], "exit_codes_equal": codes_equal}
+        rec[name] = cell
+        expected = {k: v * reps for k, v in spec["launches"].items()}
+        checks = {"launches": launches == expected,
+                  "parity": float(dfid.max()) <= spec["parity_tol"] and codes_equal}
+        if kind == "riccati":
+            gates = (("fidelity_mean", spec["fid_mean"]), ("fidelity_min", spec["fid_min"]))
+            checks.update(completed=metrics["completed_frac"] == 1.0,
+                          no_qp_failure=metrics["qp_fail_frac"] == 0.0,
+                          fidelity=all(g is None or metrics[k] >= g for k, g in gates))
+        else:
+            checks.update(carry_engaged=metrics["kinv_warm_solves"] > 0)
+        if not all(checks.values()):
+            emit(rec)
+        require(all(checks.values()), f"{kind}_fleet {name}: {checks} {cell}, "
+                                      f"expected launches {expected}")
+    rec["launches"] = total
+    emit(rec)
+    return rec
+
+
+def batch_iters(res) -> int:
+    """The SQP iterations a batch ran (one QP launch each): a step runs
+    until its last lane is done, so the most any lane took, summed over the
+    steps."""
+    iters = res.sqp_iters
+    return int(iters.reshape(-1, iters.shape[-1]).amax(dim=0).sum())
+
+
+def vdp_problem(classical, device, dtype, B=None):
+    """The Van der Pol Koopman problem (CLASSICAL) on `device` in `dtype`:
+    (model, targets and costs, config, the plant or a B-lane batch of it,
+    the initial state(s): x0, or B points of the 1.5-radius circle)."""
+    c = CLASSICAL
+    H, n = c["H"], c["n_steps"]
+    t = lambda a: torch.tensor(np.asarray(a, float)).to(device, dtype)
+    args = (t(np.zeros((4, n + H + 1))), t(np.zeros((1, n + H))), t(np.diag([1.0, 1, 0, 0])),
+            t(np.eye(1) * 1e-2), t(np.diag([1.0, 1, 0, 0])))
+    plant = classical.VanDerPol(c["mu"], device=device, dtype=dtype)
+    if B is None:
+        return args, plant, t(c["x0"])
+    phase = np.linspace(0.0, 2 * np.pi, B, endpoint=False)
+    x0 = t(c["radius"] * np.stack([np.cos(phase), np.sin(phase)], axis=1))
+    return args, dataclasses.replace(plant, param=plant.param.expand(B).clone()), x0
+
+
+def phase_classical(port, counters, host_flag) -> dict:
+    """The Van der Pol Koopman MPC on the card (CLASSICAL): training data by
+    rk4_simulate in float64 on the card, train_model, then mpc() on the chol
+    default and on the kernel route and batched_mpc at B 1024, in float32;
+    8 lanes again in float64 on the CPU."""
+    from mpc4quantum_tpu_torch.models.dmdc import dmdc_from_operator
+    from mpc4quantum_tpu_torch.plants import classical
+
+    c = CLASSICAL
+    rng = np.random.default_rng(0)
+    us = rng.uniform(-2, 2, size=(1, c["train_steps"]))
+    t0 = time.perf_counter()
+    plant64 = classical.VanDerPol(c["mu"], device=DEVICE, dtype=torch.float64)
+    xs = classical.rk4_simulate(plant64, torch.tensor([1.0, 0.5], dtype=torch.float64,
+                                                      device=DEVICE),
+                                torch.tensor(us, device=DEVICE), c["dt"])
+    zs = classical.vdp_lift(xs.T).T
+    model, rcond, losses = port.train_model(zs[:, 1:], zs[:, :-1],
+                                            torch.tensor(us, device=DEVICE))
+    train_s = time.perf_counter() - t0
+    xs_cpu = classical.rk4_simulate(classical.VanDerPol(c["mu"], device="cpu"),
+                                    torch.tensor([1.0, 0.5], dtype=torch.float64),
+                                    torch.tensor(us), c["dt"])
+    A64 = model.A.cpu()
+    rec = {"phase": "classical", "gpu": smi_line(), "train_s": train_s, "rcond": rcond,
+           "min_loss": float(losses.min()),
+           "train_data_gap_vs_cpu": float((xs.cpu() - xs_cpu).abs().max()),
+           "gates": {"x_final": c["x_final"], "lane_parity": c["parity_tol"]}}
+    cfg = port.MPCConfig(horizon=c["H"], n_steps=c["n_steps"], dt=c["dt"], dim_u=1, order=1)
+    mk = lambda A: dmdc_from_operator(A, 4, 4, A.shape[1] - 4)
+    model32 = mk(A64.to(DEVICE, torch.float32))
+    args, plant, x0 = vdp_problem(classical, DEVICE, torch.float32)
+    for backend in ("chol", "ns"):
+        cfg_b = dataclasses.replace(cfg, qp_backend=backend)
+        t0 = time.perf_counter()
+        res, launches, reads = counted(counters, host_flag, lambda: port.mpc(
+            x0, model32, plant, *args, cfg_b, c["sat"]))
+        rec[f"mpc_{backend}"] = {
+            "wall_s": time.perf_counter() - t0, "exit_code": int(res.exit_code),
+            "x_final_norm": float(res.xs[:, -1].norm()), "sqp_iters": batch_iters(res),
+            "host_reads": reads, "launches": launches}
+    B = c["batch"]
+    cfg_ns = dataclasses.replace(cfg, qp_backend="ns")
+    args, plants, X0 = vdp_problem(classical, DEVICE, torch.float32, B)
+    t0 = time.perf_counter()
+    res, launches, reads = counted(counters, host_flag, lambda: port.batched_mpc(
+        X0, model32, plants, *args, cfg_ns, c["sat"]))
+    wall = time.perf_counter() - t0
+    xf = res.xs[..., -1].norm(dim=-1)
+    lanes = c["parity_lanes"]
+    args64, plants64, X064 = vdp_problem(classical, "cpu", torch.float64, B)
+    res64 = port.batched_mpc(X064[:lanes], mk(A64), plants64[:lanes], *args64, cfg_ns,
+                             c["sat"])
+    dx = float((res.xs[:lanes, :, -1].cpu().double() - res64.xs[:, :, -1]).abs().max())
+    codes = res.exit_code.cpu()
+    rec["batched_ns"] = {"B": B, "wall_s": wall, "rollouts_per_s": B / wall,
+                         "launches": launches, "host_reads": reads,
+                         "sqp_iters": batch_iters(res),
+                         "completed_frac": float(((codes == 0) | (codes == 1)).float().mean()),
+                         "share_under_gate": float((xf < c["x_final"]).float().mean()),
+                         "x_final_norm_max": float(xf.max()),
+                         "lane_parity": {"lanes": lanes, "max_abs_dx_final": dx,
+                                         "bound": c["parity_tol"]}}
+    emit(rec)
+    for backend in ("chol", "ns"):
+        r = rec[f"mpc_{backend}"]
+        require(r["exit_code"] == 0 and r["x_final_norm"] < c["x_final"],
+                f"classical mpc() {backend}: {r}")
+        # no expm on a classical plant; the kernel route solves at n = 20
+        # through boxqp_big: one admm_big launch a rho round
+        rounds = cfg.qp_params.n_rounds
+        expected = {"boxqp_small": 0, "expm_small": 0,
+                    "admm_big": rounds * r["sqp_iters"] if backend == "ns" else 0}
+        require(r["launches"] == expected, f"classical mpc() {backend} launches, "
+                                           f"expected {expected}: {r}")
+    b = rec["batched_ns"]
+    rec["launches_total"] = {k: sum(r["launches"][k] for r in (rec["mpc_chol"], rec["mpc_ns"], b))
+                             for k in counters}
+    require(b["completed_frac"] == 1.0 and dx <= c["parity_tol"], f"classical batched: {b}")
+    require(b["launches"] == {"boxqp_small": 0, "expm_small": 0,
+                              "admm_big": cfg.qp_params.n_rounds * b["sqp_iters"]},
+            f"classical batched launches: {b}")
+    return rec
+
+
+def phase_embedded(presets, port, counters, host_flag) -> dict:
+    """The flagship not_state in the real embedding against the complex
+    problem on the kernel route (qp_backend "ns": boxqp_small at n = 10,
+    the embedded plant's step one expm_small launch): mpc() at B 1 and
+    batched_mpc at B 1024 on detuned lanes."""
+    from mpc4quantum_tpu_torch.models.dmdc import dmdc_from_operator
+    from mpc4quantum_tpu_torch.mpc import embedded
+
+    sc = presets.not_state()
+    cfg = dataclasses.replace(sc.config, qp_backend="ns")
+    prob, observe = embedded.embed_problem(sc.x0, sc.model.A, sc.X_targ, sc.Q, sc.Qf,
+                                           dim_x=4, plant=sc.plant)
+    require(observe is None, "embed_problem: the default observation is the runner's")
+    model_e = dmdc_from_operator(prob.model_A, 8, 8, prob.model_A.shape[1] - 8)
+    B = EMBEDDED["batch"]
+    lanes = make_lanes(presets.not_state(device="cpu").plant, B).to(DEVICE, torch.float32)
+    runs = {
+        "mpc_complex": lambda: port.mpc(sc.x0, sc.model, sc.plant, sc.X_targ, sc.U_targ, sc.Q,
+                                        sc.R, sc.Qf, cfg, sc.sat, sc.du),
+        "mpc_embedded": lambda: port.mpc(prob.x0, model_e, prob.plant, prob.X_targ, sc.U_targ,
+                                         prob.Q, sc.R, prob.Qf, cfg, sc.sat, sc.du),
+        "batched_complex": lambda: port.batched_mpc(sc.x0, sc.model, lanes, sc.X_targ,
+                                                    sc.U_targ, sc.Q, sc.R, sc.Qf, cfg,
+                                                    sc.sat, sc.du),
+        "batched_embedded": lambda: port.batched_mpc(
+            prob.x0, model_e, embedded.EmbeddedPlant(lanes), prob.X_targ, sc.U_targ, prob.Q,
+            sc.R, prob.Qf, cfg, sc.sat, sc.du)}
+    rec = {"phase": "embedded", "gpu": smi_line(), "B": B, "gates": {"du": EMBEDDED["du_tol"]}}
+    out = {}
+    for name, fn in runs.items():
+        t0 = time.perf_counter()
+        out[name], launches, reads = counted(counters, host_flag, fn)
+        res = out[name]
+        rec[name] = {"wall_s": time.perf_counter() - t0, "launches": launches,
+                     "host_reads": reads, "sqp_iters": batch_iters(res),
+                     "exit_codes": sorted(set(res.exit_code.reshape(-1).tolist()))}
+    # float32's own reach on this batch: the complex run against float64
+    sc64 = presets.not_state(device="cpu", dtype=torch.float64)
+    ref64 = port.batched_mpc(sc64.x0, sc64.model, make_lanes(sc64.plant, B), sc64.X_targ,
+                             sc64.U_targ, sc64.Q, sc64.R, sc64.Qf,
+                             dataclasses.replace(sc64.config, qp_backend="ns"), sc64.sat,
+                             sc64.du)
+    rec["batched_complex_vs_f64_max_abs_du"] = float(
+        (out["batched_complex"].us.cpu().double() - ref64.us).abs().max())
+    for kind in ("mpc", "batched"):
+        c, e = out[f"{kind}_complex"], out[f"{kind}_embedded"]
+        rec[f"{kind}_max_abs_du"] = float((c.us - e.us).abs().max())
+        rec[f"{kind}_median_abs_du"] = float((c.us - e.us).abs().median())
+        rec[f"{kind}_max_abs_dx_final"] = float(
+            (embedded.unembed_vec(e.xs[..., -1]) - c.xs[..., -1]).abs().max())
+    rec["mpc_p1"] = float(out["mpc_embedded"].xs[3, -1])
+    emit(rec)
+    for kind in ("mpc", "batched"):
+        require(rec[f"{kind}_max_abs_du"] <= EMBEDDED["du_tol"][kind], f"embedded {kind}: {rec}")
+        for form in ("complex", "embedded"):
+            r = rec[f"{kind}_{form}"]
+            require(r["exit_codes"] == [0] and r["launches"] == {
+                "boxqp_small": r["sqp_iters"], "expm_small": 20, "admm_big": 0},
+                    f"embedded {kind}_{form}: launches or exit codes {r}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -1278,14 +1668,25 @@ def main() -> int:
     phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds)
     counters = {"boxqp_small": boxqp_mod.boxqp_small, "expm_small": expm_mod.expm_small,
                 "admm_big": admm_mod.admm_big}
-    total, flagship = dict.fromkeys(counters, 0), None
+    total, flagship, defaults = dict.fromkeys(counters, 0), None, {}
     add = lambda launches: {k: total[k] + launches.get(k, 0) for k in total}
     for name in FLEETS:
         sc, plants64, out, launches, metrics = phase_fleet(name, presets, run_hostloop_fleet,
                                                            counters)
         flagship = metrics if name == "not_state" else flagship
         total = add(launches)
-        phase_parity(name, presets, run_hostloop_fleet, fleet_fidelity, sc, plants64, out)
+        _, fid64, codes64 = phase_parity(name, presets, run_hostloop_fleet, fleet_fidelity,
+                                         sc, plants64, out)
+        defaults[name] = {"metrics": metrics, "fid64": fid64, "codes64": codes64,
+                          "fid": fleet_fidelity(sc, out["final_x"])}
+    phase_kinv_builds(presets, fleet_runner, run_hostloop_fleet)
+    for kind in ("riccati", "warm_kinv"):
+        total = add(phase_kinv_fleet(kind, presets, run_hostloop_fleet, fleet_fidelity,
+                                     counters, defaults)["launches"])
+    total = add(phase_classical(port, counters, host_flag)["launches_total"])
+    rec = phase_embedded(presets, port, counters, host_flag)
+    for name in ("mpc_complex", "mpc_embedded", "batched_complex", "batched_embedded"):
+        total = add(rec[name]["launches"])
     phase_rescue(presets, run_hostloop_fleet, fleet_fidelity, counters)
     for kind in ("online", "discrep"):
         rec = phase_learned_fleet(kind, presets, dmdc, run_hostloop_fleet, fleet_fidelity,

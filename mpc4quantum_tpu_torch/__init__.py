@@ -28,6 +28,13 @@ by config.qp_backend ("chol", the adaptive Cholesky ADMM `solve_boxqp`, by
 default; "ns" the kernels) or the clipped LQR (config.solver="lqr"); the
 fleet runner checkpoints and resumes (`checkpoint_path=`). The CLI is
 `python -m mpc4quantum_tpu_torch <preset>` (`--cpu` for the CPU).
+
+The K-inverse of the large-n route: BoxQPParams.kinv "riccati" /
+"riccati_pscan" (solvers/riccati.py) and the steady carry
+MPCConfig.qp_warm_kinv; run_hostloop_fleet(kinv=, warm_kinv=) forces them.
+Real states: the classical plants (VanDerPol, Rotor, rk4_simulate) run
+`mpc()` on a real Koopman model, and mpc/embedded.py runs a quantum problem
+in its real embedding.
 """
 
 from . import presets
@@ -43,6 +50,7 @@ from .mpc.clock import StepClock, val_to_str
 from .mpc.driver import MPCConfig, MPCResult, lqr_seed_guess, trim
 from .mpc.fleet_runner import batched_mpc, mpc
 from .parallel.fleet import fleet_summary, make_scenario_batch
+from .plants.classical import ClassicalPlant, Rotor, VanDerPol, rk4_simulate
 from .plants.quantum import (QuantumPlant, quantum_expectations, quantum_observe,
                              quantum_simulate)
 from .solvers.boxqp import BoxQPParams, solve_boxqp
@@ -57,7 +65,8 @@ __all__ = [
     "online_fit_iteration", "online_from_bootstrap", "online_from_data", "online_from_randn",
     "predict", "with_history", "prediction_loss", "train_model", "StepClock", "val_to_str",
     "MPCConfig", "MPCResult", "lqr_seed_guess", "mpc", "trim", "batched_mpc",
-    "fleet_summary", "make_scenario_batch", "QuantumPlant", "quantum_expectations",
+    "fleet_summary", "make_scenario_batch", "ClassicalPlant", "Rotor", "VanDerPol",
+    "rk4_simulate", "QuantumPlant", "quantum_expectations",
     "quantum_observe", "quantum_simulate", "BoxQPParams", "solve_boxqp", "condense_horizon",
     "quad_program", "lqr_quad_program",
 ]

@@ -99,8 +99,16 @@ def fleet_fidelity(sc: Scenario, final_x: torch.Tensor) -> np.ndarray:
     return np.real(x @ np.conj(targ)) / max(float(np.real(targ @ np.conj(targ))), 1e-12)
 
 
-def make_runner(sc: Scenario, plants: Plant, expm_budget: str = "auto") -> FleetRunner:
+def make_runner(sc: Scenario, plants: Plant, expm_budget: str = "auto",
+                kinv: Optional[str] = None, warm_kinv: Optional[bool] = None) -> FleetRunner:
     """The fleet runner with the preset's tuned budgets.
+
+    :param kinv: None = the preset's tuned K-inverse (PRESET_STEADY_BUDGET
+        "kinv", else the scenario's own); a BoxQPParams.kinv method forces
+        it in both phases. Inert at n <= 16 (boxqp_small inverts itself).
+    :param warm_kinv: None = the preset's default (no preset carries);
+        True / False set config.qp_warm_kinv, the steady K-inverse carry
+        (FleetRunner; the boxqp_big route only).
 
     A streaming scenario (sc.config.streaming) keeps the preset's warm SQP
     iterations but runs every QP cold at the scenario's own budget, as one
@@ -121,9 +129,15 @@ def make_runner(sc: Scenario, plants: Plant, expm_budget: str = "auto") -> Fleet
     taylor_k, max_sq = expm_budget_for(plants, sc.config.dt, sc.sat, expm_budget)
     kw = dict(du=sc.du, warm_sqp_iters=PRESET_WARM_ITERS[sc.name], expm_taylor_k=taylor_k,
               expm_max_squarings=max_sq, exit_condition=sc.exit_condition)
+    if kinv is None:
+        kinv = (tuned or {}).get("kinv")
     # the kernel route whatever the config's qp_backend (the reference's
     # HostLoopMPC with qp_impl="pallas")
-    cfg = dataclasses.replace(sc.config, qp_backend="ns")
+    cfg = dataclasses.replace(sc.config, qp_backend="ns",
+                              qp_warm_kinv=bool(warm_kinv) if warm_kinv is not None
+                              else sc.config.qp_warm_kinv)
+    if kinv is not None:
+        cfg = dataclasses.replace(cfg, qp_params=dataclasses.replace(cfg.qp_params, kinv=kinv))
     if cfg.streaming:
         return FleetRunner(cfg, sc.sat, steady_qp_params=None, carry_duals=False, **kw)
     if tuned is None:
@@ -137,8 +151,8 @@ def make_runner(sc: Scenario, plants: Plant, expm_budget: str = "auto") -> Fleet
             BoxQPParams.n_rounds, BoxQPParams.max_iter):
         rounds, iters = SMALL_WARM_BUDGET[sc.name]
         qp = dataclasses.replace(qp, n_rounds=rounds, max_iter=iters)
-    qp = dataclasses.replace(qp, kinv=tuned.get("kinv", qp.kinv),
-                             ns_iters=tuned.get("ns_warm", tuned.get("ns_iters", qp.ns_iters)))
+    qp = dataclasses.replace(qp, ns_iters=tuned.get("ns_warm", tuned.get("ns_iters",
+                                                                         qp.ns_iters)))
     cfg = dataclasses.replace(cfg, qp_params=qp)
     rounds, iters = tuned["budget"]
     steady = dataclasses.replace(qp, n_rounds=rounds, max_iter=iters,
@@ -149,7 +163,7 @@ def make_runner(sc: Scenario, plants: Plant, expm_budget: str = "auto") -> Fleet
 
 
 def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.ndarray,
-                expm_budget: str) -> dict:
+                expm_budget: str, **runner_kw) -> dict:
     """Re-run the marginal lanes of a finished fleet under an alternative
     scenario and keep each lane's better result, in place in `out` and
     `fid`.
@@ -158,8 +172,9 @@ def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.nd
     not completed - are gathered, padded to a power of two by repeating the
     first of them (few distinct batch shapes), and run under
     rescue["scenario"] (default `sc`) on the same plants with the same
-    `expm_budget`. A lane takes the re-run's state and exit code where that
-    run completed with a higher fidelity.
+    `expm_budget` and `runner_kw` (make_runner's kinv and warm_kinv). A lane
+    takes the re-run's state and exit code where that run completed with a
+    higher fidelity.
 
     :return: the rescue's metrics: rescued_lanes, rescue_improved,
         rescue_batch, rescue_s and rescue_launches (the kernel launches of
@@ -179,7 +194,8 @@ def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.nd
     pad = 1 << (n - 1).bit_length()
     on_device = lambda a: torch.as_tensor(a, device=plants.device)
     idx_p = on_device(np.concatenate([idx, np.repeat(idx[:1], pad - n)]))
-    _, out_r = run_hostloop_fleet(sc_alt, pad, plants=plants[idx_p], expm_budget=expm_budget)
+    _, out_r = run_hostloop_fleet(sc_alt, pad, plants=plants[idx_p], expm_budget=expm_budget,
+                                  **runner_kw)
     fid_r = fleet_fidelity(sc_alt, out_r["final_x"])[:n]
     codes_r = out_r["exit_code"].cpu().numpy()[:n]
     better = (fid_r > fid[idx]) & ((codes_r == 0) | (codes_r == 1))
@@ -194,7 +210,8 @@ def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.nd
 
 def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
                        seed: int = 1, detune_scale: float = 0.01, reps: int = 1,
-                       expm_budget: str = "auto", rescue: Optional[dict] = None,
+                       expm_budget: str = "auto", kinv: Optional[str] = None,
+                       warm_kinv: Optional[bool] = None, rescue: Optional[dict] = None,
                        record: bool = False, noise: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None,
                        model_update_fn: Optional[Callable] = None,
@@ -209,6 +226,13 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
     :param reps: total runs; the first pays one-time costs (the kernel
         build) and is reported as first_run_s, the rate uses the best of
         the others (of the first when reps = 1).
+    :param kinv, warm_kinv: the K-inverse of both phases and the steady
+        K-inverse carry (`make_runner`); None = the preset's defaults. The
+        metrics report the resolved "kinv" (the steady phase's), "warm_kinv"
+        (config.qp_warm_kinv) and, on the last run, the carry's
+        "kinv_warm_solves" and "kinv_guard_cold" (lanes whose carried
+        inverse failed the guard and restarted cold; both 0 without the
+        carry, which runs only on the boxqp_big route).
     :param rescue: None, or {"threshold": fid, "scenario": Scenario} of a
         per-lane rescue pass (`rescue_pass`) after the last run. Rates and
         times stay the main pass's; the rescue's cost is rescue_s.
@@ -237,7 +261,7 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
         # the complex condensed products need full f32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    runner = make_runner(sc, plants, expm_budget)
+    runner = make_runner(sc, plants, expm_budget, kinv=kinv, warm_kinv=warm_kinv)
     args = (sc.x0, sc.model, plants, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf)
     run_kw = dict(record=record, noise=noise, generator=generator,
                   model_update_fn=model_update_fn, observe_fn=observe_fn)
@@ -259,8 +283,11 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
     best = min(rep_s) if rep_s else first_s
     fid = fleet_fidelity(sc, out["final_x"])
     rescue_info = {} if rescue is None else rescue_pass(sc, rescue, plants, out, fid,
-                                                        expm_budget)
+                                                        expm_budget, kinv=kinv,
+                                                        warm_kinv=warm_kinv)
     codes = out["exit_code"].cpu().numpy()
+    kinv_counts = ([0, 0] if runner.kinv_counts is None
+                   else [int(c) for c in runner.kinv_counts.cpu()])
     steady = runner.steady_qp_params
     warm = runner.config.qp_params
     metrics = {
@@ -283,12 +310,15 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
         "qp_kernel": runner.qp_kernel,
         # the reference's keys: where the QP and the plant step run (the
         # wrappers run their plain versions on a CPU tensor), the carried
-        # duals, the LQR seed and the K-inverse carry (not ported)
+        # duals, the LQR seed and the K-inverse carry
         "qp_impl": "cuda" if device.type == "cuda" else "plain",
         "plant_impl": "cuda" if device.type == "cuda" else "plain",
         "warm_duals": runner.carry_duals and runner.config.warm_start,
         "lqr_seed": bool(sc.config.lqr_seed),
-        "warm_kinv": False,
+        "warm_kinv": bool(runner.config.qp_warm_kinv),
+        "kinv": steady.kinv,
+        "kinv_warm_solves": kinv_counts[0],
+        "kinv_guard_cold": kinv_counts[1],
         "warm_sqp_iters": list(runner.warm_sqp_iters),
         "expm_budget": [runner.expm_taylor_k, runner.expm_max_squarings],
         **rescue_info,

@@ -14,7 +14,9 @@ import torch
 
 from .models.dmdc import DiscrepDMDc, DMDcModel, HistoryState, OnlineDMDc
 from .mpc.driver import MPCConfig
+from .mpc.embedded import EmbeddedPlant, EmbeddedProblem
 from .plants.base import Plant, complex_dtype
+from .plants.classical import ClassicalPlant, Rotor, VanDerPol
 from .plants.lindblad import LindbladPlant
 from .plants.quantum import QuantumPlant
 from .plants.synthesis import SynthesisPlant
@@ -110,3 +112,29 @@ def scenario_from_numpy(name: str, *, x0, A, X_targ, U_targ, Q, R, Qf, sat, du,
         target_state=target_state, config=MPCConfig(**cfg), plant=plant_from_numpy(plant),
         exit_below=exit_below, device=device, dtype=dtype)
     return sc, plant_from_numpy(plants).to(device, dtype)
+
+
+CLASSICAL_KINDS = {"VanDerPol": VanDerPol, "Rotor": Rotor}
+
+
+def classical_from_numpy(kind: str, param, substeps: int = 8, device="cuda",
+                         dtype: Optional[torch.dtype] = None) -> ClassicalPlant:
+    """A classical plant of `kind` (CLASSICAL_KINDS: the JAX package's
+    constructor names) with its parameter (Van der Pol's mu, the rotor's
+    epsilon; the JAX plant closes over it), a number for one plant or an
+    array (B,) for a lane batch, on `device` in `dtype`."""
+    plant = CLASSICAL_KINDS[kind](0.0, substeps=substeps, device=device, dtype=dtype)
+    return dataclasses.replace(plant, param=torch.as_tensor(
+        np.asarray(param, float), dtype=plant.param.dtype).to(device))
+
+
+def embedded_from_numpy(x0, model_A, X_targ, Q, Qf, plant: Optional[Plant] = None,
+                        device="cuda", dtype: Optional[torch.dtype] = None
+                        ) -> EmbeddedProblem:
+    """A JAX EmbeddedProblem's arrays (x0, model_A, X_targ, Q, Qf, real) as
+    the port's, on `device` in `dtype` (presets.default_dtype when None);
+    `plant`, the complex plant, is wrapped in EmbeddedPlant as it is."""
+    dtype = default_dtype(device, dtype)
+    t = lambda a: torch.tensor(np.asarray(a, float), dtype=dtype, device=device)
+    return EmbeddedProblem(x0=t(x0), model_A=t(model_A), X_targ=t(X_targ), Q=t(Q), Qf=t(Qf),
+                           plant=None if plant is None else EmbeddedPlant(plant))

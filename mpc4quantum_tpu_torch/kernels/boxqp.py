@@ -14,11 +14,14 @@ from __future__ import annotations
 
 import torch
 
-from ..solvers.boxqp import BoxQPAux, BoxQPParams, accept_rule, solve_boxqp_fixed
+from ..solvers.boxqp import (BoxQPAux, BoxQPParams, FixedSolve, accept_rule,
+                             solve_boxqp_fixed)
 from . import _build
 from .admm_big import admm_big
 
 MAX_N = 16
+# the rows of boxqp_small's aux buffer (csrc/boxqp_small.cu), BoxQPAux's fields
+AUX_ROWS = 8
 
 
 def _params(iters, rounds, rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs, acc_rel,
@@ -54,7 +57,7 @@ def boxqp_small_ref(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int,
     :return: (z (B, n), y (B, n), BoxQPAux)."""
     params = _params(iters, rounds, rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs,
                      acc_rel, kinv="gj", scale=scale)
-    return solve_boxqp_fixed(P, q, lb, ub, x0=x0, y0=y0, rho0=rho0, params=params)
+    return solve_boxqp_fixed(P, q, lb, ub, x0=x0, y0=y0, rho0=rho0, params=params)[:3]
 
 
 def boxqp_small(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int, rounds: int,
@@ -100,7 +103,7 @@ def boxqp_small(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int, rounds
     ptr = lambda t: None if t is None else t.data_ptr()
     z = torch.empty((B, n), dtype=torch.float32, device=P.device)
     y = torch.empty((B, n), dtype=torch.float32, device=P.device)
-    aux = torch.empty((len(BoxQPAux._fields), B), dtype=torch.float32, device=P.device)
+    aux = torch.empty((AUX_ROWS, B), dtype=torch.float32, device=P.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(P.device).cuda_stream
     rc = lib.mpc4q_boxqp_small(
@@ -119,19 +122,31 @@ def boxqp_big(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int, rounds: 
               rho_scale: float = 0.1, sigma: float = 1e-6, alpha: float = 1.6,
               eps_abs: float = 1e-6, eps_rel: float = 1e-6, acc_abs: float = 1e-3,
               acc_rel: float = 1e-3, scale: bool = False, kinv_method: str = "ns",
-              ns_iters: int = 30, kinv0=None, lqr_data=None):
+              ns_iters: int = 30, ns_refresh: int = 10, ns_guard: float = 0.9,
+              ns_polish: int = 1, kinv0=None, lqr_data=None) -> FixedSolve:
     """Solve B box QPs of any size up to admm_big.MAX_N: the host side of
     `boxqp_pallas_big`, batched over lanes. Each round forms K = P +
-    (sigma + rho) I, inverts it in plain torch (`kinv_method` "gj" or "ns"
-    with `ns_iters`), runs `iters` ADMM steps in one `admm_big` launch, and
-    takes the residuals, the acceptance test and the rho rebalance.
+    (sigma + rho) I, inverts it in plain torch, runs `iters` ADMM steps in
+    one `admm_big` launch, and takes the residuals, the acceptance test and
+    the rho rebalance (solvers/boxqp.solve_boxqp_fixed with the kernel as
+    its ADMM loop).
 
-    Arguments and return value as `boxqp_small`; the returned rho stays in
-    the solver's space. `kinv0` and `lqr_data` (the reference's K-inverse
-    carry and Riccati inverse) are not ported and raise.
+    :param kinv_method: "gj", "ns" (`ns_iters` cold steps, or `ns_refresh`
+        from `kinv0` under the `ns_guard` contraction guard), "riccati" or
+        "riccati_pscan" (the exact inverse of `lqr_data`'s factorization
+        and `ns_polish` steps on round 1, `ns_refresh` on later rounds).
+    :param kinv0: optional (B, n, n) K-inverse carried from the previous
+        solve (its FixedSolve.kinv).
+    :param lqr_data: the real-embedded LTV problem that built P
+        (solve_boxqp_fixed), for the Riccati methods.
+    Other arguments as `boxqp_small`; the returned rho stays in the
+    solver's space.
+    :return: FixedSolve (z, y, aux, the last round's K-inverse, the lanes
+        whose carried inverse fell back to the cold init).
     """
     params = _params(iters, rounds, rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs,
-                     acc_rel, kinv=kinv_method, ns_iters=ns_iters, scale=scale)
+                     acc_rel, kinv=kinv_method, ns_iters=ns_iters, ns_refresh=ns_refresh,
+                     ns_guard=ns_guard, ns_polish=ns_polish, scale=scale)
     return solve_boxqp_fixed(P, q, lb, ub, x0=x0, y0=y0, rho0=rho0, params=params,
                              kinv0=kinv0, lqr_data=lqr_data, admm=admm_big)
 

@@ -2,9 +2,9 @@
 mpc4quantum_tpu/models/training.py): offline DMDc fits over a grid of
 rcond values, the best chosen by closed-loop rollout prediction loss; the
 candidates are fit and rolled out together, batched over the grid. The fit
-runs in float64 whatever the data's dtype: in float32 the sweep's pinv
-inverts rounding, and on a qubit's Blackman-drive data its least loss
-stays above 1e-3."""
+runs in float64 (complex128 on complex data) whatever the data's dtype:
+in float32 the sweep's pinv inverts rounding, and on a qubit's
+Blackman-drive data its least loss stays above 1e-3."""
 
 from __future__ import annotations
 
@@ -47,11 +47,12 @@ def train_model(X2: torch.Tensor, X1: torch.Tensor, UL1: torch.Tensor, rconds=No
     :param UL1: (dim_lift, n) lifted controls aligned with X1; the model's
         input is krtimes(UL1, X1).
     :param rconds: the grid (default logspace(-6, -1, 10)).
-    :return: (the best DiscrepDMDc, in the data's dtype, its rcond as a
-        float, the float64 losses (R,)).
+    :return: (the best DiscrepDMDc, in the data's dtype (real snapshots
+        give a real model), its rcond as a float, the float64 losses (R,)).
     """
     real = X1.real.dtype
-    X2, X1 = X2.to(torch.complex128), X1.to(torch.complex128)
+    wide = torch.complex128 if X1.is_complex() or X2.is_complex() else torch.float64
+    X2, X1 = X2.to(wide), X1.to(wide)
     UL1 = UL1.to(torch.float64)
     if rconds is None:
         rconds = torch.logspace(-6, -1, 10, dtype=torch.float64)

@@ -75,6 +75,10 @@ class MPCConfig:
     # start from the clipped LQR rollout of the step-0 linearization
     # (`lqr_seed_guess`) instead of repeat(lift(x0)) and zero controls
     lqr_seed: bool = False
+    # carry each steady solve's K-inverse into the next one's Newton-Schulz
+    # refresh (the preset fleets' runner, the boxqp_big route only; mpc()
+    # and batched_mpc ignore it, as the reference's mpc() does)
+    qp_warm_kinv: bool = False
 
 
 class Carry(NamedTuple):

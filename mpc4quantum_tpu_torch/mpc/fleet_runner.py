@@ -25,7 +25,18 @@ the clipped affine LQR, qp_backend "chol" the adaptive Cholesky ADMM (both
 plain PyTorch, as the reference computes them outside its kernels), "ns"
 the kernel route above. The preset fleets (benchfleet.make_runner) run "ns"
 (the reference's HostLoopMPC with qp_impl="pallas"); `mpc()` and
-`batched_mpc` (below) run the config they are given.
+`batched_mpc` (below) run the config they are given, without the carry.
+
+The K-inverse carry (config.qp_warm_kinv, on the `boxqp_big` route of the
+condensed QP only): each steady solve starts its Newton-Schulz inverse from
+the inverse the previous steady solve ended with, under the contraction
+guard (solvers/boxqp.solve_boxqp_fixed's kinv0), as HostLoopMPC does. The
+first steady solve, and with measure_freq = m > 1 every solve at a step
+divisible by m (its linearization jumps with the measurement), start cold.
+An accepted solve hands its inverse on; a failed one and a done lane keep
+the carried one. The carry is loop state: checkpoints hold it. The runner
+counts the warm-started solves and the lanes whose guard fell back to the
+cold init (`kinv_counts`).
 
 All state stays on the plants' device; the loop makes no host copy. With a
 checkpoint path, every `checkpoint_every` steps the whole loop state (carry,
@@ -36,6 +47,7 @@ from it and returns what the uninterrupted run returns.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -66,7 +78,7 @@ class FleetRunner:
     def __init__(self, config: MPCConfig, sat: float, du: Optional[float] = None,
                  warm_sqp_iters: Sequence[int] = (12,),
                  steady_qp_params: Optional[BoxQPParams] = None,
-                 expm_taylor_k: int = 18, expm_max_squarings: int = 12,
+                 expm_taylor_k: Optional[int] = 18, expm_max_squarings: Optional[int] = 12,
                  exit_condition: Optional[Callable] = None, carry_duals: bool = True,
                  early_exit: bool = False):
         """:param warm_sqp_iters: SQP iterations of each warm step; steps past
@@ -74,7 +86,8 @@ class FleetRunner:
         :param steady_qp_params: QP budget of the steady (single-shot)
             steps; None = config.qp_params.
         :param expm_taylor_k, expm_max_squarings: the plant expm's budget
-            (benchfleet sizes it from a norm bound).
+            (benchfleet sizes it from a norm bound; None for a plant that
+            steps without an expm).
         :param exit_condition: None, or the scenario's batched
             (x_next, x_cur, u) -> (B,) bool; a lane where it holds ends
             with exit code 1.
@@ -103,11 +116,19 @@ class FleetRunner:
         # what solves a step: the kernel "small" or "big", or plain "chol" or "lqr"
         self.qp_kernel = ("lqr" if config.solver == "lqr" else
                           kernel if config.qp_backend == "ns" else config.qp_backend)
+        # the steady K-inverse carry: on the big kernel's route only (the
+        # small kernel inverts inside the kernel)
+        self.carry_kinv = bool(config.qp_warm_kinv and self.qp_kernel == "big")
         # seconds of each checkpoint written by the last run
         self.checkpoint_seconds: list = []
+        # the last run's (2,) int64 counts on its device: steady solves
+        # warm-started from the carried K-inverse, and lanes of them (not
+        # done) whose guard fell back to the cold init; None without the carry
+        self.kinv_counts: Optional[torch.Tensor] = None
 
     def _sqp_iter(self, s: SQPState, ctx: StepContext, bmodel: BilinearModel, Q_s, R_s,
-                  qp: BoxQPParams, single_shot: bool) -> SQPState:
+                  qp: BoxQPParams, single_shot: bool, kinv0=None):
+        """One SQP iteration of every lane: (the new state, the QP result)."""
         H = self.config.horizon
         A_s, B_s, D_s = model_along_traj(bmodel, s.Xg[:, :, :H], s.Ug)
         if self.qp_kernel == "lqr":
@@ -125,10 +146,10 @@ class FleetRunner:
             res = quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s, D_s,
                                ctx.u_prev, self.sat, self.du, U_warm=s.Ug, params=qp,
                                backend=self.config.qp_backend, Y_warm=s.y if seeded else None,
-                               rho_warm=s.rho if seeded else None)
+                               rho_warm=s.rho if seeded else None, kinv0=kinv0)
         s_new = sqp_update_from_qp(s, res, ctx.X_ref, ctx.U_ref, Q_s, R_s,
                                    single_shot, self.config.step_tol)
-        return select(s.done, s, s_new)
+        return select(s.done, s, s_new), res
 
     def run(self, x0: torch.Tensor, model, plants: Plant,
             X_targ: torch.Tensor, U_targ: torch.Tensor, Q: torch.Tensor,
@@ -186,7 +207,7 @@ class FleetRunner:
         if noise is None and generator is not None:
             draw = lambda: torch.randn((cfg.n_steps, B, n_obs), generator=generator,
                                        dtype=rdtype, device=dev)
-            noise = torch.complex(draw(), draw())
+            noise = draw() if plants.real_state else torch.complex(draw(), draw())
         if noise is None and sigma is not None and bool((sigma != 0).any()):
             raise ValueError("plants with measurement noise (sigma > 0) need `noise` or "
                              "a `generator`")
@@ -196,10 +217,15 @@ class FleetRunner:
                                  f"{(cfg.n_steps, B, n_obs)}")
             noise = noise.to(dev, plants.dtype)
         streaming = cfg.streaming and model_update_fn is not None
+        if streaming and not plants.streaming_ok:
+            raise ValueError(f"{type(plants).__name__}: streaming model refits are not "
+                             "supported on this plant kind")
         model = models_to(model, dev)
         if streaming and model.A.dim() == 2:
             model = tile_lanes(model, B)
-        Q_s = torch.cat([Q.expand(H, -1, -1), Qf[None]], dim=0)
+        # the state costs in the model's dtype (complex for a quantum model,
+        # real for a classical or real-embedded one), as the reference's mpc()
+        Q_s = torch.cat([Q.expand(H, -1, -1), Qf[None]], dim=0).to(dev, model.A.dtype)
         R_s = R.expand(H, -1, -1)
         lx0 = plants.lift(x0)
         X_guess = lx0[:, :, None].expand(-1, -1, H + 1).clone()
@@ -223,14 +249,21 @@ class FleetRunner:
                    torch.zeros((B, n), dtype=torch.int32, device=dev),                 # iters
                    torch.zeros((B, n), dtype=torch.bool, device=dev))                  # active
             rec[0][:, :, 0] = x0
+        # the K-inverse carry: None until the first steady solve and after
+        # each cold re-entry; kinv_counts as documented on the attribute
+        kinv, kinv_counts = None, None
+        if self.carry_kinv:
+            kinv_counts = torch.zeros(2, dtype=torch.int64, device=dev)
         start = 0
         self.checkpoint_seconds = []
         checkpointing = bool(checkpoint_path) and checkpoint_every > 0
         if checkpoint_path and resume and os.path.exists(checkpoint_path):
-            state = restore_checkpoint(checkpoint_path, self._state(0, carry, duals, model,
-                                                                    noise, rec))
-            start, carry, duals, model, noise, rec = self._unpack(state)
+            state = restore_checkpoint(checkpoint_path, self._state(
+                0, carry, duals, model, noise, rec, self._kinv_slot(None, kinv_counts, B, rdtype)))
+            start, carry, duals, model, noise, rec, kinv, kinv_counts = self._unpack(state)
         bmodel = bilinear_model(model, cfg)
+        # measurement-aligned cold re-entry of the carry
+        kinv_m = cfg.measure_freq if self.carry_kinv else 0
 
         def plant_step(x_true, u):
             return plants.step(x_true, u, cfg.dt, self.expm_taylor_k, self.expm_max_squarings)
@@ -247,16 +280,21 @@ class FleetRunner:
                       f"elapsed={elapsed:.1f}s", file=sys.stderr, flush=True)
                 last_beat = step
             warm = step <= 1 if cfg.warm_start else True
+            if kinv_m > 1 and step % kinv_m == 0:
+                kinv = None
             ctx = context(carry, step, cfg, X_targ, U_targ, plants)
             s = sqp_init(carry, duals)
             if warm:
                 n_it = self.warm_sqp_iters[min(step, len(self.warm_sqp_iters) - 1)]
                 for it in range(n_it):
-                    s = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, cfg.qp_params, False)
+                    s, _ = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, cfg.qp_params, False)
                     if self.early_exit and it + 1 < n_it and host_flag(s.done.all()):
                         break
             else:
-                s = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, self.steady_qp_params, True)
+                s, res = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, self.steady_qp_params, True,
+                                        kinv0=kinv)
+                if self.carry_kinv:
+                    kinv = self._carry_kinv(kinv, res, carry.done, kinv_counts)
             if record:
                 rec[1][:, :, step], rec[2][:, step], rec[3][:, step], rec[4][:, step] = \
                     record_row(carry, s)
@@ -272,9 +310,11 @@ class FleetRunner:
                     and step + 1 < cfg.n_steps):
                 t0 = time.perf_counter()
                 save_checkpoint(checkpoint_path,
-                                self._state(step + 1, carry, duals, model, noise, rec))
+                                self._state(step + 1, carry, duals, model, noise, rec,
+                                            self._kinv_slot(kinv, kinv_counts, B, rdtype)))
                 self.checkpoint_seconds.append(time.perf_counter() - t0)
                 last_saved = step + 1
+        self.kinv_counts = kinv_counts
         out = {"final_x": carry.x_cur, "exit_code": carry.exit_code, "model_state": model}
         if record:
             xs, us, objs, iters, active = rec
@@ -285,15 +325,46 @@ class FleetRunner:
         return out
 
     @staticmethod
-    def _state(step: int, carry, duals, model, noise, rec) -> dict:
+    def _carry_kinv(kinv, res: QPResult, done, counts):
+        """The carry after a steady solve: its inverse where the solve was
+        accepted on a lane not done, else the carried one (all of its
+        inverse after a cold entry); where the solve started from the carry
+        (an exact inverse makes it moot), `counts` gains the warm start and
+        its guard's cold fallbacks, in place."""
+        if kinv is None:
+            return res.kinv
+        if res.guard_cold is not None:
+            counts[0] += 1
+            counts[1] += (res.guard_cold & ~done).sum()
+        keep = (done | ~res.converged)[:, None, None]
+        return torch.where(keep, kinv, res.kinv)
+
+    def _kinv_slot(self, kinv, counts, B: int, dtype: torch.dtype):
+        """The carry as checkpoint leaves: (inverse, whether it is set,
+        counts); an unset carry is saved as zeros. None without the carry."""
+        if not self.carry_kinv:
+            return None
+        n = self.config.horizon * self.config.dim_u
+        dev = counts.device
+        if kinv is None:
+            return (torch.zeros((B, n, n), dtype=dtype, device=dev),
+                    torch.tensor(False, device=dev), counts)
+        return kinv, torch.tensor(True, device=dev), counts
+
+    @staticmethod
+    def _state(step: int, carry, duals, model, noise, rec, kinv_slot=None) -> dict:
         """The loop state a checkpoint holds."""
         return {"step": torch.tensor(step), "carry": carry, "duals": duals, "model": model,
-                "noise": noise, "record": rec}
+                "noise": noise, "record": rec, "kinv": kinv_slot}
 
     @staticmethod
     def _unpack(state: dict):
+        kinv, counts = None, None
+        if state["kinv"] is not None:
+            inv, is_set, counts = state["kinv"]
+            kinv = inv if bool(is_set) else None
         return (int(state["step"]), state["carry"], state["duals"], state["model"],
-                state["noise"], state["record"])
+                state["noise"], state["record"], kinv, counts)
 
 
 def batched_mpc(x0, model_state, plants: Plant, X_targ, U_targ, Q, R, Qf,
@@ -308,6 +379,8 @@ def batched_mpc(x0, model_state, plants: Plant, X_targ, U_targ, Q, R, Qf,
     is done (a host read of the lanes' done flags after each iteration),
     steady QPs cold unless config.qp_warm_duals, the QP route of
     config.solver and config.qp_backend, per-lane exit codes.
+    config.qp_warm_kinv is ignored, as the reference's mpc() ignores it:
+    the K-inverse carry is the preset fleets' (benchfleet.make_runner).
 
     :param x0: (dim_e,) shared or (B, dim_e) per lane.
     :param plants: a lane batch (leading axis B).
@@ -316,8 +389,11 @@ def batched_mpc(x0, model_state, plants: Plant, X_targ, U_targ, Q, R, Qf,
     :return: MPCResult with a leading lane axis on every field but the
         model's, which keeps the lane axis only where it was refit per lane.
     """
-    taylor_k, max_sq = taylor_budget(plants.norm_bound(config.dt, sat))
-    runner = FleetRunner(config, float(sat), du=du, warm_sqp_iters=(config.max_iter,),
+    # a plant that steps without an expm (classical RK4) has no budget
+    taylor_k, max_sq = (taylor_budget(plants.norm_bound(config.dt, sat)) if plants.uses_expm
+                        else (None, None))
+    runner = FleetRunner(dataclasses.replace(config, qp_warm_kinv=False), float(sat), du=du,
+                         warm_sqp_iters=(config.max_iter,),
                          expm_taylor_k=taylor_k, expm_max_squarings=max_sq,
                          exit_condition=exit_condition, carry_duals=config.qp_warm_duals,
                          early_exit=True)

@@ -13,7 +13,6 @@ import torch
 from ..mpc.driver import MPCResult
 from ..mpc.fleet_runner import batched_mpc
 from ..plants.base import Plant
-from ..plants.lindblad import LindbladPlant
 
 __all__ = ["make_scenario_batch", "batched_mpc", "fleet_summary"]
 
@@ -21,10 +20,11 @@ __all__ = ["make_scenario_batch", "batched_mpc", "fleet_summary"]
 def make_scenario_batch(base_plant: Plant, n: int, detune_scale: float = 0.01,
                         generator: Optional[torch.Generator] = None,
                         device=None, dtype: Optional[torch.dtype] = None) -> Plant:
-    """n plants with the coherent drift scaled by (1 + eps),
-    eps ~ N(0, detune_scale^2): H0 of a quantum or synthesis plant, AH0 of
-    a Lindblad plant, whose dissipator AD stays physical. The drive is left
-    as it is.
+    """n plants with the kind's drift field (`Plant.drift`) scaled by
+    (1 + eps), eps ~ N(0, detune_scale^2): H0 of a quantum or synthesis
+    plant, AH0 of a Lindblad plant, whose dissipator AD stays physical, a
+    classical plant's parameter; a wrapper (the real-embedded plant) passes
+    the draw to the plant it wraps. The drive is left as it is.
 
     The draws are made in float64 by a CPU generator and only then moved to
     `device` in `dtype` (the real dtype; by default the base plant's device
@@ -39,13 +39,17 @@ def make_scenario_batch(base_plant: Plant, n: int, detune_scale: float = 0.01,
         t = t.to("cpu", torch.complex128 if t.is_complex() else torch.float64)
         return t.expand(n, *t.shape).clone()
 
-    # the tensor fields; a plant's settings (its measurement adapter) carry over
-    fields = {name: lanes(t) for name, t in base_plant.tensor_fields().items()}
-    drift = "AH0" if isinstance(base_plant, LindbladPlant) else "H0"
-    fields[drift] = fields[drift] * (1.0 + eps)[:, None, None]
-    return dataclasses.replace(base_plant, **fields).to(
-        base_plant.device if device is None else device,
-        base_plant.real_dtype if dtype is None else dtype)
+    def batch(plant: Plant) -> Plant:
+        # the tensor fields; a plant's settings (its measurement adapter) carry over
+        fields = {name: batch(t) if isinstance(t, Plant) else lanes(t)
+                  for name, t in plant.tensor_fields().items()}
+        if plant.drift is not None:
+            t = fields[plant.drift]
+            fields[plant.drift] = t * (1.0 + eps).reshape((n,) + (1,) * (t.dim() - 1))
+        return dataclasses.replace(plant, **fields)
+
+    return batch(base_plant).to(base_plant.device if device is None else device,
+                                base_plant.real_dtype if dtype is None else dtype)
 
 
 def fleet_summary(result: MPCResult, target) -> dict:

@@ -43,6 +43,8 @@ class LindbladPlant(Plant):
     A1s: torch.Tensor
     sigma: torch.Tensor
 
+    drift = "AH0"
+
     @classmethod
     def create(cls, H0, H1s, c_ops=(), sigma: float = 0.0) -> "LindbladPlant":
         """From (d, d) Hamiltonians and collapse operators L_k, in complex128."""

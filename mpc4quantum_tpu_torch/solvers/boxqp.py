@@ -1,7 +1,9 @@
 """Box-QP solvers for batches of lanes (counterpart of
-mpc4quantum_tpu/solvers/boxqp.py): the fixed-budget `solve_boxqp_fixed`, with
-the `kinv="gj"` and cold `kinv="ns"` inverses and the Jacobi-scaled form,
-and the adaptive Cholesky ADMM `solve_boxqp` (below).
+mpc4quantum_tpu/solvers/boxqp.py): the fixed-budget `solve_boxqp_fixed`,
+with the K-inverse of each round by Gauss-Jordan, by Newton-Schulz (cold,
+or warm-started from a carried inverse under a contraction guard) or by
+the Riccati factorization of the un-condensed problem, and the Jacobi-scaled
+form; and the adaptive Cholesky ADMM `solve_boxqp` (below).
 
 The fixed-budget solver solves, per lane b,
 min 1/2 x^T P_b x + q_b^T x  s.t.  lb_b <= x <= ub_b, with `n_rounds`
@@ -11,11 +13,10 @@ rounds of exactly `max_iter` relaxed OSQP-style iterations:
     z  = clip(alpha x~ + (1-alpha) z + y/rho, lb, ub)
     y  = y + rho (alpha x~ + (1-alpha) z_old - z)
 
-with the inverse taken each round by unpivoted Gauss-Jordan or by a cold
-Newton-Schulz chain, and rho rebalanced between rounds by the OSQP residual
-rule, frozen once the round passes the acceptance test. With `scale` the QP
-is solved in Jacobi-equilibrated coordinates and the residuals are reported
-in the original ones. This is the plain version of both box-QP kernels
+with rho rebalanced between rounds by the OSQP residual rule, frozen once
+the round passes the acceptance test. With `scale` the QP is solved in
+Jacobi-equilibrated coordinates and the residuals are reported in the
+original ones. This is the plain version of both box-QP kernels
 (kernels/boxqp.py): the same algorithm in the same order.
 """
 
@@ -28,8 +29,9 @@ import torch
 
 from ..utils.linalg import gj_inverse
 from ..utils.profiling import host_flag
+from .riccati import KINV_RICCATI, riccati_kinv_batch
 
-KINV_METHODS = ("gj", "ns")
+KINV_METHODS = ("gj", "ns") + KINV_RICCATI
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,16 +51,21 @@ class BoxQPParams:
     # acceptance thresholds: a solve is declared failed only beyond these
     accept_abs: float = 1e-3
     accept_rel: float = 1e-3
-    # Newton-Schulz iterations of the "ns" K-inverse
+    # Newton-Schulz iterations of the cold "ns" K-inverse
     ns_iters: int = 30
-    # the carried-inverse refresh (kinv0) and its contraction guard; not
-    # ported: `check_ported` refuses values other than these
+    # Newton-Schulz iterations of a warm-started inverse: the refresh from
+    # a carried inverse (kinv0) and from the previous round's rescaled one
     ns_refresh: int = 10
+    # the carried inverse X0 is kept where ||I - K X0||_inf < ns_guard, else
+    # that lane restarts from the cold init (at the refresh budget it will
+    # not converge; the acceptance test flags the solve)
     ns_guard: float = 0.9
-    # K-inverse of each round: "gj" Gauss-Jordan, "ns" cold Newton-Schulz;
-    # the reference's "riccati" and "riccati_pscan" are not ported
+    # K-inverse of each round: "gj" Gauss-Jordan, "ns" Newton-Schulz,
+    # "riccati" / "riccati_pscan" the Riccati factorization of the LTV
+    # problem that built P (solvers/riccati.py; needs lqr_data) on round 1,
+    # refreshed by Newton-Schulz on later rounds
     kinv: str = "ns"
-    # Newton-Schulz polish of the Riccati inverse; not ported with it
+    # Newton-Schulz polish steps on the Riccati inverse
     ns_polish: int = 1
     # Jacobi equilibration: solve in x' = x / d, d = diag(P)^-1/2
     scale: bool = False
@@ -78,7 +85,8 @@ class BoxQPResult(NamedTuple):
 
 class BoxQPAux(NamedTuple):
     """Per-lane (B,) residual statistics of a solve, in the kernel's aux row
-    order: final primal/dual residuals, the inf-norm scalings, and the final
+    order (boxqp_small's output buffer has exactly these rows): final
+    primal/dual residuals, the inf-norm scalings, and the final
     (post-rebalance) rho - the warm value for the next solve. With `scale`
     the statistics are in the original coordinates and rho stays in the
     solver's (scaled) space."""
@@ -93,21 +101,19 @@ class BoxQPAux(NamedTuple):
     rho: torch.Tensor
 
 
-# fields that tune only the K-inverse carry and the Riccati inverse
-UNPORTED_FIELDS = ("ns_refresh", "ns_guard", "ns_polish")
+class FixedSolve(NamedTuple):
+    """What a fixed-budget solve returns: the box-feasible solution z and
+    the dual y (B, n), unscaled; the residual statistics; the last round's
+    K-inverse (B, n, n) in the solve's own (with `scale`, Jacobi-scaled)
+    coordinates, the next solve's `kinv0`; and the lanes whose carried
+    inverse failed the contraction guard and restarted from the cold init
+    ((B,) bool; None when no inverse was carried in)."""
 
-
-def check_ported(params: BoxQPParams):
-    """Raise NotImplementedError where `params` asks for what the port does
-    not have: kinv "riccati" / "riccati_pscan", or a K-inverse carry or
-    Riccati option (ns_refresh, ns_guard, ns_polish) away from its default."""
-    if params.kinv in ("riccati", "riccati_pscan"):
-        raise NotImplementedError(f"kinv={params.kinv!r} (the Riccati K-inverse) is not ported "
-                                  "yet; see ROADMAP.md")
-    changed = [f for f in UNPORTED_FIELDS if getattr(params, f) != getattr(BoxQPParams, f)]
-    if changed:
-        raise NotImplementedError(f"{', '.join(changed)} tune the K-inverse carry and the "
-                                  "Riccati inverse, which are not ported yet; see ROADMAP.md")
+    z: torch.Tensor
+    y: torch.Tensor
+    aux: BoxQPAux
+    kinv: torch.Tensor
+    guard_cold: Optional[torch.Tensor] = None
 
 
 def accept_thresholds(xmax, zmax, pxmax, qmax, ymax,
@@ -152,19 +158,37 @@ def jacobi_scale_boxqp(P, q, lb, ub, x0=None, y0=None):
             None if y0 is None else y0 * d, d)
 
 
-def ns_inverse(K, iters: int = 30, X0=None):
-    """Inverse of a batch of SPD matrices (..., n, n) by the cold
-    Newton-Schulz iteration X <- X (2I - K X) from X = K^T / (||K||_1
-    ||K||_inf), which contracts for SPD K. Matmuls only."""
-    if X0 is not None:
-        raise NotImplementedError("the warm-started Newton-Schulz inverse (X0) is not ported")
+def _ns_inverse(K, iters: int, X0=None, guard: float = 0.5):
+    """`ns_inverse`, with the (...,) bool mask of the elements that kept X0
+    (None without X0)."""
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     n1 = K.abs().sum(dim=-2).amax(dim=-1)
     ninf = K.abs().sum(dim=-1).amax(dim=-1)
     X = K.transpose(-1, -2) / (n1 * ninf)[..., None, None]
+    kept = None
+    if X0 is not None:
+        # induced inf-norm of the residual: the largest row sum of |I - K X0|
+        r0 = (eye - K @ X0).abs().sum(dim=-1).amax(dim=-1)
+        kept = r0 < guard
+        X = torch.where(kept[..., None, None], X0.to(K.dtype), X)
     for _ in range(iters):
         X = X @ (2.0 * eye - K @ X)
-    return X
+    return X, kept
+
+
+def ns_inverse(K, iters: int = 30, X0=None, guard: float = 0.5):
+    """Inverse of a batch of SPD matrices (..., n, n) by the Newton-Schulz
+    iteration X <- X (2I - K X), matmuls only. The cold init
+    X = K^T / (||K||_1 ||K||_inf) contracts for SPD K.
+
+    :param X0: optional warm start, the inverse of a nearby matrix (the
+        previous solve's). Each element keeps X0 where ||I - K X0||_inf <
+        guard and takes the cold init otherwise; from a kept X0 the
+        iteration converges quadratically from a residual below the guard.
+        A cold fallback at a refresh-sized `iters` does not converge: the
+        caller's acceptance test is the safety net.
+    """
+    return _ns_inverse(K, iters, X0, guard)[0]
 
 
 def _clip(v, lb, ub):
@@ -212,27 +236,44 @@ def _rebalance(rho, stats, keep, diag_scale):
 
 def solve_boxqp_fixed(P, q, lb, ub, x0=None, y0=None, rho0=None,
                       params: BoxQPParams | None = None, kinv0=None, lqr_data=None,
-                      admm: Optional[Callable] = None):
+                      admm: Optional[Callable] = None) -> FixedSolve:
     """Batched fixed-budget ADMM.
+
+    Each round's K-inverse, by params.kinv: "gj" the exact Gauss-Jordan
+    inverse; "riccati" / "riccati_pscan" the exact inverse of the Riccati
+    factorization of `lqr_data` on round 1 (plus params.ns_polish
+    Newton-Schulz steps), refreshed on later rounds by params.ns_refresh
+    steps from the previous inverse rescaled by (sigma + rho_old) /
+    (sigma + rho_new), which contracts since K changed by a multiple of I;
+    "ns" the cold Newton-Schulz chain of params.ns_iters steps, or with
+    `kinv0` params.ns_refresh steps from kinv0 on round 1 (lanes where it
+    fails the params.ns_guard contraction guard restart from the cold init)
+    and from the rescaled previous inverse on later rounds. The exact
+    inverses make kinv0 moot.
 
     :param P: (B, n, n) PSD (symmetrized here); q, lb, ub: (B, n).
     :param x0: optional (B, n) warm start, clipped into the box.
     :param y0: optional (B, n) dual warm start (None = zeros), unscaled.
     :param rho0: optional (B,) penalty warm start in the solver's space;
         lanes <= 0 take the cold default rho0 * mean(diag P).
-    :param kinv0, lqr_data: the K-inverse carry and the Riccati inverse of
-        the reference; not ported, they raise.
+    :param kinv0: optional (B, n, n) inverse carried from the previous
+        solve of a chain (its FixedSolve.kinv, in its scaled coordinates).
+    :param lqr_data: (Ar (B, H, m, m), Br (B, H, m, du), Qr (H+1, m, m),
+        Rr (H, du, du)), the real-embedded LTV problem whose condensed
+        Hessian is P (solvers/riccati.embed_ltv / embed_costs); needed by
+        the Riccati inverses.
     :param admm: the ADMM inner loop, with the signature of `admm_iters`
         (the default); kernels/boxqp.boxqp_big passes the CUDA kernel.
-    :return: (z (B, n) box-feasible solution, y (B, n) dual, BoxQPAux).
+    :return: FixedSolve (z, y, aux, kinv, guard_cold).
     """
     params = BoxQPParams() if params is None else params
-    if kinv0 is not None or lqr_data is not None:
-        raise NotImplementedError("the K-inverse carry (kinv0) and the Riccati inverse "
-                                  "(lqr_data) are not ported")
-    check_ported(params)
     if params.kinv not in KINV_METHODS:
-        raise NotImplementedError(f"kinv={params.kinv!r} is not ported; use one of {KINV_METHODS}")
+        raise ValueError(f"kinv={params.kinv!r} is not one of {KINV_METHODS}")
+    use_riccati = params.kinv in KINV_RICCATI
+    if use_riccati and lqr_data is None:
+        raise ValueError(f"kinv={params.kinv!r} needs the LTV problem (lqr_data) that built P")
+    if use_riccati or params.kinv == "gj":
+        kinv0 = None  # exact inverses: the carried one is moot
     admm = admm_iters if admm is None else admm
     B, n = q.shape
     P = 0.5 * (P + P.transpose(-1, -2))
@@ -246,9 +287,30 @@ def solve_boxqp_fixed(P, q, lb, ub, x0=None, y0=None, rho0=None,
     z = x
     y = torch.zeros_like(q) if y0 is None else y0
     sigma = params.sigma
-    for _ in range(params.n_rounds):
+    Kinv = rho_prev = guard_cold = None
+    for rnd in range(params.n_rounds):
         K = P + (sigma + rho)[:, None, None] * eye
-        Kinv = gj_inverse(K) if params.kinv == "gj" else ns_inverse(K, params.ns_iters)
+        if params.kinv == "gj":
+            Kinv = gj_inverse(K)
+        elif use_riccati and rnd == 0:
+            Ar, Br, Qr, Rr = (t.to(P.dtype) for t in lqr_data)
+            Kinv = riccati_kinv_batch(Ar, Br, Qr, Rr, rho, sigma, d=d,
+                                      pscan=params.kinv == "riccati_pscan")
+            for _ in range(params.ns_polish):
+                Kinv = Kinv @ (2.0 * eye - K @ Kinv)
+        elif rnd > 0 and (use_riccati or kinv0 is not None):
+            # K moved by (rho - rho_prev) I: the rescaled previous inverse
+            # contracts wherever it had converged (no guard can tell a large
+            # rho jump from a partial inverse; acceptance flags the rest)
+            c = torch.clamp((sigma + rho_prev) / (sigma + rho), max=1.0)
+            Kinv = ns_inverse(K, params.ns_refresh, X0=c[:, None, None] * Kinv,
+                              guard=float("inf"))
+        elif kinv0 is not None:
+            Kinv, kept = _ns_inverse(K, params.ns_refresh, X0=kinv0, guard=params.ns_guard)
+            guard_cold = ~kept
+        else:
+            Kinv = ns_inverse(K, params.ns_iters)
+        rho_prev = rho
         x, z, y = admm(Kinv, q, lb, ub, rho, x, z, y, iters=params.max_iter, sigma=sigma,
                        alpha=params.alpha)
         stats = _residual_stats(P, q, x, z, y, d)
@@ -257,7 +319,7 @@ def solve_boxqp_fixed(P, q, lb, ub, x0=None, y0=None, rho0=None,
         rho = _rebalance(rho, stats, accepted, diag_scale)
     if d is not None:
         z, y = d * z, y / d
-    return z, y, BoxQPAux(*stats, rho)
+    return FixedSolve(z, y, BoxQPAux(*stats, rho), Kinv, guard_cold)
 
 
 def solve_boxqp(P, q, lb, ub, x0=None, params: BoxQPParams | None = None, y0=None,
@@ -288,7 +350,6 @@ def solve_boxqp(P, q, lb, ub, x0=None, params: BoxQPParams | None = None, y0=Non
         accept_abs / accept_rel).
     """
     params = BoxQPParams() if params is None else params
-    check_ported(params)
     B, n = q.shape
     P = 0.5 * (P + P.transpose(-1, -2))
     d = None

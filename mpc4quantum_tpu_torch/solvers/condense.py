@@ -18,7 +18,8 @@ import torch
 
 from ..kernels.boxqp import MAX_N, boxqp_accept, boxqp_big, boxqp_small
 from ..utils.linalg import cx_mm
-from .boxqp import BoxQPParams, check_ported, solve_boxqp
+from .boxqp import BoxQPParams, solve_boxqp
+from .riccati import KINV_RICCATI, embed_costs, embed_ltv
 
 QP_BACKENDS = ("chol", "ns")
 
@@ -33,6 +34,11 @@ class QPResult(NamedTuple):
     y: Optional[torch.Tensor] = None
     rho: Optional[torch.Tensor] = None
     iters: Optional[torch.Tensor] = None  # (B,) ADMM iterations (chol only)
+    # the last round's K-inverse (B, n, n), the next solve's kinv0, and the
+    # lanes whose carried inverse restarted from the cold init ((B,) bool);
+    # on the boxqp_big route only
+    kinv: Optional[torch.Tensor] = None
+    guard_cold: Optional[torch.Tensor] = None
 
 
 def condense_horizon(A_s, B_s, Delta_s, x_init):
@@ -127,7 +133,7 @@ def objective_value(X, U, X_bm, U_bm, Q_s, R_s):
 
 def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, sat=None,
                  du=None, U_warm=None, params: BoxQPParams | None = None,
-                 backend: str = "chol", Y_warm=None, rho_warm=None) -> QPResult:
+                 backend: str = "chol", Y_warm=None, rho_warm=None, kinv0=None) -> QPResult:
     """Solve the lanes' LTV horizon tracking QPs (the reference's
     `quad_program`, batched).
 
@@ -141,28 +147,34 @@ def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, s
     :param U_warm: optional (B, dim_u, H) ADMM warm start.
     :param backend: "chol", the adaptive Cholesky ADMM (`solve_boxqp`); or
         "ns", the fixed-budget route of the fleets: the `boxqp_small`
-        kernel at n = H dim_u <= 16 (Gauss-Jordan inverse whatever
-        params.kinv says), `boxqp_big` above it (params.kinv "gj" or "ns").
+        kernel at n = H dim_u <= 16 (its Gauss-Jordan inverse whatever
+        params.kinv says), `boxqp_big` above it with params.kinv's
+        K-inverse; "riccati" / "riccati_pscan" factor the real embedding
+        of these A_s, B_s, Q_s, R_s. On "chol" and at n <= 16 params.kinv,
+        the Newton-Schulz budgets and `kinv0` are inert, as in the
+        reference's kernel routes.
     :param Y_warm: optional (B, H*dim_u) time-major dual warm start;
         rho_warm: optional (B,) penalty warm start (<= 0 = cold).
+    :param kinv0: optional (B, n, n) K-inverse carried from the previous
+        solve (its QPResult.kinv), refreshed under params.ns_guard.
     :return: QPResult with the exact rollout of the solved controls; `iters`
-        on the chol backend only.
+        on the chol backend only; `kinv` and `guard_cold` on boxqp_big.
     """
     if x_init.dim() == 1:
         one = lambda t: None if t is None or not torch.is_tensor(t) else t[None]
         res = quad_program(x_init[None], X_bm, U_bm, Q_s, R_s, A_s[None], B_s[None],
                            Delta_s[None], one(u_prev), sat, du, one(U_warm), params, backend,
                            one(Y_warm), None if rho_warm is None else torch.as_tensor(
-                               rho_warm, dtype=x_init.real.dtype, device=x_init.device).reshape(1))
+                               rho_warm, dtype=x_init.real.dtype, device=x_init.device).reshape(1),
+                           one(kinv0))
         return QPResult(*(None if t is None else t[0] for t in res))
     params = BoxQPParams() if params is None else params
     if backend not in QP_BACKENDS:
         raise ValueError(f"backend={backend!r} is not one of {QP_BACKENDS}")
-    check_ported(params)
     P, q, lb, ub, w, M = qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev,
                                  sat, du)
     x0 = None if U_warm is None else U_warm.transpose(1, 2).reshape(P.shape[0], -1).to(P.dtype)
-    iters = None
+    iters = kinv = guard_cold = None
     if backend == "chol":
         res = solve_boxqp(P, q, lb, ub, x0=x0, params=params, y0=Y_warm, rho0=rho_warm)
         z, y, rho, converged, iters = res.x, res.y, res.rho, res.converged, res.iters
@@ -172,13 +184,22 @@ def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, s
                   eps_rel=params.eps_rel, acc_abs=params.accept_abs,
                   acc_rel=params.accept_rel, scale=params.scale)
         if P.shape[-1] <= MAX_N:
-            solve = boxqp_small
+            z, y, aux = boxqp_small(P, q, lb, ub, x0=x0, y0=Y_warm, rho0=rho_warm, **kw)
         else:
-            solve = boxqp_big
-            kw.update(kinv_method=params.kinv, ns_iters=params.ns_iters)
-        z, y, aux = solve(P, q, lb, ub, x0=x0, y0=Y_warm, rho0=rho_warm, **kw)
+            lqr_data = None
+            if params.kinv in KINV_RICCATI:
+                # the same LTV data that built P, real-embedded
+                Ar, Br = embed_ltv(A_s, B_s)
+                Qr, Rr = embed_costs(Q_s, R_s)
+                lqr_data = tuple(t.to(P.dtype) for t in (Ar, Br, Qr, Rr))
+            z, y, aux, kinv, guard_cold = boxqp_big(
+                P, q, lb, ub, x0=x0, y0=Y_warm, rho0=rho_warm, kinv_method=params.kinv,
+                ns_iters=params.ns_iters, ns_refresh=params.ns_refresh,
+                ns_guard=params.ns_guard, ns_polish=params.ns_polish, kinv0=kinv0,
+                lqr_data=lqr_data, **kw)
         rho = aux.rho
         converged = boxqp_accept(aux, params.eps_abs, params.eps_rel, params.accept_abs,
                                  params.accept_rel)
     X_opt, U_opt, obj = qp_finish(w, M, z.to(P.dtype), X_bm, U_bm, Q_s, R_s)
-    return QPResult(X=X_opt, U=U_opt, obj=obj, converged=converged, y=y, rho=rho, iters=iters)
+    return QPResult(X=X_opt, U=U_opt, obj=obj, converged=converged, y=y, rho=rho, iters=iters,
+                    kinv=kinv, guard_cold=guard_cold)

@@ -19,6 +19,15 @@ def cx_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def complex_to_real_op(P: torch.Tensor) -> torch.Tensor:
+    """Complex operator (..., m, n) -> its real block embedding
+    [[Re, -Im], [Im, Re]] (..., 2m, 2n); a real operator embeds as
+    [[P, 0], [0, P]]."""
+    P = torch.as_tensor(P)
+    re, im = P.real, (P.imag if P.is_complex() else torch.zeros_like(P))
+    return torch.cat([torch.cat([re, -im], dim=-1), torch.cat([im, re], dim=-1)], dim=-2)
+
+
 def cx_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Batched solve A X = B for complex A through the real block embedding
     [[Re, -Im], [Im, Re]] and one real LU, as the reference solves it. A

@@ -113,8 +113,8 @@ def test_boxqp_big_matches_plain_solver(cuda, kinv):
     B, n = 300, 32
     P, q, lb, ub = qp_batch(B, n, seed=7, device=cuda, spread=1.0)
     kw = dict(iters=40, rounds=2, scale=True, kinv_method=kinv, ns_iters=20)
-    zk, yk, ak = boxqp_big(P, q, lb, ub, **kw)
-    zp, yp, ap = solve_boxqp_fixed(P, q, lb, ub, params=BoxQPParams(
+    zk, yk, ak, *_ = boxqp_big(P, q, lb, ub, **kw)
+    zp, yp, ap, *_ = solve_boxqp_fixed(P, q, lb, ub, params=BoxQPParams(
         max_iter=40, n_rounds=2, scale=True, kinv=kinv, ns_iters=20))
     torch.cuda.synchronize()
     torch.testing.assert_close(zk, zp, rtol=0, atol=1e-3 * max(1.0, float(zp.abs().max())))

@@ -9,8 +9,9 @@ and chip_smoke.py hold them against these plain versions there). Here:
     interpret mode, in float32;
   - admm_iters_ref against the large-n Pallas ADMM kernel in interpret mode,
     in float32;
-  - boxqp_big, ns_inverse and jacobi_scale_boxqp against their JAX
-    counterparts in float64;
+  - boxqp_big (with each K-inverse: Gauss-Jordan, Newton-Schulz cold and
+    from a carried inverse, Riccati), ns_inverse (cold and warm-started) and
+    jacobi_scale_boxqp against their JAX counterparts in float64;
   - expm_small_ref against the Pallas expm kernel run in interpret mode, in
     complex128 at tolerance 1e-10, in every form the fleets run (d = 2 at
     (12, 0) and (18, 12), d = 3 at (12, 2), d = 4 on Liouvillians at
@@ -81,6 +82,28 @@ def jax_solve(P, q, lb, ub, x0, y0, rho0, params):
         *map(jnp.asarray, (P, q, lb, ub, np.zeros((B, n)) if x0 is None else x0,
                            np.zeros((B, n)) if y0 is None else y0,
                            np.zeros(B) if rho0 is None else rho0)))
+
+
+def riccati_batch(B, H, dx, du, seed):
+    """B condensed box QPs of random complex LTV horizons with shared costs
+    (float64), and their real-embedded LQR data (Ar (B, H, m, m), Br, Qr,
+    Rr), as the reference's kernel route hands them to the inverse."""
+    from mpc4quantum_tpu_torch.solvers.condense import qp_data
+    from mpc4quantum_tpu_torch.solvers.riccati import embed_costs, embed_ltv
+
+    rng = np.random.default_rng(seed)
+    cx = lambda *shape: rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    A_s = torch.tensor(0.3 * cx(B, H, dx, dx) + np.eye(dx))
+    B_s = torch.tensor(0.5 * cx(B, H, dx, du))
+    W = cx(H + 1, dx, dx)
+    Q_s = torch.tensor(W @ np.conj(np.swapaxes(W, 1, 2)))
+    G = rng.normal(size=(H, du, du))
+    R_s = torch.tensor(G @ np.swapaxes(G, 1, 2) + 0.1 * np.eye(du))
+    P, q, lb, ub, _, _ = qp_data(torch.tensor(cx(B, dx)), torch.tensor(cx(dx, H + 1)),
+                                 torch.tensor(rng.normal(size=(du, H))), Q_s, R_s, A_s, B_s,
+                                 torch.zeros(B, H, dx, dtype=torch.complex128), sat=1.0)
+    lqr = embed_ltv(A_s, B_s) + embed_costs(Q_s, R_s)
+    return (P.numpy(), q.numpy(), lb.numpy(), ub.numpy(), tuple(t.numpy() for t in lqr))
 
 
 def assert_matches_jax(z, y, aux, ref, acc, tol):
@@ -215,10 +238,12 @@ def test_boxqp_big_matches_jax_solve_boxqp_fixed(kinv, scale, warm):
     ref = jax_solve(P, q, lb, ub, x0, y0, rho0, params)
     t = lambda a: None if a is None else torch.tensor(a)
     admm_big.launches = 0
-    z, y, aux = boxqp_big(t(P), t(q), t(lb), t(ub), t(x0), t(y0), t(rho0), iters=iters,
-                          rounds=rounds, acc_abs=acc, acc_rel=acc, scale=scale,
-                          kinv_method=kinv, ns_iters=30)
+    z, y, aux, kinv_out, guard_cold = boxqp_big(
+        t(P), t(q), t(lb), t(ub), t(x0), t(y0), t(rho0), iters=iters, rounds=rounds,
+        acc_abs=acc, acc_rel=acc, scale=scale, kinv_method=kinv, ns_iters=30)
     assert_matches_jax(z, y, aux, ref, acc, TOL)
+    np.testing.assert_allclose(kinv_out.numpy(), np.asarray(ref.kinv), rtol=0, atol=TOL)
+    assert guard_cold is None
     assert admm_big.launches == 0
     assert bool((((z - t(lb)).abs() < 1e-12) | ((z - t(ub)).abs() < 1e-12)).any())
 
@@ -310,13 +335,35 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="unsupported device"):
         admm_big(meta(P), *(meta(t) for t in (q, lb, ub, q[:, 0], q, q, q)), iters=1,
                  sigma=1e-6, alpha=1.6)
-    # what is not ported raises, naming it
-    with pytest.raises(NotImplementedError, match="kinv0"):
-        boxqp_big(P, q, lb, ub, iters=2, rounds=1, kinv0=P)
-    with pytest.raises(NotImplementedError, match="riccati"):
+    # the Riccati inverse without the LTV problem it factors raises, and
+    # does not fall back to Newton-Schulz
+    with pytest.raises(ValueError, match="lqr_data"):
         boxqp_big(P, q, lb, ub, iters=2, rounds=1, kinv_method="riccati")
-    with pytest.raises(NotImplementedError, match="warm-started Newton-Schulz"):
-        ns_inverse(P, iters=2, X0=P)
+    # the K-inverse options run as the reference's: the carried inverse
+    # (kinv0), the Riccati inverse and the warm-started Newton-Schulz (X0)
+    Pn, qn, lbn, ubn = (a.numpy() for a in (P, q, lb, ub))
+    params = JBoxQPParams(max_iter=2, n_rounds=2, unroll=False, ns_iters=30)
+    ref = jax_solve(Pn, qn, lbn, ubn, None, None, None, params)
+    kinv0 = ref.kinv + 1e-3 * np.eye(4)
+    ref_c = jax.vmap(lambda P, q, lb, ub, k0: solve_boxqp_fixed(
+        P, q, lb, ub, params=params, kinv0=k0))(*map(jnp.asarray, (Pn, qn, lbn, ubn, kinv0)))
+    ours = boxqp_big(P, q, lb, ub, iters=2, rounds=2, kinv0=torch.tensor(kinv0))
+    for o, r in ((ours.z, ref_c.x), (ours.y, ref_c.y), (ours.aux.rho, ref_c.rho),
+                 (ours.kinv, ref_c.kinv)):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=TOL)
+    assert not bool(ours.guard_cold.any())
+    Pr, qr, lbr, ubr, lqr = riccati_batch(2, H=2, dx=2, du=2, seed=3)
+    params = JBoxQPParams(max_iter=5, n_rounds=2, unroll=False, kinv="riccati")
+    ref_r = jax.vmap(lambda P, q, lb, ub, A, B: solve_boxqp_fixed(
+        P, q, lb, ub, params=params, lqr_data=(A, B, lqr[2], lqr[3])))(
+        *map(jnp.asarray, (Pr, qr, lbr, ubr, lqr[0], lqr[1])))
+    ours = boxqp_big(*map(torch.tensor, (Pr, qr, lbr, ubr)), iters=5, rounds=2,
+                     kinv_method="riccati", lqr_data=tuple(map(torch.tensor, lqr)))
+    for o, r in ((ours.z, ref_r.x), (ours.y, ref_r.y), (ours.kinv, ref_r.kinv)):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=TOL)
+    X = ns_inverse(P + torch.eye(4), iters=2, X0=P)
+    np.testing.assert_allclose(X.numpy(), np.asarray(jax_ns_inverse(
+        jnp.asarray(Pn + np.eye(4)), iters=2, X0=jnp.asarray(Pn))), rtol=0, atol=TOL)
 
 
 def test_expm_norm_guard_at_zero_squarings():

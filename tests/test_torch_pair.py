@@ -475,8 +475,8 @@ def test_rescue_passes_the_expm_budget_on(monkeypatch, budget):
     seen = []
     real = tbench.make_runner
 
-    def spy(sc, plants, expm_budget="auto"):
-        runner = real(sc, plants, expm_budget)
+    def spy(sc, plants, expm_budget="auto", **runner_kw):
+        runner = real(sc, plants, expm_budget, **runner_kw)
         seen.append((sc.config.n_steps, plants.lanes, expm_budget,
                      (runner.expm_taylor_k, runner.expm_max_squarings)))
         return runner

@@ -12,7 +12,9 @@ d = 2 for the flagship, `boxqp_small` at n = 15 for `not_gate`,
 `admm_big` (alone, up to n = 239, and inside the whole `boxqp_big` solve,
 Gauss-Jordan and Newton-Schulz inverses) and `expm_small` at d = 3 for the
 large-n presets, `expm_small` at d = 4 in its certified form on Hermitian
-generators and `admm_big` at n = 40 and 150 for the two-qubit presets. Each
+generators and `admm_big` at n = 40 and 150 for the two-qubit presets,
+`expm_small` at d = 5 to 8 and `admm_big` at n = 24 for the 3-qubit
+problem. Each
 kernel phase gives the wrapper's time (CUDA events),
 the call's device time without the host's dispatch (a CUDA graph of 20
 calls, replayed), the plain version's time, the bound - the larger of the
@@ -42,7 +44,12 @@ Schulz, Gauss-Jordan, Riccati, its scan) timed at the large-n fleets'
 shapes, cnot and freq under the Riccati inverses, freq and drag with the
 steady K-inverse carry, the Van der Pol Koopman MPC (mpc() on both QP
 routes, batched_mpc at B 1024) and the flagship in its real embedding
-against the complex problem. One JSON line per phase; then the card's
+against the complex problem. Last, the multi-device layer on a real NCCL
+group of one rank (the machine has one card): tp_3q, the JAX package's
+3-qubit tensor-parallel problem (dim_x 64; expm_small at d 8, admm_big at
+n 24) at B 1024, dense and through tp_model_fns, and sharded_fleet, the
+flagship at B 16384 through sharded_mpc against batched_mpc, with the
+collectives counted and timed. One JSON line per phase; then the card's
 name and power limit, the per-kernel record, and last {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
 device it exits 1 and prints no result.
@@ -67,6 +74,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
 
 DEVICE = "cuda"
 T_START = time.perf_counter()
@@ -276,13 +284,41 @@ WARM_KINV_FLEETS = {"not_state_freq": None, "drag_state": "ns"}
 CLASSICAL = dict(mu=1.0, dt=0.1, train_steps=400, H=20, n_steps=60, sat=4.0, x0=(1.5, 0.0),
                  x_final=0.2, batch=1024, radius=1.5, parity_lanes=8, parity_tol=1e-3)
 EMBEDDED = dict(batch=1024, du_tol={"mpc": 1e-4, "batched": 5e-4})
+# The multi-device layer, on a one-rank NCCL group (the machine has one
+# card). tp_3q: the JAX package's 3-qubit tensor-parallel problem (dim_s 8,
+# dim_x 64, dim_u 3, H 8, 6 steps; tests/test_tensor_parallel.py) through
+# batched_mpc at B 1024 on the kernel route (n = 24: boxqp_big, one admm_big
+# launch a rho round; every plant step one expm_small launch at d 8, budget
+# (12, 2)), dense and with tp_model_fns on a one-rank "op" axis. Its gates:
+# every lane completes and ends above 0.97 (JAX's bar is 0.5; float64 on the
+# CPU ends at 0.9813-0.9814 on these lanes), the TP run's exit codes equal
+# the dense run's and its final fidelities are within 1e-4 of them (on one
+# rank its arithmetic is the dense run's: expected equal), and 8 lanes'
+# final fidelity is within 5e-3 of the float64 CPU run. float32 alone moves
+# it that far (perf_parallel.py, the same 8 lanes): on the card 4.0e-4 run as
+# 8 lanes and 1.2e-3 inside the B 1024 batch (other GEMM shapes, other
+# rounding), 4.0e-4 with expm_small's plain version, 1.5e-4 with
+# admm_big's, 3.1e-5 in float32 on the CPU; in float64 the card (plain
+# versions) is 2.0e-12 from the CPU. Every lane still ends at 0.981-0.983;
+# the controls branch, by 0.35-0.54, and are not held. sharded_fleet: the flagship at B 16384 through
+# sharded_mpc(scenario_mesh()) on the kernel route (boxqp_small, n 10),
+# lane for lane against batched_mpc on the same plants (the one rank runs
+# the whole batch: equal to 1e-6, expected bit-equal), the summary's
+# all_reduce against fleet_summary, scaling_report at one device, and the
+# flagship's gates (every lane completes, no QP failure, min >= 0.998;
+# float64 on the CPU: min 0.9986 over 256 lanes).
+TP3Q = dict(batch=1024, fid_min=0.97, parity_lanes=8, parity_tol=5e-3, tp_gap=1e-4,
+            expm_budget=(12, 2))
+SHARDED = dict(batch=BATCH, fid_min=0.998, equal_tol=1e-6)
 # admm_big alone: (B, n, iters) of the large-n presets' solves, cnot's
 # n = 150 (rows split over 4 threads) and the largest n the kernel takes
-# (part of each row in shared memory); then crosstalk's and cnot's own, and
-# the classical phase's Koopman QP (n = 20: 12 of the n <= 32 instance's
-# columns idle) at B 1024 and at B 1 (three of a block's four lanes empty)
+# (part of each row in shared memory); then crosstalk's and cnot's own, the
+# classical phase's Koopman QP (n = 20: 12 of the n <= 32 instance's
+# columns idle) at B 1024 and at B 1 (three of a block's four lanes empty),
+# and tp_3q's (n = 24, the library's 150 iterations a round)
 ADMM_SHAPES = ((2048, 32, 50), (2048, 32, 19), (1024, 50, 40), (256, 150, 50), (256, 239, 50),
-               (1024, 40, 150), (128, 150, 100), (128, 150, 80), (1024, 20, 150), (1, 20, 150))
+               (1024, 40, 150), (128, 150, 100), (128, 150, 80), (1024, 20, 150), (1, 20, 150),
+               (1024, 24, 150))
 # the bound's peaks: one H100 SXM at its 700 W limit (NVIDIA's data sheet),
 # float32 outside the tensor cores and device memory
 PEAK_FLOPS = 67e12
@@ -299,10 +335,18 @@ EXPM_CASES = {"d2_12_0": (BATCH, EXPM_D, 12, 0, 1e-3, 0.8),
               # the single rollout's plant step and quantum_simulate's one
               # call for the 48-step Blackman drive
               "d2_12_0_b1": (1, EXPM_D, 12, 0, 1e-3, 0.8),
-              "d2_12_0_b48": (48, EXPM_D, 12, 0, 1e-3, 0.8)}
+              "d2_12_0_b48": (48, EXPM_D, 12, 0, 1e-3, 0.8),
+              # d 5-8 (a team of 8 threads): tp_3q's plant step at d 8 and
+              # its budget, the certified form at d 8, and d 5-7
+              "d8_12_2_b1024": (1024, 8, 12, 2, 0.05, 2.0),
+              "d8_12_0_b1024": (1024, 8, 12, 0, 1e-3, 0.8),
+              "d5_12_2_b1024": (1024, 5, 12, 2, 0.05, 2.0),
+              "d6_12_2_b1024": (1024, 6, 12, 2, 0.05, 2.0),
+              "d7_12_2_b1024": (1024, 7, 12, 2, 0.05, 2.0)}
 # ptxas must report no spill stores or loads in these instances
+EXPM_INSTANCES = tuple(f"expm_small_kernelILi{d}E" for d in range(2, 9))
 NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
-            "expm_small_kernelILi2E", "expm_small_kernelILi3E", "expm_small_kernelILi4E")
+            *EXPM_INSTANCES)
 # boxqp_big, whole solves: drag's cold warm-phase and warm-started steady
 # forms (Gauss-Jordan), freq's (Newton-Schulz), crosstalk's one form (every
 # solve cold) and cnot's at eps 1e-8; the warm form starts from the cold
@@ -437,15 +481,15 @@ def phase_build(build) -> dict:
     seconds = time.perf_counter() - t0
     require(build.ptxas_log, "no ptxas report beside the kernel library")
     # the instantiations the fleets run and every admm_big instance
-    wanted = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "expm_small_kernelILi2E",
-              "expm_small_kernelILi3E", "expm_small_kernelILi4E", "admm_big_kernel")
+    wanted = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
+              *EXPM_INSTANCES)
     report = {name: rec for name, rec in ptxas_entries(build.ptxas_log).items()
               if any(w in name for w in wanted)}
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": build.build_seconds,
           "ptxas": report})
     checked = {name: rec for name, rec in report.items() if any(w in name for w in NO_SPILL)}
-    require(len(checked) == 4 + 5 + 3,
-            f"expected 4 boxqp_small, 5 admm_big and 3 expm_small instances: {checked}")
+    require(len(checked) == 4 + 5 + 7,
+            f"expected 4 boxqp_small, 5 admm_big and 7 expm_small instances: {checked}")
     spilled = {name: rec for name, rec in checked.items()
                if rec.get("spill_stores", -1) != 0 or rec.get("spill_loads", -1) != 0}
     require(not spilled, f"spills in {spilled}")
@@ -575,9 +619,10 @@ def phase_expm(expm_mod, graph_node_types, floor_us: float) -> dict:
     (12, 2) on its batch with the plant's norm range, lindblad's d = 4 at
     (12, 1) on non-normal Liouvillians across the 0- and 1-squaring
     branches, not_gate's and not_state_freq's d = 2 at (12, 0) on their
-    batch of 1024, and crosstalk's and cnot's d = 4 at (12, 0) on Hermitian
-    generators at their batches. Each call is one kernel on the card and
-    nothing else."""
+    batch of 1024, crosstalk's and cnot's d = 4 at (12, 0) on Hermitian
+    generators at their batches, tp_3q's d = 8 at (12, 2) and the certified
+    (12, 0) at B 1024, d = 5, 6 and 7, and a NaN matrix at d = 8. Each call
+    is one kernel on the card and nothing else."""
     rec = {"phase": "expm_small", "gpu": smi_line(), "launch_floor_us": floor_us}
     for name, (B, d, k, sq, lo, hi) in EXPM_CASES.items():
         liouvillian = (d, sq) == (4, 1)
@@ -608,11 +653,23 @@ def phase_expm(expm_mod, graph_node_types, floor_us: float) -> dict:
         if liouvillian:
             err["squared_frac"] = float((A.abs().sum(dim=-2).amax(dim=-1) > 1.0).float().mean())
             require(0.0 < err["squared_frac"] < 1.0, f"expm_small {name}: one branch only {err}")
-        if d == 4:
+        if d >= 4:
             require(err["max_abs_err_vs_f64"] <= EXPM_F64_TOL,
                     f"expm_small {name} differs from the float64 plain result {err}")
+    # a NaN matrix at d 8 comes out all NaN, its neighbours as the plain version
+    A = expm_batch(301, 8, seed=8, max_norm=2.0, min_norm=0.05)
+    A[7, 7, 0] = complex(float("nan"), 0.0)
+    Ek, Ep = expm_mod.expm_small(A, 12, 2), expm_mod.expm_small_ref(A, 12, 2)
+    torch.cuda.synchronize()
+    rest = torch.arange(301, device=DEVICE) != 7
+    rec["d8_nan"] = {"nan_matrix_all_nan": bool(torch.isnan(torch.view_as_real(Ek[7])).all()),
+                     "others_finite": bool(torch.isfinite(torch.view_as_real(Ek[rest])).all()),
+                     "others_max_abs_err": float((Ek[rest] - Ep[rest]).abs().max())}
+    require(rec["d8_nan"]["nan_matrix_all_nan"] and rec["d8_nan"]["others_finite"]
+            and rec["d8_nan"]["others_max_abs_err"] <= EXPM_TOL[(12, 2)],
+            f"expm_small d 8 NaN matrix: {rec['d8_nan']}")
     rec["tolerance"] = {f"{k}_{sq}": t for (k, sq), t in EXPM_TOL.items()}
-    rec["tolerance_d4_vs_f64"] = EXPM_F64_TOL
+    rec["tolerance_d4_to_d8_vs_f64"] = EXPM_F64_TOL
     emit(rec)
     return rec
 
@@ -939,6 +996,49 @@ def single_problem(systems, torch_mods, dt, device, dtype):
     args = (cx(np.tile(targ[:, None], (1, n_steps + H + 1))), re(np.zeros((1, n_steps + H))),
             Q, re(np.eye(1) * (1e-2 / sat ** 2)), Q)
     return cx(x0), args, MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=1, order=2), sat
+
+
+def three_qubit_problem(device, dtype, detune: float = 0.99, coupling: float = 0.1):
+    """The 3-qubit (dim_s 8, dim_x 64) state preparation |000> -> |111> of
+    the JAX package's tensor-parallel tests (tests/test_tensor_parallel.py
+    `make_3q_scenario`), built in the port: ZZ couplings, X drives, the
+    order-1 discretization at dt 0.5, horizon 8, 6 steps, sat 2.5, the
+    start rotated by 1e-2 on each qubit. :return: (mpc keyword arguments
+    with the nominal plant, the target state (64,))."""
+    from mpc4quantum_tpu_torch import MPCConfig, QuantumPlant
+    from mpc4quantum_tpu_torch.models.dmdc import dmdc_from_operator
+    from mpc4quantum_tpu_torch.ops.liouville import discretize_homogeneous, liouville_generator
+
+    X = np.array([[0, 1], [1, 0]], complex)
+    Z = np.array([[1, 0], [0, -1]], complex)
+    I = np.eye(2, dtype=complex)
+    kron3 = lambda a, b, c: np.kron(np.kron(a, b), c)
+    H0 = 0.5 * coupling * (kron3(Z, Z, I) + kron3(I, Z, Z))
+    H1s = [0.5 * kron3(X, I, I), 0.5 * kron3(I, X, I), 0.5 * kron3(I, I, X)]
+    dt, H, n_steps, order = 0.5, 8, 6, 1
+    A_dst = discretize_homogeneous([liouville_generator(h) for h in [H0] + H1s], dt, order)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    cx = lambda a: torch.as_tensor(np.asarray(a)).to(device, cdt)
+    model = dmdc_from_operator(cx(A_dst), 64, 64, A_dst.shape[1] - 64)
+    plant = QuantumPlant.create(detune * H0, H1s, device=device, dtype=dtype)
+    th = 1e-2
+    R1 = np.array([[np.cos(th / 2), -1j * np.sin(th / 2)], [-1j * np.sin(th / 2), np.cos(th / 2)]])
+    R = kron3(R1, R1, R1)
+    rho0 = np.zeros((8, 8), complex)
+    rho0[0, 0] = 1.0
+    rho0 = R @ rho0 @ R.conj().T
+    targ = np.zeros((8, 8), complex)
+    targ[7, 7] = 1.0
+    Qd = np.zeros(64)
+    Qd[[0, 63]] = 1.0
+    Q = cx(np.diag(Qd))
+    args = dict(x0=cx(rho0.flatten()), model_state=model, plant=plant,
+                X_targ=cx(np.tile(targ.flatten()[:, None], (1, n_steps + H + 1))),
+                U_targ=torch.zeros((3, n_steps + H), dtype=dtype, device=device), Q=Q,
+                R=torch.eye(3, dtype=dtype, device=device) * 1e-2, Qf=Q,
+                config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=3, order=order),
+                sat=2.5, du=None)
+    return args, cx(targ.flatten())
 
 
 def phase_train_then_control(systems, torch_mods, counters, host_flag) -> dict:
@@ -1625,6 +1725,205 @@ def phase_embedded(presets, port, counters, host_flag) -> dict:
     return rec
 
 
+def free_port() -> int:
+    """A free TCP port on localhost, for the process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+class CollectiveClock:
+    """While installed, counts the torch.distributed collectives the port
+    calls (all_gather_into_tensor, all_reduce) and times each by CUDA events
+    around the call (a collective that returns has finished on the current
+    stream). The port's code is left as it is: the functions are wrapped on
+    the torch.distributed module and restored on exit."""
+
+    NAMES = ("all_gather_into_tensor", "all_reduce")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, self.events = dist, {n: [] for n in self.NAMES}
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            def wrapped(*a, _fn=fn, _name=name, **k):
+                start, stop = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+                start.record()
+                out = _fn(*a, **k)
+                stop.record()
+                self.events[_name].append((start, stop))
+                return out
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+    def report(self) -> dict:
+        """Per collective: calls, their summed ms, and the first and median
+        call's ms."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, ev in self.events.items():
+            ms = [a.elapsed_time(b) for a, b in ev]
+            out[name] = {"calls": len(ms), "ms": sum(ms), "first_ms": ms[0] if ms else None,
+                         "median_ms": float(np.median(ms)) if ms else None}
+        return out
+
+
+def fidelity(xs, targ) -> torch.Tensor:
+    """Per-lane Re <targ, x_final> of a batch's (B, dim_e, n + 1) record."""
+    return (xs[..., -1] @ targ.conj()).real
+
+
+def phase_tp_3q(port, counters, host_flag, tensor) -> dict:
+    """The 3-qubit dim_x 64 problem at B 1024 (TP3Q) through batched_mpc on
+    the kernel route, dense and with tp_model_fns on a one-rank "op" axis of
+    the NCCL group, with each run's launches, host reads, collectives and
+    wall time (after a warm-up run of each); 8 lanes again in float64 on
+    the CPU."""
+    from mpc4quantum_tpu_torch.ops.expm import taylor_budget
+
+    B, lanes = TP3Q["batch"], TP3Q["parity_lanes"]
+    args, targ = three_qubit_problem(DEVICE, torch.float32)
+    nominal64, targ64 = three_qubit_problem("cpu", torch.float64)
+    plants64 = make_lanes(nominal64["plant"], B)
+    plants = plants64.to(DEVICE, torch.float32)
+    cfg = dataclasses.replace(args["config"], qp_backend="ns")
+    budget = taylor_budget(plants.norm_bound(cfg.dt, args["sat"]))
+    require(budget == TP3Q["expm_budget"], f"tp_3q expm budget {budget}")
+    run_args = lambda a, p: (a["x0"], a["model_state"], p, a["X_targ"], a["U_targ"], a["Q"],
+                             a["R"], a["Qf"], cfg, a["sat"], a["du"])
+    mesh = tensor.op_mesh(n_op=1)
+    fns = tensor.tp_model_fns(mesh, dim_u=3, order=1, dim_x=64)
+    rec = {"phase": "tp_3q", "gpu": smi_line(), "B": B, "dim_x": 64, "qp_n": 24,
+           "expm_d": 8, "expm_budget": list(budget), "op_ranks": 1,
+           "backend": torch.distributed.get_backend(), "gates": TP3Q}
+    out = {}
+    for name, kw in (("dense", {}), ("tp", {"model_fns": fns})):
+        # a warm-up run first: the TP run's first gather sets up the NCCL
+        # communicator
+        port.batched_mpc(*run_args(args, plants), **kw)
+        with CollectiveClock() as clock:
+            t0 = time.perf_counter()
+            res, launches, reads = counted(counters, host_flag, lambda: port.batched_mpc(
+                *run_args(args, plants), **kw))
+            wall = time.perf_counter() - t0
+        fid = fidelity(res.xs, targ)
+        codes = res.exit_code
+        iters = batch_iters(res)
+        out[name] = res
+        rec[name] = {"wall_s": wall, "launches": launches, "host_reads": reads,
+                     "collectives": clock.report(), "sqp_iters": iters,
+                     "sqp_iters_by_step": res.sqp_iters.amax(dim=0).tolist(),
+                     "fidelity_mean": float(fid.mean()), "fidelity_min": float(fid.min()),
+                     "completed_frac": float(((codes == 0) | (codes == 1)).float().mean()),
+                     "exit_codes": sorted(set(codes.tolist()))}
+    d, t = out["dense"], out["tp"]
+    rec["tp_vs_dense"] = {"equal": bool(torch.equal(d.us, t.us) and torch.equal(d.xs, t.xs)),
+                          "max_abs_dus": float((d.us - t.us).abs().max()),
+                          "max_abs_dfid": float((fidelity(d.xs, targ) - fidelity(t.xs, targ))
+                                                .abs().max()),
+                          "exit_codes_equal": bool(torch.equal(d.exit_code, t.exit_code)),
+                          "wall_ratio": rec["tp"]["wall_s"] / rec["dense"]["wall_s"]}
+    t0 = time.perf_counter()
+    res64 = port.batched_mpc(*run_args(nominal64, plants64[:lanes]))
+    dfid = (fidelity(d.xs[:lanes], targ).cpu().double() - fidelity(res64.xs, targ64)).abs()
+    rec["lane_parity"] = {"lanes": lanes, "cpu_s": time.perf_counter() - t0,
+                          "max_abs_dfid": float(dfid.max()),
+                          "max_abs_dus": float((d.us[:lanes].cpu().double() - res64.us)
+                                               .abs().max()),
+                          "exit_codes_equal": bool(torch.equal(d.exit_code[:lanes].cpu(),
+                                                               res64.exit_code)),
+                          "fidelity_mean_f64": float(fidelity(res64.xs, targ64).mean())}
+    emit(rec)
+    for name in ("dense", "tp"):
+        r = rec[name]
+        expected = {"boxqp_small": 0, "expm_small": cfg.n_steps,
+                    "admm_big": cfg.qp_params.n_rounds * r["sqp_iters"]}
+        require(r["launches"] == expected, f"tp_3q {name} launches, expected {expected}: {r}")
+        require(r["completed_frac"] == 1.0 and r["fidelity_min"] > TP3Q["fid_min"],
+                f"tp_3q {name} gates: {r}")
+    gather_calls = rec["tp"]["collectives"]["all_gather_into_tensor"]["calls"]
+    require(gather_calls == 3 * rec["tp"]["sqp_iters"] and
+            rec["dense"]["collectives"]["all_gather_into_tensor"]["calls"] == 0,
+            f"tp_3q: 3 gathers a linearization on the TP run only: {rec}")
+    g = rec["tp_vs_dense"]
+    require(g["exit_codes_equal"] and g["max_abs_dfid"] <= TP3Q["tp_gap"], f"tp_3q TP: {g}")
+    p = rec["lane_parity"]
+    require(p["exit_codes_equal"] and p["max_abs_dfid"] <= TP3Q["parity_tol"],
+            f"tp_3q lanes differ from the float64 CPU run: {p}")
+    return rec
+
+
+def phase_sharded_fleet(presets, port, counters, host_flag) -> dict:
+    """The flagship at B 16384 through sharded_mpc on the one-rank
+    "scenarios" mesh of the NCCL group (SHARDED), after a warm-up run,
+    against batched_mpc on the same plants; sharded_fleet_summary against
+    fleet_summary; scaling_report at one device."""
+    B = SHARDED["batch"]
+    sc = presets.not_state()
+    cfg = dataclasses.replace(sc.config, qp_backend="ns")
+    plants = make_lanes(presets.not_state(device="cpu").plant, B).to(DEVICE, torch.float32)
+    run = lambda mesh, b: port.sharded_mpc(mesh, sc.x0, sc.model, plants[:b], sc.X_targ,
+                                           sc.U_targ, sc.Q, sc.R, sc.Qf, cfg, sc.sat, sc.du)
+    mesh = port.scenario_mesh()
+    rec = {"phase": "sharded_fleet", "gpu": smi_line(), "B": B, "ranks": mesh.size(),
+           "backend": torch.distributed.get_backend(), "gates": SHARDED}
+    # a warm-up: the first gather and each all_reduce's first call of its
+    # dtype and op load their NCCL code
+    port.sharded_fleet_summary(mesh, run(mesh, B), sc.target_state)
+    with CollectiveClock() as clock:
+        t0 = time.perf_counter()
+        res, launches, reads = counted(counters, host_flag, lambda: run(mesh, B))
+        wall = time.perf_counter() - t0
+        summary = port.sharded_fleet_summary(mesh, res, sc.target_state)
+        collectives = clock.report()
+    t0 = time.perf_counter()
+    ref, ref_launches, _ = counted(counters, host_flag, lambda: port.batched_mpc(
+        sc.x0, sc.model, plants, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf, cfg, sc.sat, sc.du))
+    ref_wall = time.perf_counter() - t0
+    plain = port.fleet_summary(ref, sc.target_state)
+    fid = fidelity(res.xs, sc.target_state)
+    codes = res.exit_code
+    rows = port.scaling_report(run, batch_per_device=B, device_counts=(1,), reps=1)
+    rec.update({
+        "wall_s": wall, "batched_wall_s": ref_wall, "rollouts_per_s": B / wall,
+        "launches": launches, "batched_launches": ref_launches, "host_reads": reads,
+        "sqp_iters": batch_iters(res), "collectives": collectives,
+        "fidelity_mean": float(fid.mean()), "fidelity_min": float(fid.min()),
+        "completed_frac": float(((codes == 0) | (codes == 1)).float().mean()),
+        "qp_fail_frac": float((codes == 2).float().mean()),
+        "vs_batched": {"equal": all(torch.equal(getattr(res, f), getattr(ref, f))
+                                    for f in ("xs", "us", "exit_code", "n_valid", "sqp_iters")),
+                       "max_abs_dus": float((res.us - ref.us).abs().max()),
+                       "max_abs_dxs": float((res.xs - ref.xs).abs().max())},
+        "summary": {k: float(v) for k, v in summary.items()},
+        "summary_gap": max(abs(float(summary[k]) - float(plain[k])) for k in plain),
+        "scaling_report": rows})
+    emit(rec)
+    v = rec["vs_batched"]
+    require(v["max_abs_dus"] <= SHARDED["equal_tol"] and v["max_abs_dxs"] <= SHARDED["equal_tol"]
+            and torch.equal(res.exit_code, ref.exit_code), f"sharded_fleet vs batched_mpc: {v}")
+    require(rec["summary_gap"] <= SHARDED["equal_tol"], f"sharded_fleet summary: {rec}")
+    expected = {"boxqp_small": rec["sqp_iters"], "expm_small": cfg.n_steps, "admm_big": 0}
+    require(launches == expected == ref_launches, f"sharded_fleet launches, expected {expected}")
+    require(collectives["all_gather_into_tensor"]["calls"] == 6
+            and collectives["all_reduce"]["calls"] == 4,
+            f"sharded_fleet: 6 gathers and 4 all_reduces: {collectives}")
+    require(rec["completed_frac"] == 1.0 and rec["qp_fail_frac"] == 0.0
+            and rec["fidelity_min"] >= SHARDED["fid_min"], f"sharded_fleet gates: {rec}")
+    require(len(rows) == 1 and set(rows[0]) == {"devices", "batch", "best_s",
+                                                "per_device_throughput", "efficiency"}
+            and rows[0]["efficiency"] == 1.0, f"scaling_report rows {rows}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -1649,6 +1948,7 @@ def main() -> int:
     from mpc4quantum_tpu_torch.mpc import fleet_runner
     from mpc4quantum_tpu_torch.solvers.boxqp import solve_boxqp
     from mpc4quantum_tpu_torch.utils.profiling import host_flag
+    from mpc4quantum_tpu_torch.parallel import tensor
 
     torch_mods = {"presets": presets, "control_powers": control_powers,
                   "lift_controls": lift_controls,
@@ -1707,6 +2007,16 @@ def main() -> int:
     total = add(rec["launches"])
     total = add(rec["resumed_launches"])
     phase_chol_qp(solve_boxqp, BoxQPParams, boxqp_mod, host_flag)
+    # the multi-device layer on a real NCCL group of one rank (one card)
+    port.init_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    try:
+        rec = phase_tp_3q(port, counters, host_flag, tensor)
+        total = add(rec["dense"]["launches"])
+        total = add(rec["tp"]["launches"])
+        rec = phase_sharded_fleet(presets, port, counters, host_flag)
+        total = add(rec["launches"])
+    finally:
+        torch.distributed.destroy_process_group()
 
     gpu = smi_line()
     print(gpu, flush=True)

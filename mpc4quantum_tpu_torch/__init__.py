@@ -35,6 +35,19 @@ MPCConfig.qp_warm_kinv; run_hostloop_fleet(kinv=, warm_kinv=) forces them.
 Real states: the classical plants (VanDerPol, Rotor, rk4_simulate) run
 `mpc()` on a real Koopman model, and mpc/embedded.py runs a quantum problem
 in its real embedding.
+
+Several processes (parallel/): `init_distributed` joins a torch.distributed
+group (NCCL on the card, gloo on the CPU), `sharded_mpc` shards a lane
+batch over the ranks of a mesh (`scenario_mesh`) and gathers the result,
+`sharded_fleet_summary` reduces across ranks, `scaling_report` measures
+weak scaling; parallel/tensor.py splits the model operator's rows over an
+"op" axis (`tp_model_fns`, passed as mpc(model_fns=), batched_mpc and
+sharded_mpc take it too: the driver's seam `ModelApplyFns`).
+
+The reference's single-call functions are here under their names: the Pade
+`expm_pade`, `propagators_from_controls`, the one-point bilinear forms
+(ops/bilinear.py), the plants' free step, lift and simulate functions, and
+utils/plotting.py (matplotlib, imported when called).
 """
 
 from . import presets
@@ -47,12 +60,18 @@ from .models.dmdc import (DiscrepDMDc, DMDcModel, HistoryState, OnlineDMDc, disc
                           with_history)
 from .models.training import prediction_loss, train_model
 from .mpc.clock import StepClock, val_to_str
-from .mpc.driver import MPCConfig, MPCResult, lqr_seed_guess, trim
+from .mpc.driver import ModelApplyFns, MPCConfig, MPCResult, lqr_seed_guess, trim
 from .mpc.fleet_runner import batched_mpc, mpc
-from .parallel.fleet import fleet_summary, make_scenario_batch
+from .ops.bilinear import BilinearModel, model_along_traj, model_from_initial
+from .ops.expm import expm_pade, propagators_from_controls
+from .parallel.fleet import (fleet_summary, make_scenario_batch, scenario_mesh, sharded_fleet_summary,
+                             sharded_mpc)
+from .parallel.mesh import fleet_mesh, init_distributed, scaling_report
 from .plants.classical import ClassicalPlant, Rotor, VanDerPol, rk4_simulate
-from .plants.quantum import (QuantumPlant, quantum_expectations, quantum_observe,
-                             quantum_simulate)
+from .plants.lindblad import LindbladPlant, lindblad_simulate, lindblad_step, lindblad_step_taylor
+from .plants.quantum import (LiftKind, QuantumPlant, lift_state, proj_state, quantum_expectations,
+                             quantum_observe, quantum_simulate, quantum_step, quantum_step_taylor)
+from .plants.synthesis import SynthesisPlant, lift_unitary, proj_process, synthesis_simulate
 from .solvers.boxqp import BoxQPParams, solve_boxqp
 from .solvers.condense import condense_horizon, quad_program
 from .solvers.lqr import lqr_quad_program
@@ -64,9 +83,14 @@ __all__ = [
     "dmdc_from_operator", "history_p_snapshots", "history_snapshots", "history_update",
     "online_fit_iteration", "online_from_bootstrap", "online_from_data", "online_from_randn",
     "predict", "with_history", "prediction_loss", "train_model", "StepClock", "val_to_str",
-    "MPCConfig", "MPCResult", "lqr_seed_guess", "mpc", "trim", "batched_mpc",
-    "fleet_summary", "make_scenario_batch", "ClassicalPlant", "Rotor", "VanDerPol",
-    "rk4_simulate", "QuantumPlant", "quantum_expectations",
-    "quantum_observe", "quantum_simulate", "BoxQPParams", "solve_boxqp", "condense_horizon",
+    "ModelApplyFns", "MPCConfig", "MPCResult", "lqr_seed_guess", "mpc", "trim", "batched_mpc",
+    "BilinearModel", "model_along_traj", "model_from_initial", "expm_pade",
+    "propagators_from_controls", "fleet_summary", "make_scenario_batch", "scenario_mesh",
+    "sharded_fleet_summary", "sharded_mpc", "fleet_mesh", "init_distributed", "scaling_report",
+    "ClassicalPlant", "Rotor", "VanDerPol", "rk4_simulate", "LindbladPlant", "lindblad_simulate",
+    "lindblad_step", "lindblad_step_taylor", "LiftKind", "QuantumPlant", "lift_state",
+    "proj_state", "quantum_expectations", "quantum_observe", "quantum_simulate", "quantum_step",
+    "quantum_step_taylor", "SynthesisPlant", "lift_unitary", "proj_process",
+    "synthesis_simulate", "BoxQPParams", "solve_boxqp", "condense_horizon",
     "quad_program", "lqr_quad_program",
 ]

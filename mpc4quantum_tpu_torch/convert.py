@@ -138,3 +138,18 @@ def embedded_from_numpy(x0, model_A, X_targ, Q, Qf, plant: Optional[Plant] = Non
     t = lambda a: torch.tensor(np.asarray(a, float), dtype=dtype, device=device)
     return EmbeddedProblem(x0=t(x0), model_A=t(model_A), X_targ=t(X_targ), Q=t(Q), Qf=t(Qf),
                            plant=None if plant is None else EmbeddedPlant(plant))
+
+
+def operator_rows(A, rank: int, n_op: int, device="cuda",
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Rank `rank`'s block of a stacked operator's rows, given as numpy
+    (dim_x, dim_z) (e.g. a JAX model's A after `np.asarray`): rows
+    [rank dim_x / n_op, (rank + 1) dim_x / n_op), what one rank of
+    parallel/tensor.py's "op" axis holds, on `device` in `dtype`'s complex
+    partner (presets.default_dtype when None)."""
+    A = np.asarray(A)
+    if A.shape[0] % n_op:
+        raise ValueError(f"dim_x={A.shape[0]} not divisible by {n_op} ranks")
+    rows = A.shape[0] // n_op
+    block = torch.tensor(np.ascontiguousarray(A[rank * rows:(rank + 1) * rows]))
+    return block.to(device, complex_dtype(default_dtype(device, dtype)))

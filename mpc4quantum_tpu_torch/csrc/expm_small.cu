@@ -1,4 +1,4 @@
-// Batched exponential of small complex matrices, d in {2, 3, 4}: a team of
+// Batched exponential of small complex matrices, d from 2 to 8: a team of
 // T threads a matrix, thread j carrying column j of the Taylor chain.
 //
 // Replaces the Pallas TPU kernel mpc4quantum_tpu/ops/pallas_expm.py::_expm_kernel.
@@ -25,13 +25,15 @@
 // blocks of 128, so B = 1024 ran on 8 SMs and B = 16384 on 128 blocks with
 // nothing to hide the chain's latency.
 //
-// Design. A team of T threads (T = 2 at d = 2, 4 at d = 3 and 4; at d = 3
-// one lane of each team idles, so teams stay power-of-two aligned in the
-// warp) solves one matrix. Horner's step needs X and one column of P only:
+// Design. A team of T threads (T = 2 at d = 2, 4 at d = 3 and 4, 8 at d = 5
+// to 8; at d = 3 and 5-7 the lanes j >= d of each team idle, so teams stay
+// power-of-two aligned in the warp) solves one matrix. Horner's step needs X and one column of P only:
 // column j of P_new is e_j + X P[:, j] / k, so thread j runs the whole
 // Taylor chain on its column with no exchange, holding all of X (2 d^2
 // floats, loaded once; the team's threads read the same 8 d^2 bytes, which
-// L1 serves) and 2 d floats of its column, about 48 floats at d = 4. The
+// L1 serves) and 2 d floats of its column, about 48 floats at d = 4 and 176
+// at d = 8 (the 3-qubit plant's 8 x 8 Hamiltonian), within the 255
+// registers a thread may hold at 128 threads a block. The
 // 1-norm is computed by every thread alone from its copy of X, with a
 // NaN-propagating max and clip (jnp.maximum / jnp.clip keep a NaN, fmaxf
 // drops it): a matrix holding a NaN comes out all NaN, as from the TPU
@@ -50,7 +52,8 @@
 // gives the grid two blocks for each of the card's 132 SMs, else 32. So
 // d = 4 at B = 16384 runs 512 blocks of 128, d = 2 at B = 16384 512 blocks
 // of 64, d = 3 at B = 2048 256 blocks of 32 and d = 2 at B = 1024 64 blocks
-// of 32, against 128, 128, 16 and 8 blocks of 128 one thread a matrix.
+// of 32, against 128, 128, 16 and 8 blocks of 128 one thread a matrix;
+// d = 8 at B = 1024 runs 256 blocks of 32.
 
 #include <cuda_runtime.h>
 
@@ -61,7 +64,7 @@ namespace {
 constexpr int kMaxThreads = 128;
 constexpr int kMinBlocks = 2 * 132;  // two blocks for each SM of an H100
 
-__host__ __device__ constexpr int team_width(int d) { return d <= 2 ? 2 : 4; }
+__host__ __device__ constexpr int team_width(int d) { return d <= 2 ? 2 : (d <= 4 ? 4 : 8); }
 
 // 1/k for k <= 32, rounded as the division 1.0f / k rounds
 constexpr int kInvMax = 32;
@@ -224,6 +227,10 @@ extern "C" int mpc4q_expm_small(const void* A, void* out, int B, int d, int tayl
     case 2: return launch<2>(a, o, B, taylor_k, max_squarings, s);
     case 3: return launch<3>(a, o, B, taylor_k, max_squarings, s);
     case 4: return launch<4>(a, o, B, taylor_k, max_squarings, s);
+    case 5: return launch<5>(a, o, B, taylor_k, max_squarings, s);
+    case 6: return launch<6>(a, o, B, taylor_k, max_squarings, s);
+    case 7: return launch<7>(a, o, B, taylor_k, max_squarings, s);
+    case 8: return launch<8>(a, o, B, taylor_k, max_squarings, s);
     default: return cudaErrorInvalidValue;
   }
 }

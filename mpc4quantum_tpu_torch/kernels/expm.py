@@ -13,7 +13,8 @@ import torch
 from ..ops.expm import expm_taylor
 from . import _build
 
-SIZES = (2, 3, 4)
+# the d the kernel takes; the Pallas kernel takes any d (it recommends d <= 8)
+SIZES = tuple(range(2, 9))
 
 
 def expm_small_work(B: int, d: int, taylor_k: int, squarings: int = 0):
@@ -45,8 +46,8 @@ def expm_small_ref(A: torch.Tensor, taylor_k: int = 18, max_squarings: int = 12)
 
 
 def expm_small(A: torch.Tensor, taylor_k: int = 18, max_squarings: int = 12) -> torch.Tensor:
-    """exp(A) for a batch A of shape (B, d, d), complex, d in {2, 3, 4}
-    on the card (complex64), any d on the CPU.
+    """exp(A) for a batch A of shape (B, d, d), complex, d from 2 to 8
+    on the card (complex64; another d raises), any d on the CPU.
 
     :param taylor_k: Horner Taylor degree; 18 ~ 1e-15 truncation at
         ||A/2^s||_1 <= 1, 12 ~ 9e-12 at <= 0.8.

@@ -26,7 +26,10 @@ Reference behaviour kept on purpose:
 The fleet runner (mpc/fleet_runner.py) drives these pieces; `mpc()` and
 `batched_mpc` live there. `trim` cuts a rollout's record to the executed
 steps. `lqr_seed_guess` is the LQR-seeded initial guess of
-config.lqr_seed.
+config.lqr_seed. `ModelApplyFns` is the seam through which a caller
+replaces the two stacked-operator contractions of a step (the
+linearization and the model prediction), e.g. by the row-sharded forms of
+parallel/tensor.py; None is the dense path.
 """
 
 from __future__ import annotations
@@ -79,6 +82,25 @@ class MPCConfig:
     # refresh (the preset fleets' runner, the boxqp_big route only; mpc()
     # and batched_mpc ignore it, as the reference's mpc() does)
     qp_warm_kinv: bool = False
+
+
+class ModelApplyFns(NamedTuple):
+    """Replacements for the stacked-operator contractions of an MPC step,
+    batched over lanes (the seam for tensor-parallel execution; the QP,
+    the plant and the costs stay the runner's own code).
+
+    linearize: (model_A (dim_x, dim_z) shared or (B, dim_x, dim_z) per
+        lane, X (B, dim_x, H), U (B, dim_u, H)) -> (A_s (B, H, dim_x,
+        dim_x), B_s (B, H, dim_x, dim_u), Delta_s (B, H, dim_x)), as
+        ops.bilinear.model_along_traj.
+    predict: (model_A, lift_x (B, dim_x), ux (B, Lm dim_x)) -> (B, dim_x),
+        the model's next state, as models.dmdc.predict.
+    lift_u: (dim_u, ...) -> (Lm, ...) the non-constant monomial lift.
+    """
+
+    linearize: Callable
+    predict: Callable
+    lift_u: Callable
 
 
 class Carry(NamedTuple):
@@ -262,7 +284,8 @@ def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
             ctx: StepContext, bmodel: BilinearModel, model,
             plants: Plant, plant_step: Callable, exit_condition: Optional[Callable] = None,
             noise_t: Optional[torch.Tensor] = None, observe_fn: Optional[Callable] = None,
-            model_update_fn: Optional[Callable] = None):
+            model_update_fn: Optional[Callable] = None,
+            model_fns: Optional[ModelApplyFns] = None):
     """Apply each lane's first control to the plant, observe, close the loop,
     refit the model, shift the guesses and duals and book the exits. A
     lane's new code is its failed step's 2 / 3, else 1 where the exit
@@ -276,6 +299,9 @@ def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
     :param model_update_fn: None, or the streaming refit (model,
         y (B, dim_x), x (B, dim_x), u (B, Lm dim_x)) -> model on the lane
         batch of models.
+    :param model_fns: None (the dense prediction) or the caller's
+        `ModelApplyFns`, whose `predict` closes the loop between
+        measurements.
     :return: (carry_new, duals_out, model_new) with duals_out = (y, rho)
         for the next step's warm start.
     """
@@ -296,7 +322,10 @@ def advance(carry: Carry, s: SQPState, step: int, config: MPCConfig,
         x_true_next = x_next
     else:
         # between measurements the loop closes through the model
-        x_next = plants.proj(predict(model, ctx.lift_x.T, ux).T)
+        if model_fns is not None:
+            x_next = plants.proj(model_fns.predict(model.A, ctx.lift_x, ux.T))
+        else:
+            x_next = plants.proj(predict(model, ctx.lift_x.T, ux).T)
         x_true_next = x_plant
     if model_update_fn is not None:
         model_new = model_update_fn(model, plants.lift(x_next), ctx.lift_x, ux.T)
@@ -331,7 +360,8 @@ def record_row(carry: Carry, s: SQPState):
             torch.where(carry.done, 0.0, s.obj), torch.where(carry.done, 0, s.n_iter), active)
 
 
-def lqr_seed_guess(model_A, lift_x0, X_targ, U_targ, Q_s, R_s, sat, config: MPCConfig):
+def lqr_seed_guess(model_A, lift_x0, X_targ, U_targ, Q_s, R_s, sat, config: MPCConfig,
+                   model_fns: Optional[ModelApplyFns] = None):
     """The initial guess of config.lqr_seed: the model linearized along the
     reference's guess (repeat(lift(x0)), zero controls), the horizon solved
     by the clipped affine LQR, and its rollout taken as the guess; a lane
@@ -340,6 +370,8 @@ def lqr_seed_guess(model_A, lift_x0, X_targ, U_targ, Q_s, R_s, sat, config: MPCC
     :param model_A: (dim_x, dim_z) stacked operator, shared, or (B, dim_x,
         dim_z) per lane; lift_x0: (B, dim_x) model-space initial states.
     :param X_targ, U_targ, Q_s, R_s: as the fleet runner holds them.
+    :param model_fns: None (the dense linearization) or the caller's
+        `ModelApplyFns`.
     :return: (X_guess (B, dim_x, H+1) complex, U_guess (B, dim_u, H) real).
     """
     H, dim_u = config.horizon, config.dim_u
@@ -347,9 +379,12 @@ def lqr_seed_guess(model_A, lift_x0, X_targ, U_targ, Q_s, R_s, sat, config: MPCC
     cdtype = model_A.dtype
     Xg = lift_x0.to(cdtype)[:, :, None].expand(-1, -1, H + 1)
     Ug = torch.zeros((B, dim_u, H), dtype=lift_x0.real.dtype, device=lift_x0.device)
-    bmodel = BilinearModel.from_stacked(model_A[..., :dim_x], model_A[..., dim_x:], dim_u,
-                                        config.order)
-    A_s, B_s, D_s = model_along_traj(bmodel, Xg[:, :, :H], Ug)
+    if model_fns is not None:
+        A_s, B_s, D_s = model_fns.linearize(model_A, Xg[:, :, :H], Ug)
+    else:
+        bmodel = BilinearModel.from_stacked(model_A[..., :dim_x], model_A[..., dim_x:], dim_u,
+                                            config.order)
+        A_s, B_s, D_s = model_along_traj(bmodel, Xg[:, :, :H], Ug)
     res = lqr_quad_program(lift_x0.to(cdtype), X_targ[:, :H + 1].to(cdtype),
                            U_targ[:, :H].to(Ug.dtype), Q_s, R_s, A_s, B_s, sat=sat,
                            Delta_s=D_s)

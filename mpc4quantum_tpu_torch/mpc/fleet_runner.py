@@ -38,6 +38,11 @@ the carried one. The carry is loop state: checkpoints hold it. The runner
 counts the warm-started solves and the lanes whose guard fell back to the
 cold init (`kinv_counts`).
 
+With `model_fns` (driver.ModelApplyFns) the step's linearization and the
+model prediction between measurements are the caller's (the row-sharded
+contractions of parallel/tensor.py); without it they are the dense
+ops.bilinear.model_along_traj and models.dmdc.predict.
+
 All state stays on the plants' device; the loop makes no host copy. With a
 checkpoint path, every `checkpoint_every` steps the whole loop state (carry,
 duals, models, noise, the record so far, the step cursor) is copied to the
@@ -65,9 +70,9 @@ from ..solvers.condense import QPResult, quad_program
 from ..solvers.lqr import lqr_quad_program
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.profiling import host_flag
-from .driver import (Carry, MPCConfig, MPCResult, SQPState, StepContext, advance,
-                     bilinear_model, context, lqr_seed_guess, record_row, select, sqp_init,
-                     sqp_update_from_qp)
+from .driver import (Carry, ModelApplyFns, MPCConfig, MPCResult, SQPState, StepContext,
+                     advance, bilinear_model, context, lqr_seed_guess, record_row, select,
+                     sqp_init, sqp_update_from_qp)
 
 
 class FleetRunner:
@@ -80,7 +85,7 @@ class FleetRunner:
                  steady_qp_params: Optional[BoxQPParams] = None,
                  expm_taylor_k: Optional[int] = 18, expm_max_squarings: Optional[int] = 12,
                  exit_condition: Optional[Callable] = None, carry_duals: bool = True,
-                 early_exit: bool = False):
+                 early_exit: bool = False, model_fns: Optional[ModelApplyFns] = None):
         """:param warm_sqp_iters: SQP iterations of each warm step; steps past
         the tuple's end take its last entry.
         :param steady_qp_params: QP budget of the steady (single-shot)
@@ -97,7 +102,9 @@ class FleetRunner:
         :param early_exit: end a warm step's SQP once every lane is done,
             by a host read of the done flags after each iteration
             (`mpc()`; the results are those of the full budget, since done
-            lanes are frozen)."""
+            lanes are frozen).
+        :param model_fns: None (the dense contractions) or a
+            driver.ModelApplyFns for the linearization and the prediction."""
         if config.solver not in ("qp", "lqr"):
             raise ValueError(f"config.solver={config.solver!r} is not 'qp' or 'lqr'")
         if not warm_sqp_iters or any(int(v) < 1 for v in warm_sqp_iters):
@@ -112,6 +119,7 @@ class FleetRunner:
         self.exit_condition = exit_condition
         self.carry_duals = carry_duals
         self.early_exit = early_exit
+        self.model_fns = model_fns
         kernel = "small" if config.horizon * config.dim_u <= SMALL_MAX_N else "big"
         # what solves a step: the kernel "small" or "big", or plain "chol" or "lqr"
         self.qp_kernel = ("lqr" if config.solver == "lqr" else
@@ -126,11 +134,14 @@ class FleetRunner:
         # done) whose guard fell back to the cold init; None without the carry
         self.kinv_counts: Optional[torch.Tensor] = None
 
-    def _sqp_iter(self, s: SQPState, ctx: StepContext, bmodel: BilinearModel, Q_s, R_s,
-                  qp: BoxQPParams, single_shot: bool, kinv0=None):
+    def _sqp_iter(self, s: SQPState, ctx: StepContext, bmodel: BilinearModel, model_A, Q_s,
+                  R_s, qp: BoxQPParams, single_shot: bool, kinv0=None):
         """One SQP iteration of every lane: (the new state, the QP result)."""
         H = self.config.horizon
-        A_s, B_s, D_s = model_along_traj(bmodel, s.Xg[:, :, :H], s.Ug)
+        if self.model_fns is not None:
+            A_s, B_s, D_s = self.model_fns.linearize(model_A, s.Xg[:, :, :H], s.Ug)
+        else:
+            A_s, B_s, D_s = model_along_traj(bmodel, s.Xg[:, :, :H], s.Ug)
         if self.qp_kernel == "lqr":
             lres = lqr_quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s,
                                     sat=self.sat, Delta_s=D_s)
@@ -232,7 +243,7 @@ class FleetRunner:
         U_guess = torch.zeros((B, dim_u, H), dtype=rdtype, device=dev)
         if cfg.lqr_seed:
             X_guess, U_guess = lqr_seed_guess(model.A, lx0, X_targ, U_targ, Q_s, R_s, self.sat,
-                                              cfg)
+                                              cfg, self.model_fns)
         carry = Carry(
             x_cur=x0, x_true=x0.clone(), X_guess=X_guess, U_guess=U_guess,
             u_last=U_targ[:, 0].to(rdtype).expand(B, -1).clone(),
@@ -287,12 +298,13 @@ class FleetRunner:
             if warm:
                 n_it = self.warm_sqp_iters[min(step, len(self.warm_sqp_iters) - 1)]
                 for it in range(n_it):
-                    s, _ = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, cfg.qp_params, False)
+                    s, _ = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s, cfg.qp_params,
+                                          False)
                     if self.early_exit and it + 1 < n_it and host_flag(s.done.all()):
                         break
             else:
-                s, res = self._sqp_iter(s, ctx, bmodel, Q_s, R_s, self.steady_qp_params, True,
-                                        kinv0=kinv)
+                s, res = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s,
+                                        self.steady_qp_params, True, kinv0=kinv)
                 if self.carry_kinv:
                     kinv = self._carry_kinv(kinv, res, carry.done, kinv_counts)
             if record:
@@ -301,7 +313,8 @@ class FleetRunner:
             carry, duals, model = advance(
                 carry, s, step, cfg, ctx, bmodel, model, plants, plant_step,
                 self.exit_condition, noise_t=None if noise is None else noise[step],
-                observe_fn=observe_fn, model_update_fn=model_update_fn if streaming else None)
+                observe_fn=observe_fn, model_update_fn=model_update_fn if streaming else None,
+                model_fns=self.model_fns)
             if streaming:
                 bmodel = bilinear_model(model, cfg)
             if record:
@@ -372,7 +385,8 @@ def batched_mpc(x0, model_state, plants: Plant, X_targ, U_targ, Q, R, Qf,
                 generator: Optional[torch.Generator] = None,
                 model_update_fn: Optional[Callable] = None,
                 exit_condition: Optional[Callable] = None,
-                observe_fn: Optional[Callable] = None) -> MPCResult:
+                observe_fn: Optional[Callable] = None,
+                model_fns: Optional[ModelApplyFns] = None) -> MPCResult:
     """`mpc()` over a lane batch of plants with the semantics of the
     reference's `vmap(mpc)`: one fleet runner on the plants' device, warm
     steps of up to config.max_iter SQP iterations that end once every lane
@@ -386,6 +400,8 @@ def batched_mpc(x0, model_state, plants: Plant, X_targ, U_targ, Q, R, Qf,
     :param plants: a lane batch (leading axis B).
     :param noise: None, or (n_steps, B, n_obs) complex standard normal
         draws; or draw them from `generator`.
+    :param model_fns: None, or a driver.ModelApplyFns replacing the dense
+        linearization and prediction (e.g. parallel.tensor.tp_model_fns).
     :return: MPCResult with a leading lane axis on every field but the
         model's, which keeps the lane axis only where it was refit per lane.
     """
@@ -396,7 +412,7 @@ def batched_mpc(x0, model_state, plants: Plant, X_targ, U_targ, Q, R, Qf,
                          warm_sqp_iters=(config.max_iter,),
                          expm_taylor_k=taylor_k, expm_max_squarings=max_sq,
                          exit_condition=exit_condition, carry_duals=config.qp_warm_duals,
-                         early_exit=True)
+                         early_exit=True, model_fns=model_fns)
     out = runner.run(x0, model_state, plants, X_targ, U_targ, Q, R, Qf, record=True,
                      noise=noise, generator=generator, model_update_fn=model_update_fn,
                      observe_fn=observe_fn)
@@ -410,7 +426,8 @@ def mpc(x0, model_state, plant: Plant, X_targ, U_targ, Q, R, Qf, config: MPCConf
         du=None, *, noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None, model_update_fn: Optional[Callable] = None,
         exit_condition: Optional[Callable] = None,
-        observe_fn: Optional[Callable] = None) -> MPCResult:
+        observe_fn: Optional[Callable] = None,
+        model_fns: Optional[ModelApplyFns] = None) -> MPCResult:
     """One closed-loop rollout: the one-lane `batched_mpc` on the plant's
     device (the card unless the caller built the plant elsewhere).
 
@@ -434,11 +451,13 @@ def mpc(x0, model_state, plant: Plant, X_targ, U_targ, Q, R, Qf, config: MPCConf
         of shape (1, ...), e.g. presets.DistanceExit.
     :param observe_fn: None, or (plants, x (1, dim_e), noise (1, n_obs))
         -> (1, dim_e), e.g. plants.quantum.quantum_observe.
+    :param model_fns: None, or a driver.ModelApplyFns (the row-sharded
+        contractions of parallel.tensor.tp_model_fns).
     """
     res = batched_mpc(x0, model_state, plant[None], X_targ, U_targ, Q, R, Qf, config, sat,
                       du, noise=None if noise is None else noise[:, None], generator=generator,
                       model_update_fn=model_update_fn, exit_condition=exit_condition,
-                      observe_fn=observe_fn)
+                      observe_fn=observe_fn, model_fns=model_fns)
     model = res.model_state
     if model.A.dim() == 3:
         model = tree_map(lambda t: t[0], model)

@@ -1,9 +1,10 @@
-"""Batched matrix exponential of small matrices by scaling-and-squaring with
-a Horner Taylor evaluation (counterpart of mpc4quantum_tpu/ops/expm.py
-`expm_taylor`). Matmul-only, batched over leading dims; it is the plain
-version behind the expm kernel (kernels/expm.py). Also the Taylor budget
-from a norm bound, and the per-step generators and propagators of a control
-trajectory.
+"""Batched matrix exponential of small matrices (counterpart of
+mpc4quantum_tpu/ops/expm.py): scaling-and-squaring with a Horner Taylor
+evaluation (`expm_taylor`, matmul-only, the plain version behind the expm
+kernel, kernels/expm.py) and with the Pade-13 approximant (`expm_pade`, the
+reference's default, whose linear solve runs as a real LU). Also the Taylor
+budget from a norm bound, and the per-step generators and propagators of a
+control trajectory.
 """
 
 from __future__ import annotations
@@ -11,6 +12,46 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..utils.linalg import cx_solve
+
+# Pade-13 numerator coefficients b0..b13, and the largest 1-norm at which
+# the degree-13 approximant is exact to double precision
+_PADE_B = (64764752532480000.0, 32382376266240000.0, 7771770303897600.0,
+           1187353796428800.0, 129060195264000.0, 10559470521600.0, 670442572800.0,
+           33522128640.0, 1323241920.0, 40840800.0, 960960.0, 16380.0, 182.0, 1.0)
+_THETA_13 = 5.371920351148152
+
+
+def expm_pade(A: torch.Tensor, max_squarings: int = 16) -> torch.Tensor:
+    """exp(A) for A of shape (..., d, d), real or complex, by Pade-13 with
+    per-matrix scaling and squaring: s = clip(ceil(log2(max(||A||_1 /
+    theta_13, 1))), 0, max_squarings) squarings, applied as a masked loop
+    of max_squarings steps (a norm that needs more saturates). The solve
+    (V - U) R = V + U of a complex A goes through its real block embedding
+    (utils.linalg.cx_solve), as the reference solves it. Plain PyTorch on
+    any device: the reference computes it outside any kernel.
+    """
+    b = _PADE_B
+    d = A.shape[-1]
+    norm1 = A.abs().sum(dim=-2).amax(dim=-1)
+    s = torch.ceil(torch.log2(torch.clamp(norm1 / _THETA_13, min=1.0))).clamp(0, max_squarings)
+    As = A * torch.exp2(-s)[..., None, None].to(A.dtype)
+    eye = torch.eye(d, dtype=A.dtype, device=A.device).expand(A.shape)
+    A2 = As @ As
+    A4 = A2 @ A2
+    A6 = A2 @ A4
+    U = As @ (A6 @ (b[13] * A6 + b[11] * A4 + b[9] * A2)
+              + b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * eye)
+    V = (A6 @ (b[12] * A6 + b[10] * A4 + b[8] * A2)
+         + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye)
+    if A.is_complex():
+        R = cx_solve(V - U, V + U)
+    else:
+        R = torch.linalg.solve(V - U, V + U)
+    for i in range(max_squarings):
+        R = torch.where((i < s)[..., None, None], R @ R, R)
+    return R
 
 
 def expm_taylor(A: torch.Tensor, order: int = 16, max_squarings: int = 16,

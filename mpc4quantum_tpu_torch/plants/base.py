@@ -70,6 +70,13 @@ def box_norm_bound(G0: torch.Tensor, G1s: torch.Tensor, dt: float, sat) -> float
                                                  for k, s in enumerate(sat_v)))
 
 
+def generator_at(G0: torch.Tensor, G1s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """G0 + sum_i u_i G1_i for one plant (G1s (dim_u, m, m), u (dim_u,)) or
+    a lane batch (G1s (B, dim_u, m, m), u (B, dim_u)): (..., m, m)."""
+    u = u.reshape(G1s.shape[:-2]).to(G1s.dtype)
+    return G0 + torch.sum(u[..., None, None] * G1s, dim=-3)
+
+
 class Plant:
     """Base of the plant dataclasses."""
 

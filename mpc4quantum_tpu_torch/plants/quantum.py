@@ -9,7 +9,13 @@ back to a state estimate through the dual frame (`quantum_observe`).
 Noise is data: the caller passes it, or draws it with a torch.Generator
 of its own; nothing here draws from a global stream.
 
-Measurement adapters (`lift_kind`), all batched over lanes:
+Steps: the fleet runner's `QuantumPlant.step` takes its propagators from one
+`expm_small` launch; `quantum_step` is the reference's Pade form
+(ops.expm.expm_pade, JAX mpc()'s default plant step) and
+`quantum_step_taylor` its fixed-squaring Taylor form.
+
+Measurement adapters (`lift_kind`, a `LiftKind` value), all batched over
+lanes, with `lift_state` / `proj_state` the reference's free functions:
   - "identity": model space equals experiment space;
   - "truncate": a d-level plant observed in its first `lift_dim` levels -
     the lift truncates and renormalizes to unit trace, the proj pads the
@@ -22,6 +28,7 @@ Measurement adapters (`lift_kind`), all batched over lanes:
 from __future__ import annotations
 
 import dataclasses
+import enum
 import math
 from typing import Optional
 
@@ -29,11 +36,22 @@ import numpy as np
 import torch
 
 from ..kernels.expm import expm_small
-from ..ops.expm import expm_taylor, propagators_from_controls
+from ..ops.expm import expm_pade, expm_taylor, propagators_from_controls
 from ..utils.linalg import pinv
-from .base import Plant, box_norm_bound, default_dtype, static_field
+from .base import Plant, box_norm_bound, default_dtype, generator_at, static_field
 
-LIFT_KINDS = ("identity", "truncate", "partial_trace")
+
+
+class LiftKind(str, enum.Enum):
+    """The reference's adapter names; a value is the string a plant's
+    `lift_kind` holds (LiftKind.TRUNCATE == "truncate")."""
+
+    IDENTITY = "identity"
+    TRUNCATE = "truncate"            # d-level plant observed in a k-level subspace
+    PARTIAL_TRACE = "partial_trace"  # bipartite plant observed per subsystem
+
+
+LIFT_KINDS = tuple(kind.value for kind in LiftKind)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +73,8 @@ class QuantumPlant(Plant):
     lift_dim: int = static_field(0)
 
     def __post_init__(self):
+        if isinstance(self.lift_kind, LiftKind):
+            object.__setattr__(self, "lift_kind", self.lift_kind.value)
         if self.lift_kind not in LIFT_KINDS:
             raise ValueError(f"lift_kind={self.lift_kind!r} is not one of {LIFT_KINDS}")
 
@@ -159,16 +179,11 @@ def tensor_proj(stacked_vec: torch.Tensor) -> torch.Tensor:
     return kron.reshape(*lead, d2 * d2)
 
 
-def step_hamiltonians(plant, u: torch.Tensor) -> torch.Tensor:
-    """H_b = H0_b + sum_i u_bi H1_bi for u (B, dim_u): (B, d, d)."""
-    return plant.H0 + torch.sum(u[:, :, None, None] * plant.H1s, dim=1)
-
-
 def step_unitaries(plant, u: torch.Tensor, dt: float, taylor_k: int,
                    max_squarings: int) -> torch.Tensor:
     """U_b = exp(-i dt H_b) from one `expm_small` launch at d; any plant
     with H0 and H1s (quantum, synthesis)."""
-    return expm_small((-1j * dt) * step_hamiltonians(plant, u), taylor_k=taylor_k,
+    return expm_small((-1j * dt) * generator_at(plant.H0, plant.H1s, u), taylor_k=taylor_k,
                       max_squarings=max_squarings)
 
 
@@ -179,11 +194,29 @@ def conjugate(U: torch.Tensor, rho_vec: torch.Tensor) -> torch.Tensor:
     return (U @ rho @ U.conj().transpose(-1, -2)).reshape(rho_vec.shape)
 
 
+def lift_state(plant: QuantumPlant, x: torch.Tensor) -> torch.Tensor:
+    """Experiment state -> model space through the plant's adapter."""
+    return plant.lift(x)
+
+
+def proj_state(plant: QuantumPlant, z: torch.Tensor) -> torch.Tensor:
+    """Model space -> experiment state through the plant's adapter."""
+    return plant.proj(z)
+
+
+def quantum_step(plant: QuantumPlant, rho_vec: torch.Tensor, u: torch.Tensor,
+                 dt: float) -> torch.Tensor:
+    """One exact ZOH step rho' = U rho U^H, U = exp(-i dt H(u)) by the Pade
+    expm (plain PyTorch): the reference mpc()'s default plant step. One
+    plant (rho_vec (d^2,), u (dim_u,)) or a lane batch ((B, d^2), (B, dim_u))."""
+    return conjugate(expm_pade((-1j * dt) * generator_at(plant.H0, plant.H1s, u)), rho_vec)
+
+
 def quantum_step_taylor(plant: QuantumPlant, rho_vec: torch.Tensor, u: torch.Tensor,
                         dt: float, fixed_squarings: int = 4, order: int = 16) -> torch.Tensor:
     """One exact ZOH step per lane with the fixed-squaring Taylor expm;
     accurate while ||dt H(u)||_1 <= 2^fixed_squarings (taylor_norm_bound)."""
-    U = expm_taylor((-1j * dt) * step_hamiltonians(plant, u), order=order,
+    U = expm_taylor((-1j * dt) * generator_at(plant.H0, plant.H1s, u), order=order,
                     fixed_squarings=fixed_squarings)
     return conjugate(U, rho_vec)
 

@@ -21,6 +21,10 @@ from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
 
 pytestmark = pytest.mark.cuda
 
+# every d the expm kernel takes: 2-4 (one team of 2 or 4 threads) and 5-8
+# (a team of 8, the 3-qubit plant's d = 8)
+EXPM_SIZES = list(range(2, 9))
+
 
 @pytest.fixture
 def cuda():
@@ -125,7 +129,7 @@ def test_boxqp_big_matches_plain_solver(cuda, kinv):
     torch.testing.assert_close(ak.rho[resolved], ap.rho[resolved], rtol=4e-2, atol=0)
 
 
-@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("d", EXPM_SIZES)
 @pytest.mark.parametrize("taylor_k,max_squarings", [(12, 0), (18, 12)])
 def test_expm_kernel_matches_plain(cuda, d, taylor_k, max_squarings):
     A = hermitian_batch(300, d, seed=d, hi=0.8 if max_squarings == 0 else 64.0, device=cuda)
@@ -138,7 +142,7 @@ def test_expm_kernel_matches_plain(cuda, d, taylor_k, max_squarings):
 EXPM_FORMS = [(12, 0, 0.8), (18, 12, 64.0)]
 
 
-@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("d", EXPM_SIZES)
 @pytest.mark.parametrize("taylor_k,max_squarings,hi", EXPM_FORMS)
 def test_expm_small_is_one_kernel(cuda, d, taylor_k, max_squarings, hi):
     """The kernel reads and writes the caller's (B, d, d) complex64: a call
@@ -147,7 +151,7 @@ def test_expm_small_is_one_kernel(cuda, d, taylor_k, max_squarings, hi):
     assert graph_node_types(lambda: expm_small(A, taylor_k, max_squarings)) == [0]
 
 
-@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("d", EXPM_SIZES)
 @pytest.mark.parametrize("taylor_k,max_squarings,hi", EXPM_FORMS)
 def test_expm_kernel_nan_matrix_stays_in_its_team(cuda, d, taylor_k, max_squarings, hi):
     """A NaN in one matrix makes that matrix's exponential all NaN, as the
@@ -167,7 +171,7 @@ def test_expm_kernel_nan_matrix_stays_in_its_team(cuda, d, taylor_k, max_squarin
                                atol=1e-5 if max_squarings == 0 else 1e-4)
 
 
-@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("d", EXPM_SIZES)
 def test_expm_small_takes_strided_and_conjugated_inputs(cuda, d):
     """A transposed, conjugated or not 16-byte aligned view gives the result
     of its contiguous copy: the wrapper copies only such views, and the
@@ -183,7 +187,7 @@ def test_expm_small_takes_strided_and_conjugated_inputs(cuda, d):
         torch.testing.assert_close(Ek, Ec, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("d", EXPM_SIZES)
 @pytest.mark.parametrize("B", [1, 33, 301])
 def test_expm_kernel_ragged_batch_matches_plain(cuda, d, B):
     """B not a multiple of the team or of a block of any size: the teams
@@ -408,6 +412,43 @@ def test_plant_steps_on_the_card_match_the_cpu(cuda):
         torch.testing.assert_close(out.cpu().to(torch.complex128), ref, rtol=0, atol=1e-5)
 
 
+def test_three_qubit_plant_steps_on_the_card_match_the_cpu(cuda):
+    """An 8-level plant (the 3-qubit problem's size: d = 8, dim_x 64) steps
+    on the card through one expm_small launch at d 8 and matches the
+    float64 plain step on the CPU; so do the Taylor-form free functions of
+    the Lindblad and synthesis plants at d 4 (one launch each)."""
+    from mpc4quantum_tpu_torch import QuantumPlant, lindblad_step_taylor, presets
+    from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
+    from mpc4quantum_tpu_torch.plants.synthesis import synthesis_step_taylor
+
+    rng = np.random.default_rng(8)
+    herm = lambda: (lambda G: 0.06 * (G + G.conj().T))(rng.normal(size=(8, 8))
+                                                       + 1j * rng.normal(size=(8, 8)))
+    plants = make_scenario_batch(QuantumPlant.create(herm(), [herm(), herm(), herm()],
+                                                     device="cpu"), 512)
+    rho = rng.normal(size=(512, 64)) + 1j * rng.normal(size=(512, 64))
+    x, u = torch.tensor(rho), torch.tensor(rng.uniform(-1.0, 1.0, size=(512, 3)))
+    budget = (12, 2)
+    before = expm_small.launches
+    out = plants.to(cuda, torch.float32).step(x.to(cuda, torch.complex64),
+                                              u.to(cuda, torch.float32), 0.5, *budget)
+    assert expm_small.launches == before + 1
+    torch.testing.assert_close(out.cpu().to(torch.complex128), plants.step(x, u, 0.5, *budget),
+                               rtol=0, atol=1e-4)
+    for make, fn in ((presets.lindblad_state, lindblad_step_taylor),
+                     (presets.not_gate, synthesis_step_taylor)):
+        sc = make(device="cpu", dtype=torch.float64)
+        dim = sc.x0.shape[0]
+        xs = torch.tensor(rng.normal(size=(dim,)) + 1j * rng.normal(size=(dim,)))
+        uu = torch.tensor([0.5 * sc.sat])
+        before = expm_small.launches
+        card = fn(sc.plant.to(cuda, torch.float32), xs.to(cuda, torch.complex64),
+                  uu.to(cuda, torch.float32), sc.config.dt, 2, 12)
+        assert expm_small.launches == before + 1
+        torch.testing.assert_close(card.cpu().to(torch.complex128),
+                                   fn(sc.plant, xs, uu, sc.config.dt, 2, 12), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("name", ["not_state", "not_gate", "lindblad_state", "drag_state",
                                   "not_state_freq", "crosstalk", "cnot_state"])
 def test_plant_steps_hand_expm_a_row_major_batch(cuda, name, monkeypatch):
@@ -484,8 +525,14 @@ def test_batched_lifts_on_the_card_equal_the_cpu(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
+    # the kernel takes d 2-8 (the Pallas kernel any d): d 9 raises, with no
+    # fall back to the plain version
+    before = expm_small.launches
     with pytest.raises(ValueError, match="complex64"):
-        expm_small(torch.zeros(4, 5, 5, dtype=torch.complex64, device=cuda))
+        expm_small(torch.zeros(4, 9, 9, dtype=torch.complex64, device=cuda))
+    with pytest.raises(ValueError, match="complex64"):
+        expm_small(torch.zeros(4, 1, 1, dtype=torch.complex64, device=cuda))
+    assert expm_small.launches == before
     P = torch.eye(17, device=cuda).expand(2, 17, 17)
     v = torch.zeros(2, 17, device=cuda)
     with pytest.raises(ValueError, match="n <= 16"):

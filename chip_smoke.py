@@ -49,10 +49,20 @@ group of one rank (the machine has one card): tp_3q, the JAX package's
 3-qubit tensor-parallel problem (dim_x 64; expm_small at d 8, admm_big at
 n 24) at B 1024, dense and through tp_model_fns, and sharded_fleet, the
 flagship at B 16384 through sharded_mpc against batched_mpc, with the
-collectives counted and timed. One JSON line per phase; then the card's
-name and power limit, the per-kernel record, and last {"ok": true,
-"device": {...}}. Any failure raises and exits non-zero. Without a CUDA
-device it exits 1 and prints no result.
+collectives counted and timed, and graft_entry_torch.py: entry()'s one
+flagship MPC step on the card against float64 on the CPU, and
+dryrun_multichip(1), the sharded tiny rollout on a one-rank NCCL group.
+The kernels' other sizes are checked too: `expm_small` at d 9 to 100 (one
+block a matrix; a workspace above d 97), a NaN matrix at d 16 and a real
+float32 batch, `admm_big` at n 240 to 1024 (the streaming instance); and
+two scenarios of no preset, built from the port's constructors, run at
+B 128 through `run_hostloop_fleet` as the JAX package runs any Scenario:
+damped_pair (cnot_state's pair with amplitude damping, a 16 x 16
+Liouvillian plant step) and cnot_h80 (cnot_state at horizon 80, QP n 240),
+with their gates, launch counts and lanes against float64 on the CPU. One
+JSON line per phase; then the card's name and power limit, the per-kernel
+record, and last {"ok": true, "device": {...}}. Any failure raises and
+exits non-zero. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -172,6 +182,22 @@ FLEETS = {
 # the same; kept states against the float64 CPU path
 RESCUE = dict(lanes=6, steps=20, tol=1e-4,
               launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 42})
+# The two scenarios of no preset that the JAX package runs as any Scenario
+# (8 warm SQP iterations, cold duals, their own 3x300 in both phases),
+# built from the port's constructors (damped_pair_scenario,
+# cnot_h80_scenario): damped_pair, cnot_state's pair with amplitude damping
+# (every plant step one expm_small launch at d 16, QP n 150), and cnot_h80,
+# cnot_state at horizon 80 (QP n 240, admm_big's streaming instance). At
+# cnot's batch with all 200 steps; gates: every lane completes, no QP
+# fails; launches a run as the runner's budgets give them
+# (expected_launches); 4 lanes over 12 steps within 1e-3 of the port's
+# float64 CPU run on the same plants in the final fidelity, exit codes
+# equal (the float32 closed loop of cnot_state tracks float64 to 1e-4
+# over 60 steps and branches between steps 70 and 100).
+SLICE_FLEETS = {"damped_pair": dict(batch=128, reps=2, parity_lanes=4, parity_steps=12,
+                                    parity_tol=1e-3),
+                "cnot_h80": dict(batch=128, reps=2, parity_lanes=4, parity_steps=12,
+                                 parity_tol=1e-3)}
 # The learned-model cells, on the flagship's problem (not_state, n = 10):
 # every lane carries its own model, refit after each step (streaming), and
 # every QP runs cold at the library's 2x150 (benchfleet.make_runner's
@@ -315,10 +341,15 @@ SHARDED = dict(batch=BATCH, fid_min=0.998, equal_tol=1e-6)
 # (part of each row in shared memory); then crosstalk's and cnot's own, the
 # classical phase's Koopman QP (n = 20: 12 of the n <= 32 instance's
 # columns idle) at B 1024 and at B 1 (three of a block's four lanes empty),
-# and tp_3q's (n = 24, the library's 150 iterations a round)
+# tp_3q's (n = 24, the library's 150 iterations a round), the damped pair's
+# launch (n 150 at B 128, 300 iterations a round: its QPs run cold at
+# 3 x 300), and the streaming instance: cnot_h80's n 240 at its batch, at
+# 80 and 100 iterations and at the 300 a round its cold QPs launch, then
+# n 320, 512 and 1024 at smaller batches
 ADMM_SHAPES = ((2048, 32, 50), (2048, 32, 19), (1024, 50, 40), (256, 150, 50), (256, 239, 50),
                (1024, 40, 150), (128, 150, 100), (128, 150, 80), (1024, 20, 150), (1, 20, 150),
-               (1024, 24, 150))
+               (1024, 24, 150), (128, 150, 300), (128, 240, 80), (128, 240, 100),
+               (128, 240, 300), (64, 320, 50), (16, 512, 50), (1, 1024, 10))
 # the bound's peaks: one H100 SXM at its 700 W limit (NVIDIA's data sheet),
 # float32 outside the tensor cores and device memory
 PEAK_FLOPS = 67e12
@@ -342,11 +373,26 @@ EXPM_CASES = {"d2_12_0": (BATCH, EXPM_D, 12, 0, 1e-3, 0.8),
               "d8_12_0_b1024": (1024, 8, 12, 0, 1e-3, 0.8),
               "d5_12_2_b1024": (1024, 5, 12, 2, 0.05, 2.0),
               "d6_12_2_b1024": (1024, 6, 12, 2, 0.05, 2.0),
-              "d7_12_2_b1024": (1024, 7, 12, 2, 0.05, 2.0)}
-# ptxas must report no spill stores or loads in these instances
-EXPM_INSTANCES = tuple(f"expm_small_kernelILi{d}E" for d in range(2, 9))
+              "d7_12_2_b1024": (1024, 7, 12, 2, 0.05, 2.0),
+              # one block a matrix: two qutrits (d 9), damped_pair's plant
+              # step (16 x 16 Liouvillians at its budget (12, 1)), four
+              # qubits in the certified form, d 32 and 64, and d 100 on the
+              # workspace in device memory (above d = 97)
+              "d9_12_2_b1024": (1024, 9, 12, 2, 0.05, 2.0),
+              "d16_12_1_b128": (128, 16, 12, 1, 0.05, 1.6),
+              "d16_12_0_b1024": (1024, 16, 12, 0, 1e-3, 0.8),
+              "d32_12_2_b128": (128, 32, 12, 2, 0.05, 2.0),
+              "d64_12_2_b16": (16, 64, 12, 2, 0.05, 2.0),
+              "d100_12_2_b4": (4, 100, 12, 2, 0.05, 2.0)}
+# a real float32 batch at d 4 (expm_pallas takes real input): run as
+# complex64, the real part returned
+EXPM_REAL = (1024, 4, 12, 2)
+# ptxas must report no spill stores or loads in these instances: the seven
+# expm teams and the two block instances (shared memory, workspace), the
+# five admm_big register instances and the two streaming ones
+EXPM_INSTANCES = (*(f"expm_small_kernelILi{d}E" for d in range(2, 9)), "expm_block_kernel")
 NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
-            *EXPM_INSTANCES)
+            "admm_stream_kernel", *EXPM_INSTANCES)
 # boxqp_big, whole solves: drag's cold warm-phase and warm-started steady
 # forms (Gauss-Jordan), freq's (Newton-Schulz), crosstalk's one form (every
 # solve cold) and cnot's at eps 1e-8; the warm form starts from the cold
@@ -480,17 +526,14 @@ def phase_build(build) -> dict:
     build.library()
     seconds = time.perf_counter() - t0
     require(build.ptxas_log, "no ptxas report beside the kernel library")
-    # the instantiations the fleets run and every admm_big instance
-    wanted = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
-              *EXPM_INSTANCES)
+    # the instantiations the fleets run and every admm_big and expm_small one
     report = {name: rec for name, rec in ptxas_entries(build.ptxas_log).items()
-              if any(w in name for w in wanted)}
+              if any(w in name for w in NO_SPILL)}
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": build.build_seconds,
           "ptxas": report})
-    checked = {name: rec for name, rec in report.items() if any(w in name for w in NO_SPILL)}
-    require(len(checked) == 4 + 5 + 7,
-            f"expected 4 boxqp_small, 5 admm_big and 7 expm_small instances: {checked}")
-    spilled = {name: rec for name, rec in checked.items()
+    require(len(report) == 4 + 7 + 9,
+            f"expected 4 boxqp_small, 7 admm_big and 9 expm_small instances: {report}")
+    spilled = {name: rec for name, rec in report.items()
                if rec.get("spill_stores", -1) != 0 or rec.get("spill_loads", -1) != 0}
     require(not spilled, f"spills in {spilled}")
     return report
@@ -592,16 +635,17 @@ def expm_batch(B: int, d: int, seed: int, max_norm: float, min_norm: float):
     return torch.tensor(np.ascontiguousarray(A), dtype=torch.complex64, device=DEVICE)
 
 
-def liouvillian_batch(B: int, seed: int, max_norm: float, min_norm: float):
-    """Non-normal 4 x 4 matrices shaped like a qubit's dt (A0 + u A1):
-    A0 = -i[H0, .] + D[L], A1 = -i[H1, .] on row-major vec(rho) for random
-    Hermitian H0, H1 and complex L, 1-norms log-uniform in
-    [min_norm, max_norm]."""
+def liouvillian_batch(B: int, seed: int, max_norm: float, min_norm: float, levels: int = 2):
+    """Non-normal D^2 x D^2 matrices (D = levels) shaped like a D-level system's
+    dt (A0 + u A1) (a qubit's 4 x 4, a qubit pair's 16 x 16): A0 = -i[H0, .]
+    + D[L], A1 = -i[H1, .] on row-major vec(rho) for random Hermitian H0,
+    H1 and complex L, 1-norms log-uniform in [min_norm, max_norm]."""
     rng = np.random.default_rng(seed)
     herm = lambda G: 0.5 * (G + np.conj(np.swapaxes(G, 1, 2)))
-    crandn = lambda: rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2))
-    kron = lambda X, Y: np.einsum("bij,bkl->bikjl", X, Y).reshape(B, 4, 4)
-    eye = np.broadcast_to(np.eye(2), (B, 2, 2))
+    n = levels
+    crandn = lambda: rng.normal(size=(B, n, n)) + 1j * rng.normal(size=(B, n, n))
+    kron = lambda X, Y: np.einsum("bij,bkl->bikjl", X, Y).reshape(B, n * n, n * n)
+    eye = np.broadcast_to(np.eye(n), (B, n, n))
     comm = lambda H: -1j * (kron(H, eye) - kron(eye, np.swapaxes(H, 1, 2)))
     H0, H1, L = herm(crandn()), herm(crandn()), 0.3 * crandn()
     LdL = np.conj(np.swapaxes(L, 1, 2)) @ L
@@ -621,12 +665,17 @@ def phase_expm(expm_mod, graph_node_types, floor_us: float) -> dict:
     branches, not_gate's and not_state_freq's d = 2 at (12, 0) on their
     batch of 1024, crosstalk's and cnot's d = 4 at (12, 0) on Hermitian
     generators at their batches, tp_3q's d = 8 at (12, 2) and the certified
-    (12, 0) at B 1024, d = 5, 6 and 7, and a NaN matrix at d = 8. Each call
-    is one kernel on the card and nothing else."""
+    (12, 0) at B 1024, d = 5, 6 and 7, a NaN matrix at d = 8, the block
+    instance at d 9, 16 (damped_pair's 16 x 16 Liouvillians at (12, 1)),
+    32, 64 and 100 (the workspace) and a NaN matrix at d 16, and a real
+    float32 batch at d 4. Each call is one kernel on the card and nothing
+    else."""
     rec = {"phase": "expm_small", "gpu": smi_line(), "launch_floor_us": floor_us}
     for name, (B, d, k, sq, lo, hi) in EXPM_CASES.items():
-        liouvillian = (d, sq) == (4, 1)
-        A = (liouvillian_batch(B, seed=k + d, max_norm=hi, min_norm=lo) if liouvillian
+        # the (12, 1) cases are the Lindblad plants' steps
+        liouvillian = sq == 1
+        A = (liouvillian_batch(B, seed=k + d, max_norm=hi, min_norm=lo,
+                               levels=int(round(d ** 0.5))) if liouvillian
              else expm_batch(B, d, seed=k + d, max_norm=hi, min_norm=lo))
         call_k = lambda: expm_mod.expm_small(A, taylor_k=k, max_squarings=sq)
         call_p = lambda: expm_mod.expm_small_ref(A, taylor_k=k, max_squarings=sq)
@@ -656,20 +705,38 @@ def phase_expm(expm_mod, graph_node_types, floor_us: float) -> dict:
         if d >= 4:
             require(err["max_abs_err_vs_f64"] <= EXPM_F64_TOL,
                     f"expm_small {name} differs from the float64 plain result {err}")
-    # a NaN matrix at d 8 comes out all NaN, its neighbours as the plain version
-    A = expm_batch(301, 8, seed=8, max_norm=2.0, min_norm=0.05)
-    A[7, 7, 0] = complex(float("nan"), 0.0)
-    Ek, Ep = expm_mod.expm_small(A, 12, 2), expm_mod.expm_small_ref(A, 12, 2)
+    # a NaN matrix at d 8 (a team) and d 16 (a block) comes out all NaN, its
+    # neighbours as the plain version
+    for d in (8, 16):
+        A = expm_batch(301, d, seed=d, max_norm=2.0, min_norm=0.05)
+        A[7, d - 1, 0] = complex(float("nan"), 0.0)
+        Ek, Ep = expm_mod.expm_small(A, 12, 2), expm_mod.expm_small_ref(A, 12, 2)
+        torch.cuda.synchronize()
+        rest = torch.arange(301, device=DEVICE) != 7
+        nan = {"nan_matrix_all_nan": bool(torch.isnan(torch.view_as_real(Ek[7])).all()),
+               "others_finite": bool(torch.isfinite(torch.view_as_real(Ek[rest])).all()),
+               "others_max_abs_err": float((Ek[rest] - Ep[rest]).abs().max())}
+        rec[f"d{d}_nan"] = nan
+        require(nan["nan_matrix_all_nan"] and nan["others_finite"]
+                and nan["others_max_abs_err"] <= EXPM_TOL[(12, 2)],
+                f"expm_small d {d} NaN matrix: {nan}")
+    # a real float32 batch: real out, one kernel, as the complex batch
+    B, d, k, sq = EXPM_REAL
+    A = expm_batch(B, d, seed=3, max_norm=2.0, min_norm=0.05).real.contiguous()
+    before = expm_mod.expm_small.launches
+    Ek, Ep = expm_mod.expm_small(A, k, sq), expm_mod.expm_small_ref(A, k, sq)
+    E64 = expm_mod.expm_small_ref(A.double(), k, sq)
     torch.cuda.synchronize()
-    rest = torch.arange(301, device=DEVICE) != 7
-    rec["d8_nan"] = {"nan_matrix_all_nan": bool(torch.isnan(torch.view_as_real(Ek[7])).all()),
-                     "others_finite": bool(torch.isfinite(torch.view_as_real(Ek[rest])).all()),
-                     "others_max_abs_err": float((Ek[rest] - Ep[rest]).abs().max())}
-    require(rec["d8_nan"]["nan_matrix_all_nan"] and rec["d8_nan"]["others_finite"]
-            and rec["d8_nan"]["others_max_abs_err"] <= EXPM_TOL[(12, 2)],
-            f"expm_small d 8 NaN matrix: {rec['d8_nan']}")
+    real = {"B": B, "d": d, "dtype": str(Ek.dtype),
+            "launches": expm_mod.expm_small.launches - before,
+            "max_abs_err": float((Ek - Ep).abs().max()),
+            "max_abs_err_vs_f64": float((Ek.double() - E64).abs().max())}
+    rec[f"d{d}_real"] = real
+    require(Ek.dtype == torch.float32 and real["launches"] == 1
+            and real["max_abs_err"] <= EXPM_TOL[(k, sq)]
+            and real["max_abs_err_vs_f64"] <= EXPM_F64_TOL, f"expm_small real input: {real}")
     rec["tolerance"] = {f"{k}_{sq}": t for (k, sq), t in EXPM_TOL.items()}
-    rec["tolerance_d4_to_d8_vs_f64"] = EXPM_F64_TOL
+    rec["tolerance_d4_up_vs_f64"] = EXPM_F64_TOL
     emit(rec)
     return rec
 
@@ -888,6 +955,68 @@ def phase_rescue(presets, run_hostloop_fleet, fleet_fidelity, counters) -> dict:
     return rec
 
 
+def expected_launches(runner, n_steps: int) -> dict:
+    """The kernel launches one run of `runner` makes, from its budgets: one
+    expm_small a step (plant step), and a QP kernel a warm SQP iteration
+    (warm_sqp_iters a warm step) and a steady step, boxqp_small once a
+    solve, admm_big once a rho round."""
+    cfg = runner.config
+    n_warm = min(2, n_steps) if cfg.warm_start else n_steps
+    warm = sum(runner.warm_sqp_iters[min(s, len(runner.warm_sqp_iters) - 1)]
+               for s in range(n_warm))
+    steady = n_steps - n_warm
+    if runner.qp_kernel == "small":
+        return {"boxqp_small": warm + steady, "expm_small": n_steps, "admm_big": 0}
+    return {"boxqp_small": 0, "expm_small": n_steps,
+            "admm_big": warm * cfg.qp_params.n_rounds
+            + steady * runner.steady_qp_params.n_rounds}
+
+
+def phase_slice_fleet(name, make, make_runner, run_hostloop_fleet, fleet_fidelity,
+                      counters) -> dict:
+    """One of SLICE_FLEETS on the card in float32 (a warm-up run, then the
+    timed run), its gates and launches, and its first lanes over the first
+    steps against the float64 CPU run on the same plants."""
+    spec = SLICE_FLEETS[name]
+    B, reps = spec["batch"], spec["reps"]
+    sc, sc64 = make(DEVICE, torch.float32), make("cpu", torch.float64)
+    plants64 = make_lanes(sc64.plant, B)
+    plants = plants64.to(DEVICE, torch.float32)
+    per_run = expected_launches(make_runner(sc, plants), sc.config.n_steps)
+    for fn in counters.values():
+        fn.launches = 0
+    metrics, out = run_hostloop_fleet(sc, B, plants=plants, reps=reps)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    fid = fleet_fidelity(sc, out["final_x"])
+    lanes, steps = spec["parity_lanes"], spec["parity_steps"]
+    cut = lambda s: dataclasses.replace(s, config=dataclasses.replace(s.config, n_steps=steps))
+    for fn in counters.values():
+        fn.launches = 0
+    _, out_s = run_hostloop_fleet(cut(sc), lanes, plants=plants[:lanes])
+    parity_launches = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.perf_counter()
+    _, out64 = run_hostloop_fleet(cut(sc64), lanes, plants=plants64[:lanes])
+    dfid = np.abs(fleet_fidelity(sc, out_s["final_x"]) - fleet_fidelity(sc64, out64["final_x"]))
+    parity = {"lanes": lanes, "steps": steps, "max_abs_dfid": float(dfid.max()),
+              "bound": spec["parity_tol"], "cpu_s": time.perf_counter() - t0,
+              "exit_codes_equal": bool((out_s["exit_code"].cpu() == out64["exit_code"]).all()),
+              "launches": parity_launches}
+    rec = {"phase": "slice_fleet", "gpu": smi_line(), **metrics, "runs": reps,
+           "launches": launches, "launches_a_run": per_run,
+           "n_qp": sc.config.horizon * sc.config.dim_u, "state_dim": int(sc.x0.shape[0]),
+           "fidelity_median": float(np.median(fid)), "parity": parity}
+    emit(rec)
+    require(tuple(out["final_x"].shape) == (B, sc.x0.shape[0])
+            and bool(torch.isfinite(out["final_x"]).all()), f"{name}: final states not finite")
+    require(launches == {k: v * reps for k, v in per_run.items()},
+            f"{name} kernel launches over {reps} runs: {launches}, expected {per_run} a run")
+    require(metrics["completed_frac"] == 1.0 and metrics["qp_fail_frac"] == 0.0,
+            f"{name} fleet lanes failed: {metrics}")
+    require(parity["exit_codes_equal"] and parity["max_abs_dfid"] <= parity["bound"],
+            f"{name}: first {lanes} lanes differ from the float64 CPU run: {parity}")
+    return rec
+
+
 def learned_scenario(presets, dmdc, kind: str, **kw):
     """not_state with a per-lane model refit every step: (scenario, refit)."""
     sc = presets.not_state(**kw)
@@ -1039,6 +1168,57 @@ def three_qubit_problem(device, dtype, detune: float = 0.99, coupling: float = 0
                 config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=3, order=order),
                 sat=2.5, du=None)
     return args, cx(targ.flatten())
+
+
+def damped_pair_scenario(device, dtype, gamma: float = 0.005):
+    """cnot_state's coupled pair on an open system, built from the port's
+    public constructors as a user would build it (no preset of its own):
+    amplitude damping sqrt(gamma) sigma_- on each qubit in the model (the
+    exact order-2 discretization of the Lindbladian drift and the three
+    Hamiltonian controls, dim_x 16) and in the plant (`LindbladPlant`, a
+    16 x 16 Liouvillian per step), everything else as cnot_state: the
+    ramped target, dt 0.25, H 50 (QP n 150), 200 steps, sat 2 pi 0.05, QP
+    eps 1e-8 at 3x300. Its name is in no tuning table, so the fleet runs it
+    as the reference runs any Scenario: 8 warm SQP iterations, cold duals,
+    its own 3x300 in both phases."""
+    from mpc4quantum_tpu_torch import presets, systems
+    from mpc4quantum_tpu_torch.ops.liouville import (discretize_homogeneous, lindblad_generator,
+                                                     liouville_generator)
+    from mpc4quantum_tpu_torch.plants.lindblad import LindbladPlant
+
+    cnot = presets.cnot_state(order=2, device="cpu", dtype=torch.float64)
+    H_list = systems.RWACoupled().H_list
+    sminus = np.sqrt(gamma) * np.array([[0.0, 1.0], [0.0, 0.0]], complex)
+    c_ops = [np.kron(sminus, np.eye(2)), np.kron(np.eye(2), sminus)]
+    A = discretize_homogeneous([lindblad_generator(H_list[0], c_ops)]
+                               + [liouville_generator(h) for h in H_list[1:]],
+                               cnot.config.dt, 2)
+    plant = LindbladPlant.create(H_list[0], H_list[1:], c_ops=c_ops)
+    a = lambda t: t.numpy()
+    return presets.scenario_from_arrays(
+        "damped_pair", x0=a(cnot.x0), A=A.numpy(), X_targ=a(cnot.X_targ), U_targ=a(cnot.U_targ),
+        Q=a(cnot.Q), R=a(cnot.R), Qf=a(cnot.Qf), sat=cnot.sat, du=cnot.du,
+        target_state=a(cnot.target_state), config=cnot.config, plant=plant, device=device,
+        dtype=dtype)
+
+
+def cnot_h80_scenario(device, dtype, horizon: int = 80):
+    """cnot_state at order 2 with a longer horizon (QP n = 3 horizon, 240
+    at 80): its targets rebuilt for n_steps + horizon + 1 columns with the
+    same incline min(1, 2k / n_steps), renamed so no tuning table applies
+    (8 warm SQP iterations, cold duals, its own 3x300)."""
+    from mpc4quantum_tpu_torch import presets
+
+    sc = presets.cnot_state(order=2, device=device, dtype=dtype)
+    n = sc.config.n_steps
+    incline = torch.tensor([min(1.0, 2 * k / n) for k in range(n + horizon + 1)],
+                           dtype=sc.U_targ.dtype, device=sc.U_targ.device)
+    return dataclasses.replace(
+        sc, name="cnot_h80",
+        X_targ=sc.target_state[:, None] * incline[None, :].to(sc.X_targ.dtype),
+        U_targ=torch.zeros((sc.config.dim_u, n + horizon), dtype=sc.U_targ.dtype,
+                           device=sc.U_targ.device),
+        config=dataclasses.replace(sc.config, horizon=horizon))
 
 
 def phase_train_then_control(systems, torch_mods, counters, host_flag) -> dict:
@@ -1924,6 +2104,50 @@ def phase_sharded_fleet(presets, port, counters, host_flag) -> dict:
     return rec
 
 
+# graft_entry: graft_entry_torch.entry()'s one MPC step on the card in
+# float32 against the same step in float64 on the CPU (on the CPU float32
+# is 9.8e-9 from float64; the first control sits on the box edge), and
+# dryrun_multichip(1), the sharded tiny rollout on a one-rank NCCL group,
+# equal to batched_mpc (the n > 1 ranks run as gloo processes in
+# tests/test_torch_graft.py)
+GRAFT = dict(state_tol=1e-5, dryrun_gap=1e-6)
+
+
+def phase_graft_entry(graft, counters) -> dict:
+    fn, args = graft.entry()
+    fn(*args)
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    x, u = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_launches = {k: fn_.launches for k, fn_ in counters.items()}
+    fn64, args64 = graft.entry(device="cpu", dtype=torch.float64)
+    x64, u64 = fn64(*args64)
+    for k in counters.values():
+        k.launches = 0
+    dry = graft.dryrun_multichip(1)
+    rec = {"phase": "graft_entry", "device": str(x.device), "step_wall_s": wall,
+           "step_launches": step_launches,
+           "max_abs_dx_vs_f64": float((x.cpu().to(torch.complex128) - x64).abs().max()),
+           "abs_du_vs_f64": float((u.cpu().double() - u64).abs().max()),
+           "u": float(u[0]), "dryrun": dry,
+           "dryrun_launches": {k: fn_.launches for k, fn_ in counters.items()},
+           "tolerance": GRAFT}
+    emit(rec)
+    require(x.device.type == DEVICE and step_launches["expm_small"] == 1
+            and step_launches["admm_big"] == 0 and step_launches["boxqp_small"] >= 1,
+            f"graft_entry: one step's launches {step_launches}")
+    require(rec["max_abs_dx_vs_f64"] <= GRAFT["state_tol"]
+            and rec["abs_du_vs_f64"] <= GRAFT["state_tol"],
+            f"graft_entry: the card's step differs from float64 on the CPU: {rec}")
+    require(dry["world"] == 1 and dry["n_valid"] == 6
+            and dry["gap_to_batched"] <= GRAFT["dryrun_gap"], f"graft_entry: dryrun_multichip(1): {dry}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -1988,6 +2212,11 @@ def main() -> int:
     for name in ("mpc_complex", "mpc_embedded", "batched_complex", "batched_embedded"):
         total = add(rec[name]["launches"])
     phase_rescue(presets, run_hostloop_fleet, fleet_fidelity, counters)
+    for name, make in (("damped_pair", damped_pair_scenario), ("cnot_h80", cnot_h80_scenario)):
+        rec = phase_slice_fleet(name, make, make_runner, run_hostloop_fleet, fleet_fidelity,
+                                counters)
+        total = add(rec["launches"])
+        total = add(rec["parity"]["launches"])
     for kind in ("online", "discrep"):
         rec = phase_learned_fleet(kind, presets, dmdc, run_hostloop_fleet, fleet_fidelity,
                                   counters, flagship)
@@ -2017,6 +2246,10 @@ def main() -> int:
         total = add(rec["launches"])
     finally:
         torch.distributed.destroy_process_group()
+    import graft_entry_torch
+    rec = phase_graft_entry(graft_entry_torch, counters)
+    total = add(rec["step_launches"])
+    total = add(rec["dryrun_launches"])
 
     gpu = smi_line()
     print(gpu, flush=True)

@@ -1,10 +1,12 @@
-"""Preset fleet runs through the fleet runner (counterpart of
-mpc4quantum_tpu/benchfleet.py `run_hostloop_fleet`, for the seven presets).
+"""Fleet runs through the fleet runner (counterpart of
+mpc4quantum_tpu/benchfleet.py `run_hostloop_fleet`).
 
-Take a Scenario, build a detuning-sweep lane batch, run it with the
-preset's tuned budgets and return the quality and throughput metrics;
-optionally re-run the marginal lanes under an alternative scenario (the
-rescue pass) and keep each lane's better result.
+Take any Scenario, build a detuning-sweep lane batch, run it with the
+preset's tuned budgets where the tables below have them (the scenario's
+own budgets, cold, where they do not) and the caller's overrides, and
+return the quality and throughput metrics; optionally re-run the marginal
+lanes under an alternative scenario (the rescue pass) and keep each lane's
+better result.
 """
 
 from __future__ import annotations
@@ -39,10 +41,11 @@ from .solvers.boxqp import BoxQPParams
 #       ns_warm, ns_iters reaches the warm phase too;
 #   rho0 - initial-penalty override of both phases (the carried dual and
 #       rho that seed the steady solves come from warm solves at this rho0).
-# A preset with no entry has no steady program: every solve runs the
-# scenario's own QP budget, cold, at the solver's own acceptance. That is
-# crosstalk, whose warm_start = False makes every step a warm step; its
-# cut (rho0 1.0, 1x150, 20 Newton-Schulz iterations) lives in the preset.
+# A scenario with no entry has no tuned steady program: every solve runs
+# the scenario's own QP budget, cold, at the solver's own acceptance. That
+# is crosstalk, whose warm_start = False makes every step a warm step (its
+# cut, rho0 1.0, 1x150, 20 Newton-Schulz iterations, lives in the preset),
+# and any scenario outside the seven presets.
 PRESET_STEADY_BUDGET = {
     "not_state": {"budget": (2, 10)},
     "not_gate": {"budget": (2, 10)},
@@ -57,7 +60,9 @@ PRESET_STEADY_BUDGET = {
 }
 # per-warm-step SQP iterations: step 0 needs 7 line-searched iterations from
 # the cold guess, step 1 converges in one; crosstalk, every step of which is
-# a warm step, keeps 4 on every later step ((7, 2) costs 1e-3 of fidelity)
+# a warm step, keeps 4 on every later step ((7, 2) costs 1e-3 of fidelity);
+# a scenario outside the table runs DEFAULT_WARM_ITERS on every warm step
+DEFAULT_WARM_ITERS = 8
 PRESET_WARM_ITERS = {"not_state": (7, 1), "not_state_freq": (7, 1), "drag_state": (7, 1),
                      "not_gate": (7, 1), "lindblad_state": (7, 1), "cnot_state": (7, 1),
                      "crosstalk": (7, 4)}
@@ -66,10 +71,13 @@ PRESET_WARM_ITERS = {"not_state": (7, 1), "not_state_freq": (7, 1), "drag_state"
 PRESET_WARM_BUDGET = {"not_state_freq": ((2, 150), (2, 40)),
                       "drag_state": ((2, 150), (2, 50)),
                       "cnot_state": ((3, 300), (3, 100))}
-# warm-phase budget of the small presets (n <= 16) that leave qp_params at
-# the library default: three rho rounds of 12 iterations, of 15 for
-# lindblad (its worst lane drops 1.7e-2 at 3x12 in the JAX package's sweep)
+# warm-phase budget of the small problems (n <= 16) that leave qp_params at
+# the library default: three rho rounds of 12 iterations under carried
+# duals, of 15 for lindblad (its worst lane drops 1.7e-2 at 3x12 in the JAX
+# package's sweep) and for every cold run (only that form is proven with
+# cold steady solves)
 SMALL_WARM_BUDGET = {"not_state": (3, 12), "not_gate": (3, 12), "lindblad_state": (3, 15)}
+SMALL_COLD_BUDGET = (3, 15)
 STEADY_ACCEPT = 4e-3
 # expm budgets: "auto" sizes squarings from a norm bound with Taylor degree
 # 12 (exact to ~9e-12 at a scaled norm <= 0.8); "any_norm" is (18, 12)
@@ -99,9 +107,23 @@ def fleet_fidelity(sc: Scenario, final_x: torch.Tensor) -> np.ndarray:
     return np.real(x @ np.conj(targ)) / max(float(np.real(targ @ np.conj(targ))), 1e-12)
 
 
+def warm_iters_for(sc: Scenario, warm_sqp_iters=None):
+    """The warm steps' SQP iterations as the caller gives them, else as
+    PRESET_WARM_ITERS has them, else DEFAULT_WARM_ITERS: an int for every
+    warm step or a per-step tuple."""
+    if warm_sqp_iters is None:
+        return PRESET_WARM_ITERS.get(sc.name, DEFAULT_WARM_ITERS)
+    return warm_sqp_iters
+
+
 def make_runner(sc: Scenario, plants: Plant, expm_budget: str = "auto",
-                kinv: Optional[str] = None, warm_kinv: Optional[bool] = None) -> FleetRunner:
-    """The fleet runner with the preset's tuned budgets.
+                kinv: Optional[str] = None, warm_kinv: Optional[bool] = None, *,
+                warm_sqp_iters=None, warm_duals: Optional[bool] = None,
+                steady_qp_params: Optional[BoxQPParams] = None, qp_kernel: str = "auto",
+                lqr_seed: Optional[bool] = None) -> FleetRunner:
+    """The fleet runner with the preset's tuned budgets and the caller's
+    overrides, resolved as the reference's `run_hostloop_fleet` resolves
+    them (mpc4quantum_tpu/benchfleet.py:243-380).
 
     :param kinv: None = the preset's tuned K-inverse (PRESET_STEADY_BUDGET
         "kinv", else the scenario's own); a BoxQPParams.kinv method forces
@@ -109,8 +131,24 @@ def make_runner(sc: Scenario, plants: Plant, expm_budget: str = "auto",
     :param warm_kinv: None = the preset's default (no preset carries);
         True / False set config.qp_warm_kinv, the steady K-inverse carry
         (FleetRunner; the boxqp_big route only).
+    :param warm_sqp_iters: SQP iterations of the warm steps, an int for
+        every warm step or a per-step tuple; None = PRESET_WARM_ITERS, else
+        DEFAULT_WARM_ITERS.
+    :param warm_duals: None = carried duals where the preset has a tuned
+        steady budget or `steady_qp_params` is given, cold otherwise;
+        True / False force it. Forced, the preset's tuned steady budget,
+        rho0 and Newton-Schulz cut are not applied; False also keeps the
+        scenario's full warm budget (the tuned warm cuts were swept under
+        carried duals).
+    :param steady_qp_params: the steady phase's BoxQPParams, as given;
+        None = the tuned steady budget, or the warm phase's.
+    :param qp_kernel: "auto" (by n), "small" or "big" (FleetRunner);
+        "big_unroll", the reference's unrolled-loop form of "big" on the
+        TPU, runs as "big".
+    :param lqr_seed: None = the scenario's config.lqr_seed; True / False
+        set it.
 
-    A streaming scenario (sc.config.streaming) keeps the preset's warm SQP
+    A streaming scenario (sc.config.streaming) keeps the warm SQP
     iterations but runs every QP cold at the scenario's own budget, as one
     `mpc()` lane does: the budgets were swept on a fixed model, and under
     per-lane refits the carried duals and the cut budgets fail lanes
@@ -119,47 +157,63 @@ def make_runner(sc: Scenario, plants: Plant, expm_budget: str = "auto",
     2x150). The JAX bench's forced-cold 3x15 keeps every lane noiseless but
     lower (min 0.99428 against 0.99652 at 2x150), and at sigma 1e-4 5 of
     its 64 lanes end on a QP failure, none at 2x150
-    (tests/test_torch_learn.py::test_reference_loses_the_same_lanes)."""
-    if sc.name not in PRESET_WARM_ITERS:
-        raise NotImplementedError(f"preset {sc.name!r} has no tuned budgets")
+    (tests/test_torch_learn.py::test_reference_loses_the_same_lanes), so
+    it refuses warm_duals=True and steady_qp_params."""
     if sc.config.solver != "qp":
         raise ValueError("the fleets run the condensed box-QP kernels and cannot honor "
                          f"config.solver={sc.config.solver!r}; use mpc() or batched_mpc")
-    tuned = PRESET_STEADY_BUDGET.get(sc.name)
+    qp_kernel = "big" if qp_kernel == "big_unroll" else qp_kernel
+    warm_sqp_iters = warm_iters_for(sc, warm_sqp_iters)
+    warm_iters = (tuple(warm_sqp_iters) if isinstance(warm_sqp_iters, (tuple, list))
+                  else (warm_sqp_iters,))
+    if sc.config.streaming and (warm_duals or steady_qp_params is not None):
+        raise ValueError("a streaming fleet runs every QP cold: it takes no warm_duals=True "
+                         "or steady_qp_params")
+    preset = PRESET_STEADY_BUDGET.get(sc.name)
+    tuned = None
+    if warm_duals is None:
+        warm_duals = preset is not None or steady_qp_params is not None
+        tuned = preset if steady_qp_params is None else None
     taylor_k, max_sq = expm_budget_for(plants, sc.config.dt, sc.sat, expm_budget)
-    kw = dict(du=sc.du, warm_sqp_iters=PRESET_WARM_ITERS[sc.name], expm_taylor_k=taylor_k,
-              expm_max_squarings=max_sq, exit_condition=sc.exit_condition)
+    kw = dict(du=sc.du, warm_sqp_iters=warm_iters, expm_taylor_k=taylor_k,
+              expm_max_squarings=max_sq, exit_condition=sc.exit_condition,
+              qp_kernel=qp_kernel)
     if kinv is None:
-        kinv = (tuned or {}).get("kinv")
+        kinv = (preset or {}).get("kinv")
     # the kernel route whatever the config's qp_backend (the reference's
     # HostLoopMPC with qp_impl="pallas")
     cfg = dataclasses.replace(sc.config, qp_backend="ns",
                               qp_warm_kinv=bool(warm_kinv) if warm_kinv is not None
                               else sc.config.qp_warm_kinv)
-    if kinv is not None:
-        cfg = dataclasses.replace(cfg, qp_params=dataclasses.replace(cfg.qp_params, kinv=kinv))
-    if cfg.streaming:
-        return FleetRunner(cfg, sc.sat, steady_qp_params=None, carry_duals=False, **kw)
-    if tuned is None:
-        return FleetRunner(cfg, sc.sat, steady_qp_params=None, **kw)
+    if lqr_seed is not None:
+        cfg = dataclasses.replace(cfg, lqr_seed=bool(lqr_seed))
     own = cfg.qp_params
-    qp = dataclasses.replace(own, rho0=tuned.get("rho0", own.rho0))
-    warm_budget = PRESET_WARM_BUDGET.get(sc.name)
+    qp = own if kinv is None else dataclasses.replace(own, kinv=kinv)
+    if steady_qp_params is not None and kinv is not None:
+        steady_qp_params = dataclasses.replace(steady_qp_params, kinv=kinv)
+    if cfg.streaming:
+        return FleetRunner(dataclasses.replace(cfg, qp_params=qp), sc.sat,
+                           steady_qp_params=None, carry_duals=False, **kw)
+    if tuned is not None:
+        qp = dataclasses.replace(qp, rho0=tuned.get("rho0", qp.rho0),
+                                 ns_iters=tuned.get("ns_warm", tuned.get("ns_iters", qp.ns_iters)))
+    warm_budget = PRESET_WARM_BUDGET.get(sc.name) if warm_duals else None
     if warm_budget is not None and (qp.n_rounds, qp.max_iter) == warm_budget[0]:
         qp = dataclasses.replace(qp, n_rounds=warm_budget[1][0], max_iter=warm_budget[1][1])
     if cfg.horizon * cfg.dim_u <= 16 and (qp.n_rounds, qp.max_iter) == (
             BoxQPParams.n_rounds, BoxQPParams.max_iter):
-        rounds, iters = SMALL_WARM_BUDGET[sc.name]
+        rounds, iters = (SMALL_WARM_BUDGET.get(sc.name, (3, 12)) if warm_duals
+                         else SMALL_COLD_BUDGET)
         qp = dataclasses.replace(qp, n_rounds=rounds, max_iter=iters)
-    qp = dataclasses.replace(qp, ns_iters=tuned.get("ns_warm", tuned.get("ns_iters",
-                                                                         qp.ns_iters)))
     cfg = dataclasses.replace(cfg, qp_params=qp)
-    rounds, iters = tuned["budget"]
-    steady = dataclasses.replace(qp, n_rounds=rounds, max_iter=iters,
-                                 accept_abs=STEADY_ACCEPT, accept_rel=STEADY_ACCEPT,
-                                 ns_iters=tuned.get("ns_iters", own.ns_iters),
-                                 scale=tuned.get("scale", False) or own.scale)
-    return FleetRunner(cfg, sc.sat, steady_qp_params=steady, **kw)
+    steady = steady_qp_params
+    if tuned is not None:
+        rounds, iters = tuned["budget"]
+        steady = dataclasses.replace(qp, n_rounds=rounds, max_iter=iters,
+                                     accept_abs=STEADY_ACCEPT, accept_rel=STEADY_ACCEPT,
+                                     ns_iters=tuned.get("ns_iters", own.ns_iters),
+                                     scale=tuned.get("scale", False) or own.scale)
+    return FleetRunner(cfg, sc.sat, steady_qp_params=steady, carry_duals=warm_duals, **kw)
 
 
 def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.ndarray,
@@ -172,9 +226,10 @@ def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.nd
     not completed - are gathered, padded to a power of two by repeating the
     first of them (few distinct batch shapes), and run under
     rescue["scenario"] (default `sc`) on the same plants with the same
-    `expm_budget` and `runner_kw` (make_runner's kinv and warm_kinv). A lane
-    takes the re-run's state and exit code where that run completed with a
-    higher fidelity.
+    `expm_budget` and `runner_kw` (make_runner's keyword options;
+    warm_sqp_iters only where the alternative scenario has `sc`'s name, as
+    the reference passes it). A lane takes the re-run's state and exit code
+    where that run completed with a higher fidelity.
 
     :return: the rescue's metrics: rescued_lanes, rescue_improved,
         rescue_batch, rescue_s and rescue_launches (the kernel launches of
@@ -182,6 +237,8 @@ def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.nd
     """
     thr = float(rescue.get("threshold", 0.99))
     sc_alt = rescue.get("scenario", sc)
+    if sc_alt.name != sc.name:
+        runner_kw = {**runner_kw, "warm_sqp_iters": None}
     codes = out["exit_code"].cpu().numpy()
     marginal = (fid < thr) | ~((codes == 0) | (codes == 1))
     if not marginal.any():
@@ -211,14 +268,18 @@ def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.nd
 def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
                        seed: int = 1, detune_scale: float = 0.01, reps: int = 1,
                        expm_budget: str = "auto", kinv: Optional[str] = None,
-                       warm_kinv: Optional[bool] = None, rescue: Optional[dict] = None,
+                       warm_kinv: Optional[bool] = None, warm_sqp_iters=None,
+                       warm_duals: Optional[bool] = None,
+                       steady_qp_params: Optional[BoxQPParams] = None, qp_kernel: str = "auto",
+                       lqr_seed: Optional[bool] = None, rescue: Optional[dict] = None,
                        record: bool = False, noise: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None,
                        model_update_fn: Optional[Callable] = None,
                        observe_fn: Optional[Callable] = None,
                        checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
                        progress_every: int = 0):
-    """Run a `batch`-lane detuning-sweep fleet of `sc` on the scenario's device.
+    """Run a `batch`-lane detuning-sweep fleet of any scenario `sc` on the
+    scenario's device.
 
     :param plants: an explicit lane batch (e.g. JAX-drawn plants through
         convert.scenario_from_numpy); None = make_scenario_batch from a CPU
@@ -233,6 +294,13 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
         "kinv_warm_solves" and "kinv_guard_cold" (lanes whose carried
         inverse failed the guard and restarted cold; both 0 without the
         carry, which runs only on the boxqp_big route).
+    :param warm_sqp_iters, warm_duals, steady_qp_params, qp_kernel, lqr_seed:
+        the reference's overrides (`make_runner`): the warm steps' SQP
+        iterations (an int or a per-step tuple), carried duals, the steady
+        phase's budget, the QP kernel ("auto" / "small" / "big";
+        "big_unroll" runs as "big") and the LQR-seeded initial guess. The
+        reference's `granularity`, `steady_fuse`, `qp_impl` and
+        `plant_impl` choose TPU dispatch forms and have no counterpart.
     :param rescue: None, or {"threshold": fid, "scenario": Scenario} of a
         per-lane rescue pass (`rescue_pass`) after the last run. Rates and
         times stay the main pass's; the rescue's cost is rescue_s.
@@ -261,7 +329,10 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
         # the complex condensed products need full f32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    runner = make_runner(sc, plants, expm_budget, kinv=kinv, warm_kinv=warm_kinv)
+    runner_kw = dict(kinv=kinv, warm_kinv=warm_kinv, warm_sqp_iters=warm_sqp_iters,
+                     warm_duals=warm_duals, steady_qp_params=steady_qp_params,
+                     qp_kernel=qp_kernel, lqr_seed=lqr_seed)
+    runner = make_runner(sc, plants, expm_budget, **runner_kw)
     args = (sc.x0, sc.model, plants, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf)
     run_kw = dict(record=record, noise=noise, generator=generator,
                   model_update_fn=model_update_fn, observe_fn=observe_fn)
@@ -281,10 +352,10 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
         out, t = timed()
         rep_s.append(t)
     best = min(rep_s) if rep_s else first_s
+    warm_iters = warm_iters_for(sc, warm_sqp_iters)
     fid = fleet_fidelity(sc, out["final_x"])
     rescue_info = {} if rescue is None else rescue_pass(sc, rescue, plants, out, fid,
-                                                        expm_budget, kinv=kinv,
-                                                        warm_kinv=warm_kinv)
+                                                        expm_budget, **runner_kw)
     codes = out["exit_code"].cpu().numpy()
     kinv_counts = ([0, 0] if runner.kinv_counts is None
                    else [int(c) for c in runner.kinv_counts.cpu()])
@@ -314,12 +385,14 @@ def run_hostloop_fleet(sc: Scenario, batch: int, plants: Optional[Plant] = None,
         "qp_impl": "cuda" if device.type == "cuda" else "plain",
         "plant_impl": "cuda" if device.type == "cuda" else "plain",
         "warm_duals": runner.carry_duals and runner.config.warm_start,
-        "lqr_seed": bool(sc.config.lqr_seed),
+        "lqr_seed": bool(runner.config.lqr_seed),
         "warm_kinv": bool(runner.config.qp_warm_kinv),
         "kinv": steady.kinv,
         "kinv_warm_solves": kinv_counts[0],
         "kinv_guard_cold": kinv_counts[1],
-        "warm_sqp_iters": list(runner.warm_sqp_iters),
+        # as the caller or the table gave it: an int, or a per-step list
+        "warm_sqp_iters": (list(warm_iters) if isinstance(warm_iters, (tuple, list))
+                           else int(warm_iters)),
         "expm_budget": [runner.expm_taylor_k, runner.expm_max_squarings],
         **rescue_info,
     }

@@ -1,5 +1,7 @@
 // Relaxed-ADMM iterations of a batch of box QPs from a precomputed K^-1,
-// any n up to 239, with each thread's part of a K^-1 row in registers.
+// any n >= 1: up to n = 239 with each thread's part of a K^-1 row in
+// registers, above it streaming K^-1's rows from device memory (the
+// streaming instance, at the end of this file).
 //
 // Replaces the Pallas TPU kernel
 // mpc4quantum_tpu/ops/pallas_qp.py::_admm_loop_kernel (dispatched by
@@ -56,13 +58,41 @@
 // - No tensor cores: each lane has one right-hand side an iteration and the
 //   iterations are serial, and wgmma would need TF32 or bf16 operands,
 //   whose ~3 digits the ADMM's 1e-6 tolerances cannot take.
+//
+// The streaming instance, n >= 240. A lane's K^-1 no longer fits an SM (at
+// n = 240 it is 230 KB against 256 KB of registers and 227 KB of shared
+// memory), so one block of 1024 threads takes one lane and reads K^-1 from
+// device memory every iteration, as the Pallas kernel's one-dispatch-a-
+// lane-tile form does above 4 MB a block (pallas_qp.py:439-447). Warp w
+// takes rows 4w..4w+3, then the next four of its stride: its 32 threads
+// read the four rows in coalesced 128-byte pieces (up to 16 loads in
+// flight a thread), multiply by the rhs vector, which lives in shared memory (2 n
+// floats, double-buffered), and sum each row by a xor shuffle; thread j of
+// the warp then updates z and y of row 4w + j elementwise, keeping x, z
+// and y of the lane in the output arrays, and writes that row of the next
+// rhs vector into the other buffer: one barrier an iteration. A row sums its
+// columns in another order than the plain version (strided by 32, then a
+// shuffle tree): float32 rounding, held to the same tolerance as the
+// split-row instances. At B 128, n 240 the batch's K^-1 is 29.5 MB, inside
+// the 50 MB L2, so the kernel is bound by L2 bandwidth and by the
+// iterations' serial chain, not by its flops. Above n = 29,056 the two rhs
+// buffers (8 n bytes) pass the 227 KB of shared memory; there they sit in a
+// workspace in device memory that the wrapper allocates (B x 2 n floats),
+// so no n is refused. Spreading a lane's K^-1 over a thread-block
+// cluster's distributed shared memory, 2-4 SMs a lane, is the next step
+// (ROADMAP queue 2).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxN = 239;
+constexpr int kMaxN = 239;  // the largest n of the register instances
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kStreamThreads = 1024;
+constexpr int kStreamRows = 4;  // rows a warp of the streaming instance sums at once
+// the largest n whose two rhs buffers fit the 227 KB of shared memory a
+// block may opt into
+constexpr int kStreamSmemMaxN = 232448 / 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 // NaN-propagating max, min and clip, matching jnp.maximum / jnp.minimum:
@@ -244,16 +274,117 @@ cudaError_t launch(const float* kinv, const float* q, const float* lb, const flo
   return cudaGetLastError();
 }
 
+// the streaming instance: rhs in shared memory (SMEM), or in the lane's
+// slice of the workspace ws (B x 2n floats)
+template <bool SMEM>
+__global__ void __launch_bounds__(kStreamThreads)
+admm_stream_kernel(const float* __restrict__ kinv, const float* __restrict__ q_in,
+                   const float* __restrict__ lb_in, const float* __restrict__ ub_in,
+                   const float* __restrict__ rho_in, const float* __restrict__ x_in,
+                   const float* __restrict__ z_in, const float* __restrict__ y_in,
+                   float* __restrict__ x_out, float* __restrict__ z_out,
+                   float* __restrict__ y_out, float* ws, int n, int iters, float sigma,
+                   float alpha) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t lane = blockIdx.x;
+  float* rhs = SMEM ? smem : ws + lane * 2 * n;
+  const float* klane = kinv + lane * n * n;
+  const size_t base = lane * n;
+  const float* q = q_in + base;
+  const float* lb = lb_in + base;
+  const float* ub = ub_in + base;
+  float* x = x_out + base;
+  float* z = z_out + base;
+  float* y = y_out + base;
+  const float rho = __ldg(rho_in + lane);
+  const float one_m_alpha = 1.0f - alpha;
+  // the lane's iterates go to the outputs, where the updates keep them, and
+  // the first rhs vector to buffer 0
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float xi = __ldg(x_in + base + i), zi = __ldg(z_in + base + i),
+                yi = __ldg(y_in + base + i);
+    x[i] = xi;
+    z[i] = zi;
+    y[i] = yi;
+    rhs[i] = sigma * xi - __ldg(q + i) + rho * zi - yi;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, t = threadIdx.x % 32, warps = blockDim.x / 32;
+  for (int it = 0; it < iters; ++it) {
+    const float* v = rhs + (it & 1) * n;
+    float* v_next = rhs + ((it + 1) & 1) * n;
+    // kStreamRows rows a warp at a time and the column loop unrolled by 4,
+    // so each thread has up to 16 loads in flight; after the shuffle sums
+    // thread j updates row r0 + j
+    for (int r0 = warp * kStreamRows; r0 < n; r0 += warps * kStreamRows) {
+      const int rows = n - r0 < kStreamRows ? n - r0 : kStreamRows;
+      const float* krow = klane + (size_t)r0 * n;
+      float acc[kStreamRows];
+#pragma unroll
+      for (int j = 0; j < kStreamRows; ++j) acc[j] = 0.0f;
+#pragma unroll 4
+      for (int c = t; c < n; c += 32) {
+        const float vc = v[c];
+#pragma unroll
+        for (int j = 0; j < kStreamRows; ++j)
+          if (j < rows) acc[j] = fmaf(__ldg(krow + (size_t)j * n + c), vc, acc[j]);
+      }
+      float mine = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kStreamRows; ++j) {
+        for (int m = 16; m > 0; m >>= 1) acc[j] += __shfl_xor_sync(kFull, acc[j], m);
+        if (t == j) mine = acc[j];
+      }
+      if (t < rows) {
+        const int r = r0 + t;
+        const float zr = z[r], yr = y[r];
+        const float z_arg = alpha * mine + one_m_alpha * zr;
+        const float z_new = nan_min(nan_max(z_arg + yr / rho, __ldg(lb + r)), __ldg(ub + r));
+        const float y_new = yr + rho * (z_arg - z_new);
+        x[r] = mine;
+        z[r] = z_new;
+        y[r] = y_new;
+        v_next[r] = sigma * mine - __ldg(q + r) + rho * z_new - y_new;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+cudaError_t launch_stream(const float* kinv, const float* q, const float* lb, const float* ub,
+                          const float* rho, const float* x, const float* z, const float* y,
+                          float* x_out, float* z_out, float* y_out, float* ws, int B, int n,
+                          int iters, float sigma, float alpha, cudaStream_t stream) {
+  if (n <= kStreamSmemMaxN) {
+    // opted into once, at the largest n, so a launch makes no other API call
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        admm_stream_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(2 * sizeof(float) * kStreamSmemMaxN));
+    if (attr != cudaSuccess) return attr;
+    admm_stream_kernel<true><<<B, kStreamThreads, 2 * sizeof(float) * n, stream>>>(
+        kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, nullptr, n, iters, sigma, alpha);
+  } else {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    admm_stream_kernel<false><<<B, kStreamThreads, 0, stream>>>(
+        kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, ws, n, iters, sigma, alpha);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// ws: null, or above n = kStreamSmemMaxN a workspace of B x 2n floats
 extern "C" int mpc4q_admm_big(const float* kinv, const float* q, const float* lb,
                               const float* ub, const float* rho, const float* x,
                               const float* z, const float* y, float* x_out, float* z_out,
-                              float* y_out, int B, int n, int iters, float sigma,
+                              float* y_out, float* ws, int B, int n, int iters, float sigma,
                               float alpha, void* stream) {
-  if (n < 1 || n > kMaxN || iters < 0) return cudaErrorInvalidValue;
+  if (n < 1 || iters < 0) return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > kMaxN)
+    return launch_stream(kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, ws, B, n, iters,
+                         sigma, alpha, s);
 #define ARGS kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, B, n, iters, sigma, alpha, s
   if (n <= 32) return launch<32, 1, 4, false, 32>(ARGS);
   if (n <= 64) return launch<64, 1, 1, false, 64>(ARGS);

@@ -1,5 +1,7 @@
-// Batched exponential of small complex matrices, d from 2 to 8: a team of
-// T threads a matrix, thread j carrying column j of the Taylor chain.
+// Batched exponential of complex matrices of any size d >= 1: at d 2-8 a
+// team of T threads a matrix, thread j carrying column j of the Taylor
+// chain; at every other d one thread block a matrix (the block instance,
+// at the end of this file).
 //
 // Replaces the Pallas TPU kernel mpc4quantum_tpu/ops/pallas_expm.py::_expm_kernel.
 // With max_squarings > 0 each matrix takes its 1-norm,
@@ -54,6 +56,28 @@
 // of 64, d = 3 at B = 2048 256 blocks of 32 and d = 2 at B = 1024 64 blocks
 // of 32, against 128, 128, 16 and 8 blocks of 128 one thread a matrix;
 // d = 8 at B = 1024 runs 256 blocks of 32.
+//
+// The block instance, d = 1 and d >= 9. The team design cannot grow: at
+// d = 8 X alone is 128 of a thread's 182 registers. So one thread block
+// takes one matrix, X and the Horner iterate P live in shared memory (P
+// double-buffered: the step reads one buffer and writes the other, one
+// __syncthreads a step), and thread t computes the entries e = t, t +
+// blockDim, ... of each product: P_new[i, j] = delta_ij + sum_m X[i, m]
+// P[m, j] / k, summed over m = 0..d-1 in order as everywhere above, so the
+// result sits within float32 rounding of the plain version. A squaring is
+// the same loop with P in place of X. The 1-norm is a block reduction of
+// the column sums with the NaN-propagating max, and each matrix takes its
+// own squarings, as in the team instances. 3 x 8 d^2 bytes of shared memory
+// a block fit the 227 KB a block may hold up to d = 97 (kSmemMaxD; opted
+// into once, so launches capture in CUDA graphs); above it the same code
+// runs on a workspace in device memory that the wrapper allocates
+// (B x 3 x 8 d^2 bytes), so no d is refused. The block has min(1024,
+// 32 ceil(d^2 / 32)) threads: one entry a thread up to d 32 (256 threads
+// at d 16), several from d 33. What bounds it: a step is d shared loads of X and of P
+// and d complex FMAs an entry, all threads of the block in lockstep behind
+// the barrier; B below the SM count leaves SMs idle (d 64 at B 16, d 100 at
+// B 4). A tiled product (a thread owning a 2 x 2 or 4 x 4 tile of P, X and
+// P read once a tile) is the next step (ROADMAP queue 2).
 
 #include <cuda_runtime.h>
 
@@ -202,6 +226,123 @@ expm_small_kernel(const float2* __restrict__ A, float2* __restrict__ out, int B,
   for (int i = 0; i < D; ++i) o[i * D + j] = make_float2(pr[i], pi[i]);
 }
 
+constexpr int kBlockMaxThreads = 1024;
+// the largest d whose X and two P buffers, 3 x 8 d^2 bytes, fit the
+// 227 KB of shared memory a block may opt into
+constexpr int kSmemMaxD = 97;
+
+// the NaN-propagating max over the block, returned to every thread
+// (blockDim.x a multiple of 32)
+__device__ float block_nan_max(float v) {
+  __shared__ float warp_max[32];
+  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = v;
+  __syncthreads();
+  v = threadIdx.x % 32 < blockDim.x / 32 ? warp_max[threadIdx.x % 32] : 0.0f;
+  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// out = (I if diag else 0) + X P * scale over the block's entries,
+// summed over m = 0..d-1 in order
+__device__ __forceinline__ void block_product(const float2* X, const float2* P, float2* out,
+                                              int d, float scale, bool diag) {
+  const int E = d * d;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int i = e / d, j = e - i * d;
+    const float2* x = X + i * d;
+    const float2 x0 = x[0], p0 = P[j];
+    float re = x0.x * p0.x - x0.y * p0.y;
+    float im = x0.x * p0.y + x0.y * p0.x;
+    for (int m = 1; m < d; ++m) {
+      const float2 xm = x[m], pm = P[m * d + j];
+      cfma(xm.x, xm.y, pm.x, pm.y, re, im);
+    }
+    out[e] = diag ? make_float2((i == j ? 1.0f : 0.0f) + re * scale, im * scale)
+                  : make_float2(re, im);
+  }
+}
+
+// one block an SM at the most threads: ptxas may take 64 registers a thread
+template <bool SMEM>
+__global__ void __launch_bounds__(kBlockMaxThreads, 1)
+expm_block_kernel(const float2* __restrict__ A, float2* __restrict__ out, float2* ws, int d,
+                  int taylor_k, int max_squarings) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int E = d * d;
+  const size_t b = blockIdx.x;
+  // X, then the two buffers of P: in shared memory, or the matrix's slice
+  // of the workspace
+  float2* X = SMEM ? smem : ws + b * 3 * E;
+  float2* p = X + E;      // the current iterate
+  float2* p_next = X + 2 * E;
+  const float2* a = A + b * E;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) X[e] = __ldg(a + e);
+  __syncthreads();
+
+  int s = 0;
+  if (max_squarings > 0) {
+    float norm1 = 0.0f;
+    for (int c = threadIdx.x; c < d; c += blockDim.x) {
+      float col = 0.0f;
+      for (int i = 0; i < d; ++i) {
+        const float2 v = X[i * d + c];
+        col += sqrtf(v.x * v.x + v.y * v.y);
+      }
+      norm1 = nan_max(norm1, col);
+    }
+    norm1 = block_nan_max(norm1);
+    const float sc = clip(ceilf(log2f(nan_max(norm1, 1.0f))), 0.0f, (float)max_squarings);
+    s = sc == sc ? (int)sc : 0;  // a NaN norm scales X to NaN and squares nothing
+    const float scale = exp2f(-sc);
+    for (int e = threadIdx.x; e < E; e += blockDim.x) {
+      X[e].x *= scale;
+      X[e].y *= scale;
+    }
+  }
+  for (int e = threadIdx.x; e < E; e += blockDim.x)
+    p[e] = make_float2(e / d == e % d ? 1.0f : 0.0f, 0.0f);
+  __syncthreads();
+
+  // Horner Taylor: P = I + X P / k for k = K..1; then s squarings
+  for (int k = taylor_k; k >= 1; --k) {
+    const float inv_k = k <= kInvMax ? kInv[k] : 1.0f / (float)k;
+    block_product(X, p, p_next, d, inv_k, true);
+    __syncthreads();
+    float2* t = p;
+    p = p_next;
+    p_next = t;
+  }
+  for (int step = 0; step < s; ++step) {
+    block_product(p, p, p_next, d, 1.0f, false);
+    __syncthreads();
+    float2* t = p;
+    p = p_next;
+    p_next = t;
+  }
+  float2* o = out + b * E;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) o[e] = p[e];
+}
+
+cudaError_t launch_block(const float2* A, float2* out, float2* ws, int B, int d, int taylor_k,
+                         int max_squarings, cudaStream_t stream) {
+  const int E = d * d;
+  const int threads = E >= kBlockMaxThreads ? kBlockMaxThreads : (E + 31) / 32 * 32;
+  if (d <= kSmemMaxD) {
+    // opted into once, at the largest d, so a launch makes no other API call
+    static const size_t smem_max = 3 * sizeof(float2) * kSmemMaxD * kSmemMaxD;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        expm_block_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max);
+    if (attr != cudaSuccess) return attr;
+    expm_block_kernel<true><<<B, threads, 3 * sizeof(float2) * E, stream>>>(
+        A, out, nullptr, d, taylor_k, max_squarings);
+  } else {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    expm_block_kernel<false><<<B, threads, 0, stream>>>(A, out, ws, d, taylor_k, max_squarings);
+  }
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const float2* A, float2* out, int B, int taylor_k, int max_squarings,
                    cudaStream_t stream) {
@@ -215,10 +356,11 @@ cudaError_t launch(const float2* A, float2* out, int B, int taylor_k, int max_sq
 
 }  // namespace
 
-extern "C" int mpc4q_expm_small(const void* A, void* out, int B, int d, int taylor_k,
+// ws: null, or at d > kSmemMaxD a workspace of B x 3 x d^2 float2
+extern "C" int mpc4q_expm_small(const void* A, void* out, void* ws, int B, int d, int taylor_k,
                                 int max_squarings, void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (taylor_k < 1 || max_squarings < 0) return cudaErrorInvalidValue;
+  if (d < 1 || taylor_k < 1 || max_squarings < 0) return cudaErrorInvalidValue;
   if (d % 2 == 0 && reinterpret_cast<uintptr_t>(A) % 16 != 0) return cudaErrorMisalignedAddress;
   const float2* a = static_cast<const float2*>(A);
   float2* o = static_cast<float2*>(out);
@@ -231,6 +373,7 @@ extern "C" int mpc4q_expm_small(const void* A, void* out, int B, int d, int tayl
     case 6: return launch<6>(a, o, B, taylor_k, max_squarings, s);
     case 7: return launch<7>(a, o, B, taylor_k, max_squarings, s);
     case 8: return launch<8>(a, o, B, taylor_k, max_squarings, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      return launch_block(a, o, static_cast<float2*>(ws), B, d, taylor_k, max_squarings, s);
   }
 }

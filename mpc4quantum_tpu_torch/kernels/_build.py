@@ -36,11 +36,11 @@ _SIGNATURES = {
     # P, q, lb, ub, x0, y0, rho0, z, y, aux, B, n, iters, rounds, scaled,
     # rho_scale, sigma, alpha, eps_abs, eps_rel, acc_abs, acc_rel, stream
     "mpc4q_boxqp_small": [_P] * 10 + [_I] * 5 + [_F] * 7 + [_P],
-    # A, out, B, d, taylor_k, max_squarings, stream
-    "mpc4q_expm_small": [_P] * 2 + [_I] * 4 + [_P],
-    # kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, B, n, iters,
+    # A, out, ws, B, d, taylor_k, max_squarings, stream
+    "mpc4q_expm_small": [_P] * 3 + [_I] * 4 + [_P],
+    # kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, ws, B, n, iters,
     # sigma, alpha, stream
-    "mpc4q_admm_big": [_P] * 11 + [_I] * 3 + [_F] * 2 + [_P],
+    "mpc4q_admm_big": [_P] * 12 + [_I] * 3 + [_F] * 2 + [_P],
 }
 
 _lib = None

@@ -75,6 +75,10 @@ from .driver import (Carry, ModelApplyFns, MPCConfig, MPCResult, SQPState, StepC
                      sqp_init, sqp_update_from_qp)
 
 
+# the kernel choices of the "ns" route (FleetRunner's qp_kernel)
+QP_KERNELS = ("auto", "small", "big")
+
+
 class FleetRunner:
     """Receding-horizon MPC over a lane batch; build once, `run` any number
     of times. Every steady (single-shot) QP starts from the previous
@@ -85,7 +89,8 @@ class FleetRunner:
                  steady_qp_params: Optional[BoxQPParams] = None,
                  expm_taylor_k: Optional[int] = 18, expm_max_squarings: Optional[int] = 12,
                  exit_condition: Optional[Callable] = None, carry_duals: bool = True,
-                 early_exit: bool = False, model_fns: Optional[ModelApplyFns] = None):
+                 early_exit: bool = False, model_fns: Optional[ModelApplyFns] = None,
+                 qp_kernel: str = "auto"):
         """:param warm_sqp_iters: SQP iterations of each warm step; steps past
         the tuple's end take its last entry.
         :param steady_qp_params: QP budget of the steady (single-shot)
@@ -104,7 +109,11 @@ class FleetRunner:
             (`mpc()`; the results are those of the full budget, since done
             lanes are frozen).
         :param model_fns: None (the dense contractions) or a
-            driver.ModelApplyFns for the linearization and the prediction."""
+            driver.ModelApplyFns for the linearization and the prediction.
+        :param qp_kernel: the box-QP kernel of the "ns" route: "auto" =
+            `boxqp_small` at n = H dim_u <= 16, `boxqp_big` above; "small"
+            or "big" forces one ("small" raises ValueError above n = 16:
+            the kernel keeps a QP in one team's registers)."""
         if config.solver not in ("qp", "lqr"):
             raise ValueError(f"config.solver={config.solver!r} is not 'qp' or 'lqr'")
         if not warm_sqp_iters or any(int(v) < 1 for v in warm_sqp_iters):
@@ -120,7 +129,14 @@ class FleetRunner:
         self.carry_duals = carry_duals
         self.early_exit = early_exit
         self.model_fns = model_fns
-        kernel = "small" if config.horizon * config.dim_u <= SMALL_MAX_N else "big"
+        if qp_kernel not in QP_KERNELS:
+            raise ValueError(f"qp_kernel={qp_kernel!r} is not one of {QP_KERNELS}")
+        n_qp = config.horizon * config.dim_u
+        if qp_kernel == "small" and n_qp > SMALL_MAX_N:
+            raise ValueError(f"qp_kernel='small': boxqp_small takes n <= {SMALL_MAX_N}, this "
+                             f"QP has n = {n_qp}; use 'big' or 'auto'")
+        kernel = qp_kernel if qp_kernel != "auto" else (
+            "small" if n_qp <= SMALL_MAX_N else "big")
         # what solves a step: the kernel "small" or "big", or plain "chol" or "lqr"
         self.qp_kernel = ("lqr" if config.solver == "lqr" else
                           kernel if config.qp_backend == "ns" else config.qp_backend)
@@ -157,10 +173,48 @@ class FleetRunner:
             res = quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s, D_s,
                                ctx.u_prev, self.sat, self.du, U_warm=s.Ug, params=qp,
                                backend=self.config.qp_backend, Y_warm=s.y if seeded else None,
-                               rho_warm=s.rho if seeded else None, kinv0=kinv0)
+                               rho_warm=s.rho if seeded else None, kinv0=kinv0,
+                               kernel=self.qp_kernel if self.qp_kernel in ("small", "big")
+                               else None)
         s_new = sqp_update_from_qp(s, res, ctx.X_ref, ctx.U_ref, Q_s, R_s,
                                    single_shot, self.config.step_tol)
         return select(s.done, s, s_new), res
+
+    def step(self, step: int, carry: Carry, duals, model, bmodel: BilinearModel, plants: Plant,
+             X_targ: torch.Tensor, U_targ: torch.Tensor, Q_s: torch.Tensor, R_s: torch.Tensor,
+             kinv=None, kinv_counts=None, **advance_kw):
+        """One receding-horizon step of every lane: the step's SQP (at a warm
+        step `warm_sqp_iters` cold iterations, else one single-shot
+        iteration from the carried `duals` and K-inverse), then
+        `driver.advance` with the runner's exit condition and model
+        functions (`advance_kw`: its noise_t, observe_fn, model_update_fn).
+
+        :param Q_s, R_s: (H + 1, dim_x, dim_x) and (H, dim_u, dim_u) costs.
+        :param kinv, kinv_counts: the K-inverse carry and its counts (`run`).
+        :return: (carry, duals, model, the step's SQPState, kinv).
+        """
+        cfg = self.config
+        ctx = context(carry, step, cfg, X_targ, U_targ, plants)
+        s = sqp_init(carry, duals)
+        if step <= 1 or not cfg.warm_start:
+            n_it = self.warm_sqp_iters[min(step, len(self.warm_sqp_iters) - 1)]
+            for it in range(n_it):
+                s, _ = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s, cfg.qp_params, False)
+                if self.early_exit and it + 1 < n_it and host_flag(s.done.all()):
+                    break
+        else:
+            s, res = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s,
+                                    self.steady_qp_params, True, kinv0=kinv)
+            if self.carry_kinv:
+                kinv = self._carry_kinv(kinv, res, carry.done, kinv_counts)
+
+        def plant_step(x_true, u):
+            return plants.step(x_true, u, cfg.dt, self.expm_taylor_k, self.expm_max_squarings)
+
+        carry, duals, model = advance(carry, s, step, cfg, ctx, bmodel, model, plants,
+                                      plant_step, self.exit_condition,
+                                      model_fns=self.model_fns, **advance_kw)
+        return carry, duals, model, s, kinv
 
     def run(self, x0: torch.Tensor, model, plants: Plant,
             X_targ: torch.Tensor, U_targ: torch.Tensor, Q: torch.Tensor,
@@ -276,9 +330,6 @@ class FleetRunner:
         # measurement-aligned cold re-entry of the carry
         kinv_m = cfg.measure_freq if self.carry_kinv else 0
 
-        def plant_step(x_true, u):
-            return plants.step(x_true, u, cfg.dt, self.expm_taylor_k, self.expm_max_squarings)
-
         last_saved = last_beat = start
         t_beat = time.perf_counter()
         for step in range(start, cfg.n_steps):
@@ -290,31 +341,16 @@ class FleetRunner:
                       f"done_frac={float(carry.done.float().mean()):.3f} "
                       f"elapsed={elapsed:.1f}s", file=sys.stderr, flush=True)
                 last_beat = step
-            warm = step <= 1 if cfg.warm_start else True
             if kinv_m > 1 and step % kinv_m == 0:
                 kinv = None
-            ctx = context(carry, step, cfg, X_targ, U_targ, plants)
-            s = sqp_init(carry, duals)
-            if warm:
-                n_it = self.warm_sqp_iters[min(step, len(self.warm_sqp_iters) - 1)]
-                for it in range(n_it):
-                    s, _ = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s, cfg.qp_params,
-                                          False)
-                    if self.early_exit and it + 1 < n_it and host_flag(s.done.all()):
-                        break
-            else:
-                s, res = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s,
-                                        self.steady_qp_params, True, kinv0=kinv)
-                if self.carry_kinv:
-                    kinv = self._carry_kinv(kinv, res, carry.done, kinv_counts)
+            prev = carry
+            carry, duals, model, s, kinv = self.step(
+                step, carry, duals, model, bmodel, plants, X_targ, U_targ, Q_s, R_s, kinv,
+                kinv_counts, noise_t=None if noise is None else noise[step],
+                observe_fn=observe_fn, model_update_fn=model_update_fn if streaming else None)
             if record:
                 rec[1][:, :, step], rec[2][:, step], rec[3][:, step], rec[4][:, step] = \
-                    record_row(carry, s)
-            carry, duals, model = advance(
-                carry, s, step, cfg, ctx, bmodel, model, plants, plant_step,
-                self.exit_condition, noise_t=None if noise is None else noise[step],
-                observe_fn=observe_fn, model_update_fn=model_update_fn if streaming else None,
-                model_fns=self.model_fns)
+                    record_row(prev, s)
             if streaming:
                 bmodel = bilinear_model(model, cfg)
             if record:

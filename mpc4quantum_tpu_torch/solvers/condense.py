@@ -133,7 +133,8 @@ def objective_value(X, U, X_bm, U_bm, Q_s, R_s):
 
 def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, sat=None,
                  du=None, U_warm=None, params: BoxQPParams | None = None,
-                 backend: str = "chol", Y_warm=None, rho_warm=None, kinv0=None) -> QPResult:
+                 backend: str = "chol", Y_warm=None, rho_warm=None, kinv0=None,
+                 kernel: str | None = None) -> QPResult:
     """Solve the lanes' LTV horizon tracking QPs (the reference's
     `quad_program`, batched).
 
@@ -157,6 +158,8 @@ def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, s
         rho_warm: optional (B,) penalty warm start (<= 0 = cold).
     :param kinv0: optional (B, n, n) K-inverse carried from the previous
         solve (its QPResult.kinv), refreshed under params.ns_guard.
+    :param kernel: on "ns", None = the size rule above; "small" or "big"
+        forces that route (`boxqp_small` raises above n = 16 on the card).
     :return: QPResult with the exact rollout of the solved controls; `iters`
         on the chol backend only; `kinv` and `guard_cold` on boxqp_big.
     """
@@ -166,7 +169,7 @@ def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, s
                            Delta_s[None], one(u_prev), sat, du, one(U_warm), params, backend,
                            one(Y_warm), None if rho_warm is None else torch.as_tensor(
                                rho_warm, dtype=x_init.real.dtype, device=x_init.device).reshape(1),
-                           one(kinv0))
+                           one(kinv0), kernel)
         return QPResult(*(None if t is None else t[0] for t in res))
     params = BoxQPParams() if params is None else params
     if backend not in QP_BACKENDS:
@@ -183,7 +186,7 @@ def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, s
                   sigma=params.sigma, alpha=params.alpha, eps_abs=params.eps_abs,
                   eps_rel=params.eps_rel, acc_abs=params.accept_abs,
                   acc_rel=params.accept_rel, scale=params.scale)
-        if P.shape[-1] <= MAX_N:
+        if (kernel or ("small" if P.shape[-1] <= MAX_N else "big")) == "small":
             z, y, aux = boxqp_small(P, q, lb, ub, x0=x0, y0=Y_warm, rho0=rho_warm, **kw)
         else:
             lqr_data = None

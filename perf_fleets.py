@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where each fleet's device time goes, on one CUDA card.
 
-    python3 perf_fleets.py
+    python3 perf_fleets.py [fleet ...]
 
 Runs each fleet of chip_smoke.FLEETS at its batch (the main pass only, where
 a fleet has a rescue pass), then the two learned-model fleets (chip_smoke's
-LEARN and DISCREP: per-lane refits, recorded): one warm-up run, then one run under
-torch.profiler. Prints one JSON line a fleet - device time
+LEARN and DISCREP: per-lane refits, recorded) and the two scenarios of no
+preset (chip_smoke's SLICE_FLEETS: damped_pair, cnot_h80), or only the
+fleets named: one warm-up run, then one run under torch.profiler. Prints one JSON line a fleet - device time
 in all and by kernel, launches, and the busy share against the unprofiled
 wall time - then the card's name and power limit. The profiler on the
 card's host at times records no device activity; such a run is made again,
@@ -61,12 +62,18 @@ def fleets():
         plants = dataclasses.replace(plants, sigma=plants.sigma + sigma)
         gen = torch.Generator(device=plants.device).manual_seed(7) if sigma else None
         yield name, sc, plants, dict(record=True, generator=gen, model_update_fn=fit)
+    for name, make in (("damped_pair", cs.damped_pair_scenario),
+                       ("cnot_h80", cs.cnot_h80_scenario)):
+        sc = make("cuda", torch.float32)
+        yield name, sc, lanes(sc, cs.SLICE_FLEETS[name]["batch"]), {}
 
 
-def profile_fleets():
+def profile_fleets(names=()):
     from mpc4quantum_tpu_torch.benchfleet import make_runner, run_hostloop_fleet
 
     for name, sc, plants, run_kw in fleets():
+        if names and name not in names:
+            continue
         B = plants.lanes
         metrics, _ = run_hostloop_fleet(sc, B, plants=plants, reps=2, **run_kw)
         runner = make_runner(sc, plants)
@@ -74,7 +81,8 @@ def profile_fleets():
         acts = profiled(lambda: runner.run(*args, **run_kw))
         device = sum(t for _, t in acts)
         by_kernel = {}
-        for key in ("boxqp_small_kernel", "admm_big_kernel", "expm_small_kernel"):
+        for key in ("boxqp_small_kernel", "admm_big_kernel", "admm_stream_kernel",
+                    "expm_small_kernel", "expm_block_kernel"):
             times = [t for n, t in acts if key in n]
             by_kernel[key] = {"launches": len(times), "device_ms": sum(times) / 1e3,
                               "device_us_a_launch": sum(times) / max(len(times), 1)}
@@ -90,7 +98,7 @@ def main() -> int:
         print("perf_fleets: no CUDA device; this runs only on a GPU", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    profile_fleets()
+    profile_fleets(sys.argv[1:])
     print(cs.smi_line(), flush=True)
     return 0
 

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from mpc4quantum_tpu_torch.kernels._graph import graph_node_types
-from mpc4quantum_tpu_torch.kernels.admm_big import MAX_N as ADMM_MAX_N, admm_big, admm_iters_ref
+from mpc4quantum_tpu_torch.kernels.admm_big import STREAM_SMEM_MAX_N, admm_big, admm_iters_ref
 from mpc4quantum_tpu_torch.kernels.boxqp import (boxqp_accept, boxqp_big, boxqp_small,
                                                  boxqp_small_ref)
 from mpc4quantum_tpu_torch.kernels.expm import expm_small, expm_small_ref
@@ -21,9 +21,11 @@ from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
 
 pytestmark = pytest.mark.cuda
 
-# every d the expm kernel takes: 2-4 (one team of 2 or 4 threads) and 5-8
-# (a team of 8, the 3-qubit plant's d = 8)
-EXPM_SIZES = list(range(2, 9))
+# the expm kernel's instances: 2-4 (one team of 2 or 4 threads), 5-8 (a
+# team of 8, the 3-qubit plant's d = 8), and one block a matrix at d = 1
+# and d >= 9 (the damped pair's Liouvillian d = 16), with X and P in shared
+# memory up to d = 97 and in a workspace above (d = 100)
+EXPM_SIZES = [1, *range(2, 9), 9, 16, 33, 100]
 
 
 @pytest.fixture
@@ -88,15 +90,18 @@ def test_boxqp_kernel_scaled_matches_plain(cuda, n):
     torch.testing.assert_close(ak.prim, ap.prim, rtol=1e-2, atol=1e-5)
 
 
-@pytest.mark.parametrize("n", [1, 17, 31, 32, 33, 50, 64, 65, 128, 129, 150, 160, 161, 239])
+@pytest.mark.parametrize("n", [1, 17, 31, 32, 33, 50, 64, 65, 128, 129, 150, 160, 161, 239,
+                               240, 241, 256, 320, 512, 1024])
 def test_admm_kernel_matches_plain(cuda, n):
     """Every instance and its edges: a warp per lane up to 32 columns, whole
     rows in registers up to 64, rows split over 2 threads up to 128 and over
     4 up to 160, then 32 columns of each part in registers and the rest in
-    shared memory (above 48 KB of it at n = 239). Split rows add their
-    parts in another order than the plain row sum: float32 rounding, well
-    inside the bound."""
-    B = 300
+    shared memory (above 48 KB of it at n = 239), and from n = 240 the
+    streaming instance (rows read from device memory every iteration, four
+    rows a warp, n not a multiple of four at 241). Split and streamed rows
+    add their parts in another order than the plain row sum: float32
+    rounding, well inside the bound."""
+    B = 300 if n < 512 else 16
     P, q, lb, ub = qp_batch(B, n, seed=n, device=cuda)
     rng = np.random.default_rng(n + 1)
     rho = torch.tensor(rng.uniform(0.05, 2.0, B), dtype=torch.float32, device=cuda)
@@ -110,6 +115,26 @@ def test_admm_kernel_matches_plain(cuda, n):
     assert admm_big.launches == before + 1
     for k, p in zip(out_k, out_p):
         torch.testing.assert_close(k, p, rtol=0, atol=1e-4 * max(1.0, float(p.abs().max())))
+
+
+def test_admm_kernel_workspace_path_matches_plain(cuda):
+    """Above STREAM_SMEM_MAX_N the two rhs buffers no longer fit shared
+    memory and sit in the wrapper's workspace: one lane of a random
+    3.4 GB K^-1, two iterations."""
+    n = STREAM_SMEM_MAX_N + 1
+    g = torch.Generator(device=cuda).manual_seed(5)
+    kinv = torch.randn((1, n, n), generator=g, device=cuda) / n ** 0.5
+    q, x, z, y = (torch.randn((1, n), generator=g, device=cuda) for _ in range(4))
+    lb, ub = -torch.ones((1, n), device=cuda), torch.ones((1, n), device=cuda)
+    rho = torch.full((1,), 0.5, device=cuda)
+    args = (kinv, q, lb, ub, rho, x, z, y)
+    out_k = admm_big(*args, iters=2, sigma=1e-6, alpha=1.6)
+    out_p = admm_iters_ref(*args, iters=2, sigma=1e-6, alpha=1.6)
+    torch.cuda.synchronize()
+    for k, p in zip(out_k, out_p):
+        torch.testing.assert_close(k, p, rtol=0, atol=1e-4 * max(1.0, float(p.abs().max())))
+    del kinv
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("kinv", ["gj", "ns"])
@@ -198,6 +223,20 @@ def test_expm_kernel_ragged_batch_matches_plain(cuda, d, B):
     Ep = expm_small_ref(A, 12, 2)
     torch.cuda.synchronize()
     assert expm_small.launches == before + 1
+    torch.testing.assert_close(Ek, Ep, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [2, 3, 4, 9, 16])
+def test_expm_kernel_takes_real_input(cuda, d):
+    """A real float32 batch, as expm_pallas takes it: run as complex64, the
+    real part returned (exp of a real matrix is real), one kernel launch."""
+    rng = np.random.default_rng(d)
+    A = torch.tensor(rng.normal(size=(64, d, d)) * (1.5 / d), dtype=torch.float32, device=cuda)
+    before = expm_small.launches
+    Ek = expm_small(A, 12, 2)
+    Ep = expm_small_ref(A, 12, 2)
+    torch.cuda.synchronize()
+    assert Ek.dtype == torch.float32 and expm_small.launches == before + 1
     torch.testing.assert_close(Ek, Ep, rtol=0, atol=1e-5)
 
 
@@ -525,13 +564,13 @@ def test_batched_lifts_on_the_card_equal_the_cpu(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    # the kernel takes d 2-8 (the Pallas kernel any d): d 9 raises, with no
-    # fall back to the plain version
+    # the kernels take any size (as the Pallas kernels do); other dtypes and
+    # shapes raise, with no fall back to the plain version
     before = expm_small.launches
     with pytest.raises(ValueError, match="complex64"):
-        expm_small(torch.zeros(4, 9, 9, dtype=torch.complex64, device=cuda))
+        expm_small(torch.zeros(4, 9, 9, dtype=torch.complex128, device=cuda))
     with pytest.raises(ValueError, match="complex64"):
-        expm_small(torch.zeros(4, 1, 1, dtype=torch.complex64, device=cuda))
+        expm_small(torch.zeros(4, 3, 2, dtype=torch.complex64, device=cuda))
     assert expm_small.launches == before
     P = torch.eye(17, device=cuda).expand(2, 17, 17)
     v = torch.zeros(2, 17, device=cuda)
@@ -539,11 +578,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         boxqp_small(P, v, v, v, iters=1, rounds=1)
     with pytest.raises(ValueError, match="float32"):
         boxqp_small(P[:, :4, :4].double(), v[:, :4], v[:, :4], v[:, :4], iters=1, rounds=1)
-    n = ADMM_MAX_N + 1
+    n = 240
     K = torch.eye(n, device=cuda).expand(2, n, n).contiguous()
     w, r = torch.zeros(2, n, device=cuda), torch.ones(2, device=cuda)
-    with pytest.raises(ValueError, match=f"n <= {ADMM_MAX_N}"):
-        admm_big(K, w, w, w, r, w, w, w, iters=1, sigma=1e-6, alpha=1.6)
+    with pytest.raises(ValueError, match="float32"):
+        admm_big(K.double(), w, w, w, r, w, w, w, iters=1, sigma=1e-6, alpha=1.6)
+    with pytest.raises(ValueError, match="rho"):
+        admm_big(K, w, w, w, w, w, w, w, iters=1, sigma=1e-6, alpha=1.6)
     with pytest.raises(ValueError, match="contiguous"):
         admm_big(P.transpose(1, 2), v, v, v, r, v, v, v, iters=1, sigma=1e-6, alpha=1.6)
 

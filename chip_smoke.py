@@ -52,9 +52,16 @@ flagship at B 16384 through sharded_mpc against batched_mpc, with the
 collectives counted and timed, and graft_entry_torch.py: entry()'s one
 flagship MPC step on the card against float64 on the CPU, and
 dryrun_multichip(1), the sharded tiny rollout on a one-rank NCCL group.
-The kernels' other sizes are checked too: `expm_small` at d 9 to 100 (one
-block a matrix; a workspace above d 97), a NaN matrix at d 16 and a real
-float32 batch, `admm_big` at n 240 to 1024 (the streaming instance); and
+The kernels' other sizes are checked too: `expm_small` at d 9 to 32 (the
+tile instance, one block a matrix), 64 to 116 (the cluster instance, one
+thread-block cluster a matrix) and 117 (the workspace), NaN matrices at
+d 16 and 100 and a real float32 batch, `admm_big` at n 240 to 736 (the
+cluster instance, one cluster a lane) and 737 and 1024 (the streaming
+instance); every launch plan of the two kernels as the kernel library
+computes it against the Python one (d 1-160, n 1-4096), and each checked
+call's kernel node in a captured CUDA graph against its plan (block,
+shared bytes, cluster dimensions); the redesigned instances against the
+first ones' device times and, at d 100, torch.linalg.matrix_exp; and
 two scenarios of no preset, built from the port's constructors, run at
 B 128 through `run_hostloop_fleet` as the JAX package runs any Scenario:
 damped_pair (cnot_state's pair with amplitude damping, a 16 x 16
@@ -63,6 +70,9 @@ with their gates, launch counts and lanes against float64 on the CPU. One
 JSON line per phase; then the card's name and power limit, the per-kernel
 record, and last {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero. Without a CUDA device it exits 1 and prints no result.
+
+    python3 chip_smoke.py --kernels            # build, plans and kernel phases only
+    python3 chip_smoke.py --time-kernels ROOT  # device times, ROOT's package
 """
 
 from __future__ import annotations
@@ -186,8 +196,9 @@ RESCUE = dict(lanes=6, steps=20, tol=1e-4,
 # (8 warm SQP iterations, cold duals, their own 3x300 in both phases),
 # built from the port's constructors (damped_pair_scenario,
 # cnot_h80_scenario): damped_pair, cnot_state's pair with amplitude damping
-# (every plant step one expm_small launch at d 16, QP n 150), and cnot_h80,
-# cnot_state at horizon 80 (QP n 240, admm_big's streaming instance). At
+# (every plant step one expm_small launch at d 16, its tile instance, QP n
+# 150), and cnot_h80, cnot_state at horizon 80 (QP n 240, admm_big's
+# cluster instance). At
 # cnot's batch with all 200 steps; gates: every lane completes, no QP
 # fails; launches a run as the runner's budgets give them
 # (expected_launches); 4 lanes over 12 steps within 1e-3 of the port's
@@ -337,19 +348,22 @@ TP3Q = dict(batch=1024, fid_min=0.97, parity_lanes=8, parity_tol=5e-3, tp_gap=1e
             expm_budget=(12, 2))
 SHARDED = dict(batch=BATCH, fid_min=0.998, equal_tol=1e-6)
 # admm_big alone: (B, n, iters) of the large-n presets' solves, cnot's
-# n = 150 (rows split over 4 threads) and the largest n the kernel takes
-# (part of each row in shared memory); then crosstalk's and cnot's own, the
-# classical phase's Koopman QP (n = 20: 12 of the n <= 32 instance's
-# columns idle) at B 1024 and at B 1 (three of a block's four lanes empty),
-# tp_3q's (n = 24, the library's 150 iterations a round), the damped pair's
-# launch (n 150 at B 128, 300 iterations a round: its QPs run cold at
-# 3 x 300), and the streaming instance: cnot_h80's n 240 at its batch, at
-# 80 and 100 iterations and at the 300 a round its cold QPs launch, then
-# n 320, 512 and 1024 at smaller batches
+# n = 150 (rows split over 4 threads) and the largest n of the register
+# instances (part of each row in shared memory); then crosstalk's and
+# cnot's own, the classical phase's Koopman QP (n = 20: 12 of the n <= 32
+# instance's columns idle) at B 1024 and at B 1 (three of a block's four
+# lanes empty), tp_3q's (n = 24, the library's 150 iterations a round), the
+# damped pair's launch (n 150 at B 128, 300 iterations a round: its QPs run
+# cold at 3 x 300); the cluster instance: cnot_h80's n 240 at its batch, at
+# 80 and 100 iterations and at the 300 a round its cold QPs launch, n 241
+# (rows the cluster does not divide), one cluster alone (B 1), n 320 and
+# 512 (clusters of 2 and 4) and its largest n, 736 (8 CTAs); then the
+# streaming instance at n 737 and 1024
 ADMM_SHAPES = ((2048, 32, 50), (2048, 32, 19), (1024, 50, 40), (256, 150, 50), (256, 239, 50),
                (1024, 40, 150), (128, 150, 100), (128, 150, 80), (1024, 20, 150), (1, 20, 150),
                (1024, 24, 150), (128, 150, 300), (128, 240, 80), (128, 240, 100),
-               (128, 240, 300), (64, 320, 50), (16, 512, 50), (1, 1024, 10))
+               (128, 240, 300), (128, 241, 80), (1, 240, 300), (64, 320, 50), (16, 512, 50),
+               (16, 736, 50), (16, 737, 50), (1, 1024, 10))
 # the bound's peaks: one H100 SXM at its 700 W limit (NVIDIA's data sheet),
 # float32 outside the tensor cores and device memory
 PEAK_FLOPS = 67e12
@@ -374,25 +388,58 @@ EXPM_CASES = {"d2_12_0": (BATCH, EXPM_D, 12, 0, 1e-3, 0.8),
               "d5_12_2_b1024": (1024, 5, 12, 2, 0.05, 2.0),
               "d6_12_2_b1024": (1024, 6, 12, 2, 0.05, 2.0),
               "d7_12_2_b1024": (1024, 7, 12, 2, 0.05, 2.0),
-              # one block a matrix: two qutrits (d 9), damped_pair's plant
+              # the tile instance: two qutrits (d 9), damped_pair's plant
               # step (16 x 16 Liouvillians at its budget (12, 1)), four
-              # qubits in the certified form, d 32 and 64, and d 100 on the
-              # workspace in device memory (above d = 97)
+              # qubits in the certified form, d 17 (a partial tile) and
+              # d 32; the cluster instance at d 64, 97, 98, 100 and its
+              # largest d, 116; the workspace at d 117
               "d9_12_2_b1024": (1024, 9, 12, 2, 0.05, 2.0),
               "d16_12_1_b128": (128, 16, 12, 1, 0.05, 1.6),
               "d16_12_0_b1024": (1024, 16, 12, 0, 1e-3, 0.8),
+              "d17_12_2_b128": (128, 17, 12, 2, 0.05, 2.0),
               "d32_12_2_b128": (128, 32, 12, 2, 0.05, 2.0),
               "d64_12_2_b16": (16, 64, 12, 2, 0.05, 2.0),
-              "d100_12_2_b4": (4, 100, 12, 2, 0.05, 2.0)}
+              "d97_12_2_b4": (4, 97, 12, 2, 0.05, 2.0),
+              "d98_12_2_b4": (4, 98, 12, 2, 0.05, 2.0),
+              "d100_12_2_b4": (4, 100, 12, 2, 0.05, 2.0),
+              "d116_12_2_b4": (4, 116, 12, 2, 0.05, 2.0),
+              "d117_12_2_b4": (4, 117, 12, 2, 0.05, 2.0)}
 # a real float32 batch at d 4 (expm_pallas takes real input): run as
 # complex64, the real part returned
 EXPM_REAL = (1024, 4, 12, 2)
+# a NaN matrix at d 8 (a team), d 16 (the tile instance) and d 100 (a
+# cluster of 8: the cluster-wide norm), by batch and the NaN matrix's index
+EXPM_NAN = {8: (301, 7), 16: (301, 7), 100: (4, 1)}
 # ptxas must report no spill stores or loads in these instances: the seven
-# expm teams and the two block instances (shared memory, workspace), the
-# five admm_big register instances and the two streaming ones
-EXPM_INSTANCES = (*(f"expm_small_kernelILi{d}E" for d in range(2, 9)), "expm_block_kernel")
+# expm teams, the 25 tile instances (d 1, 9-32), the cluster and the
+# workspace instance, the five admm_big register instances, the cluster
+# instance and the two streaming ones
+EXPM_INSTANCES = (*(f"expm_small_kernelILi{d}E" for d in range(2, 9)), "expm_tile_kernel",
+                  "expm_cluster_kernel", "expm_workspace_kernel")
 NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
-            "admm_stream_kernel", *EXPM_INSTANCES)
+            "admm_cluster_kernel", "admm_stream_kernel", *EXPM_INSTANCES)
+INSTANCE_COUNT = 4 + (5 + 1 + 2) + (7 + 25 + 1 + 1)
+# every plan the kernel library computes against the Python one
+PLAN_BATCHES = (1, 4, 16, 128, 1024, BATCH)
+PLAN_SIZES = {"expm_small": 160, "admm_big": 4096}
+# The redesigned instances against the first ones and the library: the
+# tile instance at damped_pair's d 16 B 128 (12, 1) and the cluster
+# instance at cnot_h80's launch (B 128, n 240, 300 iterations) must take
+# less device time than the first block and streaming instances took on an
+# H100 80GB HBM3 at 700 W (PERF.md section 6: 10.82 and 2,044.90 us), and
+# the cluster instance at d 100 B 4 less than torch.linalg.matrix_exp on
+# the same batch. The first two are times taken at a 700 W limit: they
+# hold only on a card at that limit (a lower one runs slower under load).
+SPEED_BOUNDS_US = {("expm_small", "d16_12_1_b128"): 10.82,
+                   ("admm_big", "B128_n240_it300"): 2044.90}
+SPEED_BOUNDS_WATTS = 700.0
+SPEED_LIBRARY = ("d100_12_2_b4",)
+# `--time-kernels [ROOT]`: device times of these shapes with the package of
+# the checkout at ROOT, to set two commits side by side in one call
+TIME_EXPM = ("d9_12_2_b1024", "d16_12_1_b128", "d16_12_0_b1024", "d32_12_2_b128",
+             "d64_12_2_b16", "d100_12_2_b4")
+TIME_ADMM = ((128, 150, 300), (128, 240, 80), (128, 240, 100), (128, 240, 300), (64, 320, 50),
+             (16, 512, 50), (1, 1024, 10))
 # boxqp_big, whole solves: drag's cold warm-phase and warm-started steady
 # forms (Gauss-Jordan), freq's (Newton-Schulz), crosstalk's one form (every
 # solve cold) and cnot's at eps 1e-8; the warm form starts from the cold
@@ -531,8 +578,8 @@ def phase_build(build) -> dict:
               if any(w in name for w in NO_SPILL)}
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": build.build_seconds,
           "ptxas": report})
-    require(len(report) == 4 + 7 + 9,
-            f"expected 4 boxqp_small, 7 admm_big and 9 expm_small instances: {report}")
+    require(len(report) == INSTANCE_COUNT,
+            f"expected 4 boxqp_small, 8 admm_big and 34 expm_small instances: {report}")
     spilled = {name: rec for name, rec in report.items()
                if rec.get("spill_stores", -1) != 0 or rec.get("spill_loads", -1) != 0}
     require(not spilled, f"spills in {spilled}")
@@ -622,6 +669,62 @@ def phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, shape, floor_us)
     return rec
 
 
+def plan_ids(mod, plan) -> tuple:
+    """A Python plan as the kernel library reports it: (instance id,
+    cluster size, threads, shared bytes)."""
+    return (mod.INSTANCES.index(plan.instance), *plan[1:])
+
+
+def phase_plans(build, expm_mod, admm_mod) -> dict:
+    """Every launch plan of expm_small (d 1-160) and admm_big (n 1-4096) at
+    the batches of PLAN_BATCHES, as the kernel library computes it, equals
+    the Python plan (kernels/*.py `*_plan`)."""
+    rec = {"phase": "plans", "batches": list(PLAN_BATCHES)}
+    for kind, top in PLAN_SIZES.items():
+        mod = expm_mod if kind == "expm_small" else admm_mod
+        plan_fn = getattr(mod, f"{kind}_plan")
+        differ, instances = [], {}
+        for B in PLAN_BATCHES:
+            for size in range(1, top + 1):
+                plan = plan_fn(B, size)
+                lib = build.plan(kind, B, size)
+                if lib[:4] != plan_ids(mod, plan):
+                    differ.append((B, size, lib[:4], tuple(plan)))
+                instances.setdefault(plan.instance, [size, size])[1] = size
+        rec[kind] = {"sizes": top, "differ": differ[:10], "n_differ": len(differ),
+                     "instance_sizes": instances}
+        require(not differ, f"{kind}: the library's plans differ from Python's {differ[:10]}")
+    emit(rec)
+    return rec
+
+
+# the instances whose grid is B x cluster blocks
+GRID_B = ("tile", "cluster", "workspace", "stream", "stream_ws")
+
+
+def check_launch(name, kind, mod, build, graph_kernel_launches, call, B, size) -> dict:
+    """One call's launch three ways: the Python plan, the kernel library's
+    plan (with the clusters of that shape the card holds at once) and the
+    kernel node of a CUDA graph captured from the call; all must agree, so
+    the instance the plan names - a cluster of its size - is the one that
+    ran."""
+    plan = getattr(mod, f"{kind}_plan")(B, size)
+    lib = build.plan(kind, B, size, query=True)
+    require(lib[:4] == plan_ids(mod, plan),
+            f"{name}: the library plans {lib[:4]}, Python {plan}")
+    launches = graph_kernel_launches(call)
+    require(len(launches) == 1, f"{name}: {len(launches)} kernel launches in one call")
+    got = launches[0]
+    want = {"block": (plan.threads, 1, 1), "smem": plan.smem, "cluster": (plan.cluster, 1, 1)}
+    if plan.instance in GRID_B:
+        want["grid"] = (B * plan.cluster, 1, 1)
+    require(all(got[k] == v for k, v in want.items()),
+            f"{name}: the call launched {got}, the plan {plan}")
+    if plan.instance == "cluster":
+        require(lib[4] >= 1, f"{name}: the card holds no cluster of {plan}")
+    return {"plan": plan._asdict(), "max_active_clusters": lib[4], "launch": got}
+
+
 def expm_batch(B: int, d: int, seed: int, max_norm: float, min_norm: float):
     """-i H for random Hermitian H with 1-norms log-uniform in [min_norm, max_norm]
     (so exp is unitary, the plant's form)."""
@@ -658,25 +761,46 @@ def liouvillian_batch(B: int, seed: int, max_norm: float, min_norm: float, level
     return torch.tensor(np.ascontiguousarray(A), dtype=torch.complex64, device=DEVICE)
 
 
-def phase_expm(expm_mod, graph_node_types, floor_us: float) -> dict:
+def expm_input(name: str) -> torch.Tensor:
+    """The batch of EXPM_CASES[name]: Liouvillians for the (12, 1) cases
+    (the Lindblad plants' steps), -i H for the others."""
+    B, d, k, sq, lo, hi = EXPM_CASES[name]
+    if sq == 1:
+        return liouvillian_batch(B, seed=k + d, max_norm=hi, min_norm=lo,
+                                 levels=int(round(d ** 0.5)))
+    return expm_batch(B, d, seed=k + d, max_norm=hi, min_norm=lo)
+
+
+def admm_input(B: int, n: int, iters: int, gj_inverse):
+    """admm_big's arguments at (B, n, iters): SPD QPs (qp_batch), K^-1 by
+    Gauss-Jordan, seeded rho and iterates. :return: (args, kwargs)."""
+    P, q, lb, ub = qp_batch(B, n, seed=n + iters)
+    rng = np.random.default_rng(n)
+    rho = torch.tensor(rng.uniform(0.05, 2.0, B) * n, dtype=torch.float32, device=DEVICE)
+    kinv = gj_inverse(P + (1e-6 + rho)[:, None, None] * torch.eye(n, device=DEVICE))
+    x, z, y = (torch.tensor(rng.normal(size=(B, n)) * s, dtype=torch.float32, device=DEVICE)
+               for s in (0.3, 0.3, 0.5))
+    return (kinv, q, lb, ub, rho, x, z, y), dict(iters=iters, sigma=1e-6, alpha=1.6)
+
+
+def phase_expm(expm_mod, graph_node_types, floor_us: float, build,
+               graph_kernel_launches) -> dict:
     """expm_small: the flagship's d = 2 forms at its batch, drag's d = 3 at
     (12, 2) on its batch with the plant's norm range, lindblad's d = 4 at
     (12, 1) on non-normal Liouvillians across the 0- and 1-squaring
     branches, not_gate's and not_state_freq's d = 2 at (12, 0) on their
     batch of 1024, crosstalk's and cnot's d = 4 at (12, 0) on Hermitian
     generators at their batches, tp_3q's d = 8 at (12, 2) and the certified
-    (12, 0) at B 1024, d = 5, 6 and 7, a NaN matrix at d = 8, the block
-    instance at d 9, 16 (damped_pair's 16 x 16 Liouvillians at (12, 1)),
-    32, 64 and 100 (the workspace) and a NaN matrix at d 16, and a real
-    float32 batch at d 4. Each call is one kernel on the card and nothing
-    else."""
+    (12, 0) at B 1024, d = 5, 6 and 7, a NaN matrix at d = 8, the tile
+    instance at d 9, 16 (damped_pair's 16 x 16 Liouvillians at (12, 1)), 17
+    and 32, the cluster instance at d 64, 97, 98, 100 and 116, the workspace
+    at d 117, NaN matrices at d 16 and 100, and a real float32 batch at
+    d 4. Each call is one kernel on the card and nothing else, launched as
+    its plan says (check_launch)."""
     rec = {"phase": "expm_small", "gpu": smi_line(), "launch_floor_us": floor_us}
     for name, (B, d, k, sq, lo, hi) in EXPM_CASES.items():
-        # the (12, 1) cases are the Lindblad plants' steps
+        A = expm_input(name)
         liouvillian = sq == 1
-        A = (liouvillian_batch(B, seed=k + d, max_norm=hi, min_norm=lo,
-                               levels=int(round(d ** 0.5))) if liouvillian
-             else expm_batch(B, d, seed=k + d, max_norm=hi, min_norm=lo))
         call_k = lambda: expm_mod.expm_small(A, taylor_k=k, max_squarings=sq)
         call_p = lambda: expm_mod.expm_small_ref(A, taylor_k=k, max_squarings=sq)
         call_l = lambda: torch.linalg.matrix_exp(A)
@@ -690,7 +814,9 @@ def phase_expm(expm_mod, graph_node_types, floor_us: float) -> dict:
         nodes = graph_node_types(call_k)
         require(nodes == [0], f"expm_small {name}: one call put {nodes} on the card "
                               "(graph node types), not one kernel")
-        err = {"B": B, "d": d, "norm_range": [lo, hi], "graph_nodes": nodes,
+        launch = check_launch(f"expm_small {name}", "expm_small", expm_mod, build,
+                              graph_kernel_launches, call_k, B, d)
+        err = {"B": B, "d": d, "norm_range": [lo, hi], "graph_nodes": nodes, **launch,
                "max_abs_err": float((Ek - Ep).abs().max()),
                "max_abs_err_vs_f64": float((Ek.to(torch.complex128) - E64).abs().max()),
                "kernel_ms": cuda_ms(call_k), "device_us": graph_us(call_k),
@@ -705,15 +831,16 @@ def phase_expm(expm_mod, graph_node_types, floor_us: float) -> dict:
         if d >= 4:
             require(err["max_abs_err_vs_f64"] <= EXPM_F64_TOL,
                     f"expm_small {name} differs from the float64 plain result {err}")
-    # a NaN matrix at d 8 (a team) and d 16 (a block) comes out all NaN, its
-    # neighbours as the plain version
-    for d in (8, 16):
-        A = expm_batch(301, d, seed=d, max_norm=2.0, min_norm=0.05)
-        A[7, d - 1, 0] = complex(float("nan"), 0.0)
+    # a NaN matrix (EXPM_NAN) comes out all NaN, its neighbours as the plain
+    # version
+    for d, (B, at) in EXPM_NAN.items():
+        A = expm_batch(B, d, seed=d, max_norm=2.0, min_norm=0.05)
+        A[at, d - 1, 0] = complex(float("nan"), 0.0)
         Ek, Ep = expm_mod.expm_small(A, 12, 2), expm_mod.expm_small_ref(A, 12, 2)
         torch.cuda.synchronize()
-        rest = torch.arange(301, device=DEVICE) != 7
-        nan = {"nan_matrix_all_nan": bool(torch.isnan(torch.view_as_real(Ek[7])).all()),
+        rest = torch.arange(B, device=DEVICE) != at
+        nan = {"B": B, "plan": expm_mod.expm_small_plan(B, d)._asdict(),
+               "nan_matrix_all_nan": bool(torch.isnan(torch.view_as_real(Ek[at])).all()),
                "others_finite": bool(torch.isfinite(torch.view_as_real(Ek[rest])).all()),
                "others_max_abs_err": float((Ek[rest] - Ep[rest]).abs().max())}
         rec[f"d{d}_nan"] = nan
@@ -741,24 +868,21 @@ def phase_expm(expm_mod, graph_node_types, floor_us: float) -> dict:
     return rec
 
 
-def phase_admm(admm_mod, gj_inverse) -> dict:
+def phase_admm(admm_mod, gj_inverse, build, graph_kernel_launches) -> dict:
     """admm_big against admm_iters_ref on SPD batches, K^-1 by Gauss-Jordan,
-    seeded rho and iterates."""
+    seeded rho and iterates; each call launched as its plan says
+    (check_launch)."""
     rec = {"phase": "admm_big", "tolerance": ADMM_TOL, "gpu": smi_line()}
     for B, n, iters in ADMM_SHAPES:
-        P, q, lb, ub = qp_batch(B, n, seed=n + iters)
-        rng = np.random.default_rng(n)
-        rho = torch.tensor(rng.uniform(0.05, 2.0, B) * n, dtype=torch.float32, device=DEVICE)
-        kinv = gj_inverse(P + (1e-6 + rho)[:, None, None] * torch.eye(n, device=DEVICE))
-        x, z, y = (torch.tensor(rng.normal(size=(B, n)) * s, dtype=torch.float32, device=DEVICE)
-                   for s in (0.3, 0.3, 0.5))
-        args = (kinv, q, lb, ub, rho, x, z, y)
-        kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
+        args, kw = admm_input(B, n, iters, gj_inverse)
+        x = args[5]
         call_k = lambda: admm_mod.admm_big(*args, **kw)
         call_p = lambda: admm_mod.admm_iters_ref(*args, **kw)
         out_k, out_p = call_k(), call_p()
         torch.cuda.synchronize()
         err = {f"rel_d{v}": rel_err(a, b) for v, a, b in zip("xzy", out_k, out_p)}
+        err.update(check_launch(f"admm_big B={B} n={n} iters={iters}", "admm_big", admm_mod,
+                                build, graph_kernel_launches, call_k, B, n))
         err.update(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(out_k, out_p)),
                    kernel_ms=cuda_ms(call_k), device_us=graph_us(call_k),
                    **bound(admm_mod.admm_big_work(B, n, iters)), plain_ms=cuda_ms(call_p))
@@ -769,6 +893,68 @@ def phase_admm(admm_mod, gj_inverse) -> dict:
         require(float((out_p[0] - x).abs().max()) > 1e-3, "admm_big check is vacuous")
     emit(rec)
     return rec
+
+
+def phase_speed(ex: dict, ad: dict) -> dict:
+    """The redesigned instances' device times against SPEED_BOUNDS_US (on a
+    card at SPEED_BOUNDS_WATTS or more) and, at SPEED_LIBRARY, against
+    torch.linalg.matrix_exp in this run, from the expm_small and admm_big
+    phases."""
+    gpu = smi_line()
+    watts = float(gpu.rsplit(",", 1)[1].strip().split()[0])
+    rec = {"phase": "speed", "gpu": gpu, "bounds_held": watts >= SPEED_BOUNDS_WATTS}
+    for (kind, name), first_us in SPEED_BOUNDS_US.items():
+        got = (ex if kind == "expm_small" else ad)[name]["device_us"]
+        rec[name] = {"device_us": got, "first_instance_us": first_us}
+        require(got < first_us or not rec["bounds_held"],
+                f"{kind} {name}: {got} us, the first instance took {first_us}")
+    for name in SPEED_LIBRARY:
+        got, lib = ex[name]["device_us"] / 1e3, ex[name]["library_ms"]
+        rec[name] = {"device_ms": got, "library_ms": lib}
+        require(got < lib, f"expm_small {name}: {got} ms, torch.linalg.matrix_exp {lib} ms")
+    emit(rec)
+    return rec
+
+
+def time_kernels(root: Path) -> int:
+    """`--time-kernels [ROOT]`: the device time (graph_us) of expm_small at
+    TIME_EXPM and admm_big at TIME_ADMM, with the package of the checkout at
+    ROOT (default this one) built from its own sources, each call against
+    its plain version; one JSON line. Run once a checkout, in turns, to put
+    two commits side by side on one card."""
+    sys.path.insert(0, str(root))
+    from mpc4quantum_tpu_torch.kernels import _build as build
+    from mpc4quantum_tpu_torch.kernels import admm_big as admm_mod
+    from mpc4quantum_tpu_torch.kernels import expm as expm_mod
+    from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
+
+    require(Path(build.__file__).resolve().is_relative_to(root.resolve()),
+            f"the package came from {build.__file__}, not {root}")
+    build.library()
+    rec = {"measure": "kernels", "root": str(root), "gpu": smi_line(),
+           "launch_floor_us": launch_floor_us()}
+    for name in TIME_EXPM:
+        B, d, k, sq, _, _ = EXPM_CASES[name]
+        A = expm_input(name)
+        call_k = lambda: expm_mod.expm_small(A, taylor_k=k, max_squarings=sq)
+        err = float((call_k() - expm_mod.expm_small_ref(A, taylor_k=k, max_squarings=sq))
+                    .abs().max())
+        require(err <= EXPM_TOL[(k, sq)], f"expm_small {name}: {err}")
+        rec[name] = {"device_us": graph_us(call_k), "max_abs_err": err,
+                     "library_ms": cuda_ms(lambda: torch.linalg.matrix_exp(A))}
+    for B, n, iters in TIME_ADMM:
+        args, kw = admm_input(B, n, iters, gj_inverse)
+        call_k = lambda: admm_mod.admm_big(*args, **kw)
+        err = max(rel_err(a, b) for a, b in zip(call_k(), admm_mod.admm_iters_ref(*args, **kw)))
+        require(err <= ADMM_TOL, f"admm_big B={B} n={n} iters={iters}: {err}")
+        rec[f"B{B}_n{n}_it{iters}"] = {"device_us": graph_us(call_k), "rel_err": err,
+                                       **bound(admm_mod.admm_big_work(B, n, iters))}
+    # the SM clock after the timings, beside its maximum
+    rec["clocks_sm_mhz"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit(rec)
+    return 0
 
 
 def phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds) -> dict:
@@ -2152,11 +2338,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    here = Path(__file__).resolve().parent
+    if sys.argv[1:2] == ["--time-kernels"]:
+        return time_kernels(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else here)
+    kernels_only = sys.argv[1:] == ["--kernels"]
+    require(kernels_only or not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
+    sys.path.insert(0, str(here))
     from mpc4quantum_tpu_torch import presets
     from mpc4quantum_tpu_torch.benchfleet import fleet_fidelity, run_hostloop_fleet
     from mpc4quantum_tpu_torch.kernels import _build as build
-    from mpc4quantum_tpu_torch.kernels._graph import graph_node_types
+    from mpc4quantum_tpu_torch.kernels._graph import graph_kernel_launches, graph_node_types
     from mpc4quantum_tpu_torch.kernels import admm_big as admm_mod
     from mpc4quantum_tpu_torch.kernels import boxqp as boxqp_mod
     from mpc4quantum_tpu_torch.kernels import expm as expm_mod
@@ -2184,11 +2375,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_toolchain(build)
     phase_build(build)
+    phase_plans(build, expm_mod, admm_mod)
     floor_us = launch_floor_us()
-    qp = {shape: phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, shape, floor_us)
-          for shape in QP_FORMS}
-    ex = phase_expm(expm_mod, graph_node_types, floor_us)
-    ad = phase_admm(admm_mod, gj_inverse)
+    qp = {} if kernels_only else {
+        shape: phase_boxqp(boxqp_mod, accept_thresholds, graph_node_types, shape, floor_us)
+        for shape in QP_FORMS}
+    ex = phase_expm(expm_mod, graph_node_types, floor_us, build, graph_kernel_launches)
+    ad = phase_admm(admm_mod, gj_inverse, build, graph_kernel_launches)
+    phase_speed(ex, ad)
+    if kernels_only:
+        print(smi_line(), flush=True)
+        emit({"ok": True, "kernels_only": True})
+        return 0
     phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds)
     counters = {"boxqp_small": boxqp_mod.boxqp_small, "expm_small": expm_mod.expm_small,
                 "admm_big": admm_mod.admm_big}

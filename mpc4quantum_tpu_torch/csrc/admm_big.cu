@@ -1,7 +1,9 @@
 // Relaxed-ADMM iterations of a batch of box QPs from a precomputed K^-1,
-// any n >= 1: up to n = 239 with each thread's part of a K^-1 row in
-// registers, above it streaming K^-1's rows from device memory (the
-// streaming instance, at the end of this file).
+// any n >= 1: up to n = 239 one block a lane with each thread's part of a
+// K^-1 row in registers; at n 240-736 one thread-block cluster a lane,
+// K^-1 spread over the cluster's registers and shared memory (the cluster
+// instance); above it streaming K^-1's rows from device memory (the
+// streaming instance). The last two are at the end of this file.
 //
 // Replaces the Pallas TPU kernel
 // mpc4quantum_tpu/ops/pallas_qp.py::_admm_loop_kernel (dispatched by
@@ -59,30 +61,72 @@
 //   iterations are serial, and wgmma would need TF32 or bf16 operands,
 //   whose ~3 digits the ADMM's 1e-6 tolerances cannot take.
 //
-// The streaming instance, n >= 240. A lane's K^-1 no longer fits an SM (at
-// n = 240 it is 230 KB against 256 KB of registers and 227 KB of shared
-// memory), so one block of 1024 threads takes one lane and reads K^-1 from
-// device memory every iteration, as the Pallas kernel's one-dispatch-a-
-// lane-tile form does above 4 MB a block (pallas_qp.py:439-447). Warp w
-// takes rows 4w..4w+3, then the next four of its stride: its 32 threads
-// read the four rows in coalesced 128-byte pieces (up to 16 loads in
-// flight a thread), multiply by the rhs vector, which lives in shared memory (2 n
-// floats, double-buffered), and sum each row by a xor shuffle; thread j of
-// the warp then updates z and y of row 4w + j elementwise, keeping x, z
-// and y of the lane in the output arrays, and writes that row of the next
-// rhs vector into the other buffer: one barrier an iteration. A row sums its
-// columns in another order than the plain version (strided by 32, then a
-// shuffle tree): float32 rounding, held to the same tolerance as the
-// split-row instances. At B 128, n 240 the batch's K^-1 is 29.5 MB, inside
-// the 50 MB L2, so the kernel is bound by L2 bandwidth and by the
-// iterations' serial chain, not by its flops. Above n = 29,056 the two rhs
+// The cluster instance, n = 240-736 (kClusterMaxN). A lane's K^-1 no
+// longer fits one SM (at n = 240 it is 230 KB against 256 KB of registers
+// and 227 KB of shared memory), so a cluster of c CTAs takes one lane and
+// CTA k holds rows [k R, k R + R) of it, R = ceil(n / c), for the whole
+// launch: K^-1 is read from device memory once a launch, as the work count
+// (kernels/admm_big.py::admm_big_work) charges it. Thread (g, p) holds two
+// rows (kClusterRows) of part p of S = 4 parts of L = round4(ceil(n / 4))
+// columns: C = 40 columns of each in registers (80 registers of K^-1, 128
+// in all, no spill) and the other L - 40 in shared memory as float4s laid
+// out [row][column / 4][thread], so neighbouring threads read neighbouring
+// 16 bytes; each row's q, lb and ub sit in shared memory too, by thread,
+// to leave the registers to K^-1. Each rhs float4, read from the CTA's own
+// copy of the vector (double-buffered, parts at bank-distinct strides as in
+// the register instances), serves both rows. A row part's columns go in
+// order into two sums (even and odd columns: half the chain of dependent
+// FMAs), then the four parts by xor shuffles (all four threads get the
+// same sum); y / rho is y (1 / rho), the reciprocal taken once a lane.
+// The exchange: each row's entry of the next rhs vector goes to every CTA
+// by st.async (thread p of a row the CTAs p, p + 4, ...), completing 4
+// bytes on that CTA's mbarrier of the buffer; each CTA waits for its whole
+// vector (4 n bytes, posted by its thread 0) on its own mbarrier. A
+// __syncthreads() between a CTA's reads of the current buffer and its
+// stores into the next one keeps the buffers safe: a CTA stores into
+// another's buffer only after it has that CTA's whole previous vector,
+// which that CTA sends only after its own reads. No cluster-wide barrier in
+// the loop: perf_cluster.py measured cluster.sync() with the remote stores
+// at 0.69-0.72 us an iteration and st.async at 0.18-0.21 us on an H100.
+// cluster.sync() comes once after every CTA has started and set up its
+// barriers, before any remote store, and once at the end, before any CTA
+// exits. c (cluster_plan) is the least in 2..8 whose CTA fits 512 threads
+// and 227 KB: at n 240 c = 2, a CTA 256 threads and 48 KB, so two CTAs
+// share an SM and B 128 runs its 256 CTAs in one wave on 132 SMs (the card
+// holds 132 such clusters at once); n 241-416 c = 2, n 512 c = 4, n 673-736
+// c = 8 (at n 737 a CTA of 8 would need 233 KB). The rounding order
+// differs from the plain version's: float32 rounding, held to ADMM_TOL.
+// What bounds it: each iteration's serial chain (the dot products' FMA
+// chains, the shuffles, the clip, the exchange), about 1.3 us an iteration
+// at B 128 n 240 against 0.22 us of float32 arithmetic.
+//
+// The streaming instance, n > 736. One block of 1024 threads takes one lane
+// and reads K^-1 from device memory every iteration, as the Pallas kernel's
+// one-dispatch-a-lane-tile form does above 4 MB a block
+// (pallas_qp.py:439-447). Warp w takes rows 4w..4w+3, then the next four of
+// its stride: its 32 threads read the four rows in coalesced 128-byte pieces
+// (up to 16 loads in flight a thread), multiply by the rhs vector, which
+// lives in shared memory (2 n floats, double-buffered), and sum each row by
+// a xor shuffle; thread j of the warp then updates z and y of row 4w + j
+// elementwise, keeping x, z and y of the lane in the output arrays, and
+// writes that row of the next rhs vector into the other buffer: one barrier
+// an iteration. A row sums its columns in another order than the plain
+// version (strided by 32, then a shuffle tree). It is bound by the bandwidth
+// of L2 or device memory (one SM a lane). Above n = 29,056 the two rhs
 // buffers (8 n bytes) pass the 227 KB of shared memory; there they sit in a
 // workspace in device memory that the wrapper allocates (B x 2 n floats),
-// so no n is refused. Spreading a lane's K^-1 over a thread-block
-// cluster's distributed shared memory, 2-4 SMs a lane, is the next step
-// (ROADMAP queue 2).
+// so no n is refused.
+//
+// mpc4q_admm_big_plan returns the instance, cluster size, threads and
+// shared bytes of a call (kernels/admm_big.py::admm_big_plan computes the
+// same), and with `query` the clusters the card can hold at once.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -94,6 +138,15 @@ constexpr int kStreamRows = 4;  // rows a warp of the streaming instance sums at
 // block may opt into
 constexpr int kStreamSmemMaxN = 232448 / 8;
 constexpr unsigned kFull = 0xffffffffu;
+// the cluster instance: register columns and parts of a row, the portable
+// cluster size, threads and shared memory a CTA may have, its largest n
+constexpr int kClusterC = 40;
+constexpr int kClusterS = 4;
+constexpr int kClusterRows = 2;  // rows a thread
+constexpr int kMaxCluster = 8;
+constexpr int kClusterMaxThreads = 512;
+constexpr int kMaxSmem = 232448;
+constexpr int kClusterMaxN = 736;
 
 // NaN-propagating max, min and clip, matching jnp.maximum / jnp.minimum:
 // fmaxf / fminf drop a NaN, and a NaN lane must never read as converged
@@ -108,10 +161,10 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 // the part length L of a row of n columns in S parts, and a part's stride
 // in the rhs vector: room for all C register columns, m / 4 odd so S <= 4
 // parts read distinct banks
-__host__ __device__ __forceinline__ int part_len(int n, int S) {
+__host__ __device__ constexpr int part_len(int n, int S) {
   return ((n + S - 1) / S + 3) / 4 * 4;
 }
-__host__ __device__ __forceinline__ int part_stride(int L, int C) {
+__host__ __device__ constexpr int part_stride(int L, int C) {
   const int m = L > C ? L : C;
   return (m / 4) % 2 ? m : m + 4;
 }
@@ -128,6 +181,33 @@ __host__ __device__ __forceinline__ int lane_region(int n, int ld, int vec, bool
 __host__ __device__ constexpr int max_threads(int S, int LANES, int NMAX) {
   return LANES > 1 ? 32 * LANES : (NMAX * S + 31) / 32 * 32;
 }
+
+// a cluster instance launch: cluster size, threads and shared bytes a CTA
+// (c = 0 where no cluster of kMaxCluster or fewer CTAs holds the lane)
+struct ClusterPlan {
+  int c, threads, smem;
+};
+
+__host__ __device__ constexpr int cluster_rows(int n, int c) { return (n + c - 1) / c; }
+
+// the least c in 2..kMaxCluster whose CTA fits: R = ceil(n / c) rows,
+// kClusterRows rows of one of S parts a thread, the parts' columns past C
+// as float4s in shared memory next to the two rhs buffers, and each row's
+// q, lb and ub
+__host__ __device__ constexpr ClusterPlan cluster_plan(int n) {
+  const int L = part_len(n, kClusterS), PL = part_stride(L, kClusterC);
+  for (int c = 2; c <= kMaxCluster; ++c) {
+    const int groups = (cluster_rows(n, c) + kClusterRows - 1) / kClusterRows;
+    const int T = (groups * kClusterS + 31) / 32 * 32;
+    const int smem =
+        16 + 4 * (T * kClusterRows * (L - kClusterC + 3) + 2 * kClusterS * PL);
+    if (T <= kClusterMaxThreads && smem <= kMaxSmem) return {c, T, smem};
+  }
+  return {0, 0, 0};
+}
+static_assert(cluster_plan(kMaxN + 1).c == 2, "the cluster instance starts at n = 240");
+static_assert(cluster_plan(kClusterMaxN).c == kMaxCluster, "the cluster instance's largest n");
+static_assert(cluster_plan(kClusterMaxN + 1).c == 0, "the cluster instance's largest n");
 
 template <int C, int S, int LANES, bool TAIL, int NMAX>
 __global__ void __launch_bounds__(max_threads(S, LANES, NMAX))
@@ -274,6 +354,257 @@ cudaError_t launch(const float* kinv, const float* q, const float* lb, const flo
   return cudaGetLastError();
 }
 
+// the shared-window address of a pointer into this CTA's shared memory
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// one float into CTA dst's shared memory at this CTA's address `slot`,
+// completing 4 bytes of the transaction on CTA dst's mbarrier at this
+// CTA's address `bar` (st.async: no cluster barrier needed)
+__device__ __forceinline__ void send(uint32_t slot, uint32_t bar, int dst, float v) {
+  uint32_t remote_slot, remote_bar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote_slot) : "r"(slot), "r"(dst));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote_bar) : "r"(bar), "r"(dst));
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(remote_slot), "r"(__float_as_uint(v)), "r"(remote_bar) : "memory");
+}
+
+// two mbarriers of one arrival each, set up for the cluster (one thread)
+__device__ __forceinline__ void init_bars(uint32_t bar0, uint32_t bar1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0) : "memory");
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar1) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// this CTA's mbarrier `bar` expects `bytes` more in its current phase (one
+// thread), and the wait for the phase of parity `parity` to end
+__device__ __forceinline__ void expect_bytes(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// the cluster instance: a cluster of c CTAs a lane, CTA k rows [k R, k R + R);
+// thread (g, p) rows k R + g RT + a (a < RT) of part p
+template <int C, int S, int RT>
+__global__ void __launch_bounds__(kClusterMaxThreads, 1)
+admm_cluster_kernel(const float* __restrict__ kinv, const float* __restrict__ q_in,
+                    const float* __restrict__ lb_in, const float* __restrict__ ub_in,
+                    const float* __restrict__ rho_in, const float* __restrict__ x_in,
+                    const float* __restrict__ z_in, const float* __restrict__ y_in,
+                    float* __restrict__ x_out, float* __restrict__ z_out,
+                    float* __restrict__ y_out, int n, int iters, float sigma, float alpha) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const size_t lane = blockIdx.x / c;
+  const int L = part_len(n, S), PL = part_stride(L, C);
+  const int tail4 = (L - C) / 4;  // float4s of a row part past the registers
+  const int T = blockDim.x, t = threadIdx.x;
+  const int g = t / S, p = t % S;
+  const int R = cluster_rows(n, c);
+  // the two buffers' mbarriers, then two buffers of S * PL floats
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* rhs = smem + 4;
+  // tailk[(a * tail4 + c4) * T + t]: row a's float4 c4 past the registers;
+  // then qlu[(3 a + k) * T + t]: row a's q, lb, ub (k = 0, 1, 2), kept out
+  // of the registers, which hold K^-1
+  float4* tailk = reinterpret_cast<float4*>(rhs + 2 * S * PL);
+  float* qlu = reinterpret_cast<float*>(tailk + RT * tail4 * T);
+  const int col0 = p * L;
+  // rows past the lane's last hold zeros and keep the barriers
+  int row[RT];
+  bool own[RT];
+  float kr[RT][C];
+#pragma unroll
+  for (int a = 0; a < RT; ++a) {
+    row[a] = rank * R + g * RT + a;
+    own[a] = g * RT + a < R && row[a] < n;
+    const float* krow = kinv + (lane * n + (own[a] ? row[a] : 0)) * (size_t)n + col0;
+#pragma unroll
+    for (int k = 0; k < C; ++k) kr[a][k] = own[a] && col0 + k < n ? __ldg(krow + k) : 0.0f;
+    for (int c4 = 0; c4 < tail4; ++c4) {
+      const int col = col0 + C + 4 * c4;
+      const float* kc = krow + C + 4 * c4;
+      tailk[(a * tail4 + c4) * T + t] =
+          make_float4(own[a] && col < n ? __ldg(kc) : 0.0f,
+                      own[a] && col + 1 < n ? __ldg(kc + 1) : 0.0f,
+                      own[a] && col + 2 < n ? __ldg(kc + 2) : 0.0f,
+                      own[a] && col + 3 < n ? __ldg(kc + 3) : 0.0f);
+    }
+  }
+  // the entries of the rhs buffers that no row writes (part padding) stay 0
+  for (int e = t; e < 2 * S * PL; e += T) rhs[e] = 0.0f;
+  float x[RT], z[RT], y[RT];
+  int pos[RT];  // row a's entry in the rhs vector
+  auto q = [&](int a) { return qlu[3 * a * T + t]; };
+  auto lb = [&](int a) { return qlu[(3 * a + 1) * T + t]; };
+  auto ub = [&](int a) { return qlu[(3 * a + 2) * T + t]; };
+#pragma unroll
+  for (int a = 0; a < RT; ++a) {
+    const size_t at = lane * n + (own[a] ? row[a] : 0);
+    qlu[3 * a * T + t] = own[a] ? __ldg(q_in + at) : 0.0f;
+    qlu[(3 * a + 1) * T + t] = own[a] ? __ldg(lb_in + at) : 0.0f;
+    qlu[(3 * a + 2) * T + t] = own[a] ? __ldg(ub_in + at) : 0.0f;
+    x[a] = own[a] ? __ldg(x_in + at) : 0.0f;
+    z[a] = own[a] ? __ldg(z_in + at) : 0.0f;
+    y[a] = own[a] ? __ldg(y_in + at) : 0.0f;
+    pos[a] = own[a] ? (row[a] / L) * PL + row[a] % L : 0;
+  }
+  const float rho = __ldg(rho_in + lane);
+  // y / rho as y (1 / rho): within a rounding of the division, and one
+  // multiply on each iteration's chain instead of a division
+  const float inv_rho = 1.0f / rho;
+  const float one_m_alpha = 1.0f - alpha;
+  // buffer b is whole when its mbarrier's phase ends: one arrival (the
+  // expected bytes, posted by thread 0) and 4 n bytes, each row's float
+  // from the CTA that owns it
+  const uint32_t bar0 = smem_u32(bars), bar1 = smem_u32(bars + 1);
+  if (t == 0) init_bars(bar0, bar1);
+  // every CTA has started, zeroed its buffers and set up its barriers
+  // before any remote store
+  cluster.sync();
+  if (iters > 0) {
+    if (t == 0) expect_bytes(bar0, 4 * n);
+#pragma unroll
+    for (int a = 0; a < RT; ++a) {
+      if (own[a]) {
+        const float v0 = sigma * x[a] - q(a) + rho * z[a] - y[a];
+        for (int dst = p; dst < c; dst += S) send(smem_u32(rhs + pos[a]), bar0, dst, v0);
+      }
+    }
+  }
+
+  for (int it = 0; it < iters; ++it) {
+    // buffer it & 1 is whole: its barrier's phase it / 2 has ended
+    wait_phase(it & 1 ? bar1 : bar0, (it >> 1) & 1);
+    const float4* v4 = reinterpret_cast<const float4*>(rhs + (it & 1) * S * PL + p * PL);
+    float* v_next = rhs + ((it + 1) & 1) * S * PL;
+    const uint32_t bar_next = it & 1 ? bar0 : bar1;
+    // each rhs float4 serves the thread's RT rows; a row part's columns in
+    // order into two sums, the even columns' and the odd columns' (half the
+    // chain of dependent FMAs), added at the end
+    float acc[RT], acc1[RT];
+#pragma unroll
+    for (int k4 = 0; k4 < C / 4; ++k4) {
+      const float4 w = v4[k4];
+#pragma unroll
+      for (int a = 0; a < RT; ++a) {
+        if (k4 == 0) {
+          acc[a] = kr[a][0] * w.x;
+          acc1[a] = kr[a][1] * w.y;
+        } else {
+          acc[a] += kr[a][4 * k4] * w.x;
+          acc1[a] += kr[a][4 * k4 + 1] * w.y;
+        }
+        acc[a] += kr[a][4 * k4 + 2] * w.z;
+        acc1[a] += kr[a][4 * k4 + 3] * w.w;
+      }
+    }
+#pragma unroll 4
+    for (int c4 = 0; c4 < tail4; ++c4) {
+      const float4 w = v4[C / 4 + c4];
+#pragma unroll
+      for (int a = 0; a < RT; ++a) {
+        const float4 kk = tailk[(a * tail4 + c4) * T + t];
+        acc[a] += kk.x * w.x;
+        acc1[a] += kk.y * w.y;
+        acc[a] += kk.z * w.z;
+        acc1[a] += kk.w * w.w;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < RT; ++a) {
+      acc[a] += acc1[a];
+#pragma unroll
+      for (int m = 1; m < S; m <<= 1) acc[a] += __shfl_xor_sync(kFull, acc[a], m);
+      x[a] = acc[a];
+      const float z_arg = alpha * x[a] + one_m_alpha * z[a];
+      const float z_new = nan_min(nan_max(z_arg + y[a] * inv_rho, lb(a)), ub(a));
+      y[a] = y[a] + rho * (z_arg - z_new);
+      z[a] = z_new;
+    }
+    if (it + 1 < iters) {
+      // every thread of this CTA has read buffer it & 1 before any of its
+      // rows is sent: a CTA writes into another's next buffer only after it
+      // has all of that CTA's rows of the current one, so no CTA overwrites
+      // a buffer that another still reads; the barrier of the next buffer
+      // finished its previous phase (waited on in the last iteration)
+      __syncthreads();
+      if (t == 0) expect_bytes(bar_next, 4 * n);
+#pragma unroll
+      for (int a = 0; a < RT; ++a) {
+        if (own[a]) {
+          const float v = sigma * x[a] - q(a) + rho * z[a] - y[a];
+          for (int dst = p; dst < c; dst += S) send(smem_u32(v_next + pos[a]), bar_next, dst, v);
+        }
+      }
+    }
+  }
+  // every store into this CTA has arrived (each buffer was waited on); the
+  // last cluster barrier before any CTA exits
+  cluster.sync();
+
+#pragma unroll
+  for (int a = 0; a < RT; ++a) {
+    if (own[a] && p == 0) {
+      const size_t at = lane * n + row[a];
+      x_out[at] = x[a];
+      z_out[at] = z[a];
+      y_out[at] = y[a];
+    }
+  }
+}
+
+// the launch configuration of the cluster instance at size n
+cudaLaunchConfig_t cluster_config(const ClusterPlan& plan, int B, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * plan.c);
+  cfg.blockDim = dim3(plan.threads);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = plan.c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// opted into once, at the most a CTA may take, so a launch makes no other
+// API call and can be captured in a CUDA graph
+cudaError_t cluster_attr() {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(admm_cluster_kernel<kClusterC, kClusterS, kClusterRows>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  return attr;
+}
+
+cudaError_t launch_cluster(const float* kinv, const float* q, const float* lb, const float* ub,
+                           const float* rho, const float* x, const float* z, const float* y,
+                           float* x_out, float* z_out, float* y_out, int B, int n, int iters,
+                           float sigma, float alpha, cudaStream_t stream) {
+  const ClusterPlan plan = cluster_plan(n);
+  if (plan.c == 0) return cudaErrorInvalidValue;
+  const cudaError_t attr = cluster_attr();
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchAttribute cluster_dim;
+  const cudaLaunchConfig_t cfg = cluster_config(plan, B, stream, &cluster_dim);
+  return cudaLaunchKernelEx(&cfg, admm_cluster_kernel<kClusterC, kClusterS, kClusterRows>, kinv, q, lb, ub,
+                            rho, x, z, y, x_out, z_out, y_out, n, iters, sigma, alpha);
+}
+
 // the streaming instance: rhs in shared memory (SMEM), or in the lane's
 // slice of the workspace ws (B x 2n floats)
 template <bool SMEM>
@@ -371,7 +702,75 @@ cudaError_t launch_stream(const float* kinv, const float* q, const float* lb, co
   return cudaGetLastError();
 }
 
+// the register instances by n: (C, S, LANES, TAIL, NMAX)
+enum Instance { kReg32 = 0, kReg64, kReg128, kReg160, kReg239, kCluster, kStream, kStreamWs };
+
+Instance instance(int n) {
+  if (n <= 32) return kReg32;
+  if (n <= 64) return kReg64;
+  if (n <= 128) return kReg128;
+  if (n <= 160) return kReg160;
+  if (n <= kMaxN) return kReg239;
+  if (n <= kClusterMaxN) return kCluster;
+  return n <= kStreamSmemMaxN ? kStream : kStreamWs;
+}
+
 }  // namespace
+
+// The launch plan of a call: out[0] the instance (0-4 the register
+// instances n <= 32, 64, 128, 160, 239; 5 cluster; 6 streaming; 7 streaming
+// on the workspace), out[1] the cluster size (1 outside the cluster
+// instance), out[2] the threads a block, out[3] the dynamic shared bytes a
+// block; with query nonzero out[4] the clusters of that shape the card can
+// hold at once (cudaOccupancyMaxActiveClusters; 0 outside the cluster
+// instance). Returns a cudaError_t.
+extern "C" int mpc4q_admm_big_plan(int B, int n, int query, int* out) {
+  if (B < 1 || n < 1) return cudaErrorInvalidValue;
+  const Instance inst = instance(n);
+  out[0] = inst;
+  out[1] = 1;
+  out[4] = 0;
+  int T = 0;
+  switch (inst) {
+    case kReg32:
+      out[3] = (int)smem_bytes<32, 1, 4, false>(n, &T);
+      out[2] = 4 * T;
+      return cudaSuccess;
+    case kReg64:
+      out[3] = (int)smem_bytes<64, 1, 1, false>(n, &T);
+      out[2] = T;
+      return cudaSuccess;
+    case kReg128:
+      out[3] = (int)smem_bytes<64, 2, 1, false>(n, &T);
+      out[2] = T;
+      return cudaSuccess;
+    case kReg160:
+      out[3] = (int)smem_bytes<40, 4, 1, false>(n, &T);
+      out[2] = T;
+      return cudaSuccess;
+    case kReg239:
+      out[3] = (int)smem_bytes<32, 4, 1, true>(n, &T);
+      out[2] = T;
+      return cudaSuccess;
+    case kStream:
+    case kStreamWs:
+      out[2] = kStreamThreads;
+      out[3] = inst == kStream ? (int)(2 * sizeof(float) * n) : 0;
+      return cudaSuccess;
+    default:
+      break;
+  }
+  const ClusterPlan plan = cluster_plan(n);
+  out[1] = plan.c;
+  out[2] = plan.threads;
+  out[3] = plan.smem;
+  if (!query) return cudaSuccess;
+  const cudaError_t attr = cluster_attr();
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchAttribute cluster_dim;
+  const cudaLaunchConfig_t cfg = cluster_config(plan, B, nullptr, &cluster_dim);
+  return cudaOccupancyMaxActiveClusters(&out[4], admm_cluster_kernel<kClusterC, kClusterS, kClusterRows>, &cfg);
+}
 
 // ws: null, or above n = kStreamSmemMaxN a workspace of B x 2n floats
 extern "C" int mpc4q_admm_big(const float* kinv, const float* q, const float* lb,
@@ -382,14 +781,17 @@ extern "C" int mpc4q_admm_big(const float* kinv, const float* q, const float* lb
   if (n < 1 || iters < 0) return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > kMaxN)
-    return launch_stream(kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, ws, B, n, iters,
-                         sigma, alpha, s);
 #define ARGS kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, B, n, iters, sigma, alpha, s
-  if (n <= 32) return launch<32, 1, 4, false, 32>(ARGS);
-  if (n <= 64) return launch<64, 1, 1, false, 64>(ARGS);
-  if (n <= 128) return launch<64, 2, 1, false, 128>(ARGS);
-  if (n <= 160) return launch<40, 4, 1, false, 160>(ARGS);
-  return launch<32, 4, 1, true, kMaxN>(ARGS);
+  switch (instance(n)) {
+    case kReg32: return launch<32, 1, 4, false, 32>(ARGS);
+    case kReg64: return launch<64, 1, 1, false, 64>(ARGS);
+    case kReg128: return launch<64, 2, 1, false, 128>(ARGS);
+    case kReg160: return launch<40, 4, 1, false, 160>(ARGS);
+    case kReg239: return launch<32, 4, 1, true, kMaxN>(ARGS);
+    case kCluster: return launch_cluster(ARGS);
+    default:
+      return launch_stream(kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, ws, B, n, iters,
+                           sigma, alpha, s);
+  }
 #undef ARGS
 }

@@ -41,6 +41,9 @@ _SIGNATURES = {
     # kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, ws, B, n, iters,
     # sigma, alpha, stream
     "mpc4q_admm_big": [_P] * 12 + [_I] * 3 + [_F] * 2 + [_P],
+    # B, size, query, out (5 ints): the launch plan of a call
+    "mpc4q_expm_small_plan": [_I] * 3 + [_P],
+    "mpc4q_admm_big_plan": [_I] * 3 + [_P],
 }
 
 _lib = None
@@ -114,6 +117,16 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def plan(name: str, B: int, size: int, query: bool = False) -> tuple[int, ...]:
+    """The kernel library's launch plan of a call (`name` "expm_small" or
+    "admm_big" at batch B and size d or n): (instance id, cluster size,
+    threads a block, dynamic shared bytes a block, and with `query` the
+    clusters of that shape the card holds at once, else 0)."""
+    out = (ctypes.c_int * 5)()
+    check(getattr(library(), f"mpc4q_{name}_plan")(B, size, int(query), out), f"{name}_plan")
+    return tuple(out)
 
 
 def check(rc: int, name: str) -> None:

@@ -1,34 +1,118 @@
 """Relaxed-ADMM iterations from a precomputed K^-1, for box QPs of any size
-n >= 1: the wrapper of the CUDA kernel csrc/admm_big.cu and its plain
-PyTorch version.
+n >= 1: the wrapper of the CUDA kernel csrc/admm_big.cu, its launch plan
+and its plain PyTorch version.
 
 The kernel replaces mpc4quantum_tpu/ops/pallas_qp.py::_admm_loop_kernel
-(`_admm_iters_lanes` and `boxqp_pallas_big` there), which takes any n. Up
-to n = 239 a lane's K^-1 sits in one block's registers (and shared
-memory); above it one block a lane streams K^-1's rows from device memory
-every iteration, with the rhs vector in shared memory, and above n =
-STREAM_SMEM_MAX_N in a workspace in device memory that this wrapper
-allocates. On a CPU tensor the wrapper runs the plain version; on a CUDA
-tensor it launches the kernel or raises.
+(`_admm_iters_lanes` and `boxqp_pallas_big` there), which takes any n. The
+instance depends on n alone (`admm_big_plan`):
+- n <= 239: one block a lane, each thread's part of a K^-1 row in
+  registers (and, above n 160, the rest of it in shared memory);
+- 240 <= n <= CLUSTER_MAX_N: one thread-block cluster of c CTAs a lane (c
+  the least in 2..8 that fits: 2 at n 240-416, 8 at n 673-736), CTA k
+  holding rows [k R, k R + R) of K^-1 for the whole launch, two rows a
+  thread, 40 columns of each row part in registers and the rest in shared
+  memory; each iteration's rhs vector goes to every CTA by st.async,
+  counted on each CTA's mbarrier, with no cluster-wide barrier in the
+  loop, so K^-1 is read from device memory once a launch. It is bound by
+  each iteration's serial chain;
+- above: one block a lane streams K^-1's rows from L2 or device memory
+  every iteration, with the rhs vector in shared memory, and above n =
+  STREAM_SMEM_MAX_N in a workspace in device memory that this wrapper
+  allocates.
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..solvers.boxqp import admm_iters
 from . import _build
 
+# the largest n of the register instances and of the cluster instance
+# (kMaxN, kClusterMaxN in csrc/admm_big.cu)
+REG_MAX_N = 239
+CLUSTER_MAX_N = 736
 # the largest n whose streaming instance keeps its two rhs buffers (8 n
 # bytes) in shared memory; above it they sit in a workspace
-# (kStreamSmemMaxN in csrc/admm_big.cu)
+# (kStreamSmemMaxN)
 STREAM_SMEM_MAX_N = 29056
+# the instances in the order of mpc4q_admm_big_plan's ids: the register
+# instances by their largest n, the cluster, the streaming instance with
+# its rhs in shared memory and on the workspace
+INSTANCES = ("reg32", "reg64", "reg128", "reg160", "reg239", "cluster", "stream", "stream_ws")
+# a register instance: (largest n, register columns C, parts S, lanes a
+# block, part of each row in shared memory)
+_REG_FORMS = ((32, 32, 1, 4, False), (64, 64, 1, 1, False), (128, 64, 2, 1, False),
+              (160, 40, 4, 1, False), (REG_MAX_N, 32, 4, 1, True))
+# the cluster instance's register columns and parts a row, rows a thread,
+# the portable cluster size, a CTA's most threads and shared bytes
+_CLUSTER_C, _CLUSTER_S, _CLUSTER_ROWS, MAX_CLUSTER = 40, 4, 2, 8
+_CLUSTER_THREADS, MAX_SMEM = 512, 232448
+_STREAM_THREADS = 1024
+
+
+class Plan(NamedTuple):
+    """How a call runs: the instance, its cluster size (1 outside the
+    cluster instance), threads a block and dynamic shared bytes a block."""
+    instance: str
+    cluster: int
+    threads: int
+    smem: int
+
+
+def _part_len(n: int, S: int) -> int:
+    return ((n + S - 1) // S + 3) // 4 * 4
+
+
+def _part_stride(L: int, C: int) -> int:
+    m = max(L, C)
+    return m if (m // 4) % 2 else m + 4
+
+
+def _cluster_fit(n: int):
+    """(c, threads, shared bytes) of the least cluster in 2..8 whose CTA
+    fits n, or None (cluster_plan in csrc/admm_big.cu)."""
+    L = _part_len(n, _CLUSTER_S)
+    PL = _part_stride(L, _CLUSTER_C)
+    for c in range(2, MAX_CLUSTER + 1):
+        T = (-(-(-(-n // c)) // _CLUSTER_ROWS) * _CLUSTER_S + 31) // 32 * 32
+        smem = 16 + 4 * (T * _CLUSTER_ROWS * (L - _CLUSTER_C + 3) + 2 * _CLUSTER_S * PL)
+        if T <= _CLUSTER_THREADS and smem <= MAX_SMEM:
+            return c, T, smem
+    return None
+
+
+def admm_big_plan(B: int, n: int) -> Plan:
+    """The launch plan of an `admm_big` call at batch B and size n, as the
+    kernel library computes it (mpc4q_admm_big_plan): the instance by n
+    alone, and its cluster size, threads and shared bytes a block."""
+    if B < 1 or n < 1:
+        raise ValueError(f"admm_big_plan: B={B}, n={n}")
+    for k, (nmax, C, S, lanes, tail) in enumerate(_REG_FORMS):
+        if n <= nmax:
+            # a lane's region: the two rhs buffers, or a warp lane's staged
+            # K^-1 (rows of odd stride n | 1) where that is larger
+            L, T = _part_len(n, S), 32 if lanes > 1 else (n * S + 31) // 32 * 32
+            vec = S * _part_stride(L, C)
+            region = n * (n | 1) if lanes > 1 and n * (n | 1) > 2 * vec else 2 * vec
+            return Plan(INSTANCES[k], 1, T * lanes,
+                        4 * (lanes * ((region + 3) // 4 * 4) + ((L - C) * T if tail else 0)))
+    if n <= CLUSTER_MAX_N:
+        return Plan("cluster", *_cluster_fit(n))
+    if n <= STREAM_SMEM_MAX_N:
+        return Plan("stream", 1, _STREAM_THREADS, 8 * n)
+    return Plan("stream_ws", 1, _STREAM_THREADS, 0)
 
 
 def admm_big_work(B: int, n: int, iters: int):
     """The work of one `admm_big` call, counted from its shapes (FMA = 2
     flops): per lane iters (2n^2 + 8n) flops and 4 (n^2 + 9n + 1) bytes -
-    K^-1, q, lb, ub, x, z, y and rho read once, x, z and y written once.
+    K^-1, q, lb, ub, x, z, y and rho read once, x, z and y written once,
+    whatever the instance (the streaming one reads K^-1 every iteration).
 
     :return: (flops, bytes).
     """

@@ -81,8 +81,9 @@ def profile_fleets(names=()):
         acts = profiled(lambda: runner.run(*args, **run_kw))
         device = sum(t for _, t in acts)
         by_kernel = {}
-        for key in ("boxqp_small_kernel", "admm_big_kernel", "admm_stream_kernel",
-                    "expm_small_kernel", "expm_block_kernel"):
+        for key in ("boxqp_small_kernel", "admm_big_kernel", "admm_cluster_kernel",
+                    "admm_stream_kernel", "expm_small_kernel", "expm_tile_kernel",
+                    "expm_cluster_kernel", "expm_workspace_kernel"):
             times = [t for n, t in acts if key in n]
             by_kernel[key] = {"launches": len(times), "device_ms": sum(times) / 1e3,
                               "device_us_a_launch": sum(times) / max(len(times), 1)}

@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from mpc4quantum_tpu_torch.kernels._graph import graph_node_types
+from mpc4quantum_tpu_torch.kernels import _build
+from mpc4quantum_tpu_torch.kernels import admm_big as admm_mod
+from mpc4quantum_tpu_torch.kernels import expm as expm_mod
+from mpc4quantum_tpu_torch.kernels._graph import graph_kernel_launches, graph_node_types
 from mpc4quantum_tpu_torch.kernels.admm_big import STREAM_SMEM_MAX_N, admm_big, admm_iters_ref
 from mpc4quantum_tpu_torch.kernels.boxqp import (boxqp_accept, boxqp_big, boxqp_small,
                                                  boxqp_small_ref)
@@ -22,10 +25,11 @@ from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
 pytestmark = pytest.mark.cuda
 
 # the expm kernel's instances: 2-4 (one team of 2 or 4 threads), 5-8 (a
-# team of 8, the 3-qubit plant's d = 8), and one block a matrix at d = 1
-# and d >= 9 (the damped pair's Liouvillian d = 16), with X and P in shared
-# memory up to d = 97 and in a workspace above (d = 100)
-EXPM_SIZES = [1, *range(2, 9), 9, 16, 33, 100]
+# team of 8, the 3-qubit plant's d = 8), the tile instance at d = 1 and
+# 9-32 (the damped pair's Liouvillian d = 16, a partial tile at d = 17),
+# the cluster instance at d 33-116 (one cluster of CTAs a matrix) and the
+# workspace above (d = 117)
+EXPM_SIZES = [1, *range(2, 9), 9, 16, 17, 32, 33, 64, 100, 116, 117]
 
 
 @pytest.fixture
@@ -91,16 +95,18 @@ def test_boxqp_kernel_scaled_matches_plain(cuda, n):
 
 
 @pytest.mark.parametrize("n", [1, 17, 31, 32, 33, 50, 64, 65, 128, 129, 150, 160, 161, 239,
-                               240, 241, 256, 320, 512, 1024])
+                               240, 241, 256, 320, 416, 417, 512, 736, 737, 1024])
 def test_admm_kernel_matches_plain(cuda, n):
     """Every instance and its edges: a warp per lane up to 32 columns, whole
     rows in registers up to 64, rows split over 2 threads up to 128 and over
     4 up to 160, then 32 columns of each part in registers and the rest in
-    shared memory (above 48 KB of it at n = 239), and from n = 240 the
+    shared memory (above 48 KB of it at n = 239); from n = 240 the cluster
+    instance (a cluster of CTAs a lane, 2 CTAs up to n 416, 3 from 417, 8
+    at 736; n not a multiple of four at 241), and from n = 737 the
     streaming instance (rows read from device memory every iteration, four
-    rows a warp, n not a multiple of four at 241). Split and streamed rows
-    add their parts in another order than the plain row sum: float32
-    rounding, well inside the bound."""
+    rows a warp). Split, clustered and streamed rows add their parts in
+    another order than the plain row sum: float32 rounding, well inside
+    the bound."""
     B = 300 if n < 512 else 16
     P, q, lb, ub = qp_batch(B, n, seed=n, device=cuda)
     rng = np.random.default_rng(n + 1)
@@ -115,6 +121,44 @@ def test_admm_kernel_matches_plain(cuda, n):
     assert admm_big.launches == before + 1
     for k, p in zip(out_k, out_p):
         torch.testing.assert_close(k, p, rtol=0, atol=1e-4 * max(1.0, float(p.abs().max())))
+
+
+@pytest.mark.parametrize("B", [1, 4, 16, 128, 1024, 16384])
+def test_library_plans_equal_the_python_plans(cuda, B):
+    """mpc4q_expm_small_plan and mpc4q_admm_big_plan against
+    expm_small_plan and admm_big_plan: every d in 1..160, n in 1..4096."""
+    for kind, mod, top in (("expm_small", expm_mod, 160), ("admm_big", admm_mod, 4096)):
+        plan_fn = getattr(mod, f"{kind}_plan")
+        for size in range(1, top + 1):
+            plan = plan_fn(B, size)
+            assert _build.plan(kind, B, size)[:4] == (mod.INSTANCES.index(plan.instance),
+                                                      *plan[1:]), (kind, B, size)
+
+
+@pytest.mark.parametrize("B,d", [(128, 16), (4, 100), (16, 64), (1, 33), (4, 117)])
+def test_expm_launch_follows_its_plan(cuda, B, d):
+    """The kernel node of a captured call has the plan's block, shared
+    bytes and cluster dimensions: the instance the plan names ran."""
+    plan = expm_mod.expm_small_plan(B, d)
+    A = hermitian_batch(B, d, seed=d, hi=2.0, device=cuda)
+    (launch,) = graph_kernel_launches(lambda: expm_small(A, 12, 2))
+    assert launch == {"grid": (B * plan.cluster, 1, 1), "block": (plan.threads, 1, 1),
+                      "smem": plan.smem, "cluster": (plan.cluster, 1, 1)}
+    if plan.instance == "cluster":
+        assert _build.plan("expm_small", B, d, query=True)[4] >= 1
+
+
+@pytest.mark.parametrize("B,n", [(128, 240), (1, 240), (16, 736), (16, 737)])
+def test_admm_launch_follows_its_plan(cuda, B, n):
+    plan = admm_mod.admm_big_plan(B, n)
+    P, q, lb, ub = qp_batch(B, n, seed=n, device=cuda)
+    rho = torch.full((B,), 0.5, device=cuda)
+    kinv = gj_inverse(P + (1e-6 + rho)[:, None, None] * torch.eye(n, device=cuda))
+    x = z = y = torch.zeros((B, n), device=cuda)
+    (launch,) = graph_kernel_launches(
+        lambda: admm_big(kinv, q, lb, ub, rho, x, z, y, iters=3, sigma=1e-6, alpha=1.6))
+    assert launch == {"grid": (B * plan.cluster, 1, 1), "block": (plan.threads, 1, 1),
+                      "smem": plan.smem, "cluster": (plan.cluster, 1, 1)}
 
 
 def test_admm_kernel_workspace_path_matches_plain(cuda):

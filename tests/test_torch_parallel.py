@@ -10,10 +10,15 @@ tests/test_parallel.py `small_problem` (8 JAX-drawn detuned plants) through
 JAX `sharded_mpc`; tests/test_tensor_parallel.py `make_problem(dim_x=64)`
 through JAX's row-sharded rollouts on its op mesh, and `make_3q_scenario`
 (dim_x 64) through JAX's dense `mpc()` and its 4-lane vmap fleet. They
-reach the workers as an npz; each worker joins a gloo group through a
-`file://` store in the test's tmp_path (no fixed port), pins torch to one
-thread, runs the port in float64 and writes its outputs, which are compared
-here. A worker that does not finish within its timeout fails the test.
+reach the workers as an npz; each spawn's workers join a gloo group
+through a `file://` store in a directory of their own under the module's
+tmp path (no fixed port, and no store left by another case's run), pin
+torch to one thread, run the port in float64, write their outputs there,
+which are compared here, and end by os._exit(0) once the group is
+destroyed: under load the interpreter's own teardown after
+destroy_process_group() at times aborted a rank ("terminate called without
+an active exception", SIGABRT) after its outputs were written. A worker
+that does not finish within its timeout fails the test.
 
 Tolerances: the sharded fleet equals JAX `sharded_mpc` to 1e-8 on states,
 controls and objectives (the single-process `batched_mpc` parity of
@@ -38,6 +43,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import textwrap
 from pathlib import Path
 
@@ -68,8 +74,8 @@ DETUNES = 1.0 + 0.01 * np.asarray([-1.0, -0.3, 0.4, 1.2])
 
 _WORKER = textwrap.dedent("""
     import json, os, sys
-    rank, world, tmp, case, root = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                                    sys.argv[4], sys.argv[5])
+    rank, world, tmp, rundir, case, root = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                                            sys.argv[4], sys.argv[5], sys.argv[6])
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -80,7 +86,7 @@ _WORKER = textwrap.dedent("""
     from mpc4quantum_tpu_torch.ops.bilinear import BilinearModel
     from mpc4quantum_tpu_torch.parallel import tensor as tp
 
-    port.init_distributed(f"file://{tmp}/store_{case}", world, rank, device="cpu")
+    port.init_distributed(f"file://{rundir}/store", world, rank, device="cpu")
     d = np.load(os.path.join(tmp, "inputs.npz"))
     T = lambda k: torch.tensor(d[k])
     out = {}
@@ -146,8 +152,11 @@ _WORKER = textwrap.dedent("""
         fns = tp.tp_model_fns(mesh, dim_u=3, order=1, dim_x=64)
         result("tp_", port.sharded_mpc(mesh, *args, model_fns=fns))
         result("dense_", port.batched_mpc(*args))
-    np.savez(os.path.join(tmp, f"out_{case}_{rank}.npz"), **out)
+    np.savez(os.path.join(rundir, f"out_{rank}.npz"), **out)
     torch.distributed.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 """)
 
 
@@ -216,10 +225,12 @@ def reference(tmp_path_factory):
 
 
 def spawn(tmp: Path, case: str, world: int) -> list:
-    """Run the case's worker as `world` gloo processes; each one's outputs."""
+    """Run the case's worker as `world` gloo processes, with a store and
+    outputs in a new directory under tmp; each one's outputs."""
+    run = Path(tempfile.mkdtemp(prefix=f"{case}{world}_", dir=tmp))
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
     procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), str(world), str(tmp),
-                               case, str(ROOT)], env=env, stdout=subprocess.PIPE,
+                               str(run), case, str(ROOT)], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
@@ -234,7 +245,7 @@ def spawn(tmp: Path, case: str, world: int) -> list:
                 p.wait()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"{case} rank {r} failed ({p.returncode}):\n{log[-3000:]}"
-    return [dict(np.load(tmp / f"out_{case}_{r}.npz")) for r in range(world)]
+    return [dict(np.load(run / f"out_{r}.npz")) for r in range(world)]
 
 
 def close(a, b, tol):

@@ -2,8 +2,8 @@
 the JAX package on the CPU (x64 there, float64 in the port unless a test
 says float32), on numpy inputs made from a seed:
 
-- `expm_small`'s plain version at d 9, 16 and 33 (the block instance's
-  sizes on the card) against JAX's `ops/expm.expm_taylor` (the XLA form
+- `expm_small`'s plain version at d 9, 16 and 33 (the tile and cluster
+  instances' sizes on the card) against JAX's `ops/expm.expm_taylor` (the XLA form
   the JAX plant steps run) and against `scipy.linalg.expm` in float64, on
   Hermitian generators, Liouvillians of a damped system and a non-normal
   matrix, across the 0- and 1-squaring branches; and a real float32 batch
@@ -11,7 +11,7 @@ says float32), on numpy inputs made from a seed:
   kernel itself is not run at d 9: its trace unrolls d^3 products a step,
   and in interpret mode on a CPU it did not compile within 15 minutes (d 4
   takes about 10 s).
-- `admm_big`'s plain version at n 240 and 256 (the streaming instance's
+- `admm_big`'s plain version at n 240 and 256 (the cluster instance's
   sizes) against the Pallas `_admm_iters_lanes(interpret=True)`.
 - The wrappers' argument checks, a function of shapes: every n and d is
   taken, bad dtypes and shapes are refused.
@@ -149,7 +149,7 @@ def test_expm_real_input_matches_pallas():
 
 @pytest.mark.parametrize("n", [240, 256])
 def test_admm_iters_ref_matches_pallas_interpret_above_239(n):
-    """The streaming instance's sizes: B 8 lanes padded to 128 as
+    """The cluster instance's sizes: B 8 lanes padded to 128 as
     boxqp_pallas_big pads them (identity inverse, q = 0, box [-1, 1], zero
     iterates), 15 iterations."""
     Bl, Bp, iters, sigma, alpha = 8, 128, 15, 1e-6, 1.6

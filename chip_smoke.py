@@ -54,19 +54,24 @@ flagship MPC step on the card against float64 on the CPU, and
 dryrun_multichip(1), the sharded tiny rollout on a one-rank NCCL group.
 The kernels' other sizes are checked too: `expm_small` at d 9 to 32 (the
 tile instance, one block a matrix), 64 to 116 (the cluster instance, one
-thread-block cluster a matrix) and 117 (the workspace), NaN matrices at
-d 16 and 100 and a real float32 batch, `admm_big` at n 240 to 736 (the
-cluster instance, one cluster a lane) and 737 and 1024 (the streaming
-instance); every launch plan of the two kernels as the kernel library
+thread-block cluster a matrix), 117 to 256 (the cluster2d instance, a
+cluster of up to 16 CTAs a matrix, a 2D tile each) and 300 (the grid2d
+instance, one cooperative launch over a workspace), NaN matrices at d 16,
+100, 256 and 300 and a real float32 batch, `admm_big` at n 240 to 1008 (the
+cluster instance, one cluster of up to 16 CTAs a lane), 1009 to 4096 (the
+streaming instance, a cluster of 16 CTAs a lane) and 29,057 (its workspace
+form); every launch plan of the two kernels as the kernel library
 computes it against the Python one (d 1-160, n 1-4096), and each checked
 call's kernel node in a captured CUDA graph against its plan (block,
 shared bytes, cluster dimensions); the redesigned instances against the
-first ones' device times and, at d 100, torch.linalg.matrix_exp; and
-two scenarios of no preset, built from the port's constructors, run at
-B 128 through `run_hostloop_fleet` as the JAX package runs any Scenario:
+first ones' device times and, at d 100, 117 and 128, torch.linalg.matrix_exp;
+and four scenarios of no preset, built from the port's constructors, run
+through `run_hostloop_fleet` as the JAX package runs any Scenario:
 damped_pair (cnot_state's pair with amplitude damping, a 16 x 16
-Liouvillian plant step) and cnot_h80 (cnot_state at horizon 80, QP n 240),
-with their gates, launch counts and lanes against float64 on the CPU. One
+Liouvillian plant step) and cnot_h80 (cnot_state at horizon 80, QP n 240)
+at B 128, damped_chain4 (four damped qubits, a 256 x 256 Liouvillian plant
+step) at B 128 and cnot_h250 (horizon 250, QP n 750) at B 16, with their
+gates, launch counts and lanes against float64 on the CPU. One
 JSON line per phase; then the card's name and power limit, the per-kernel
 record, and last {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero. Without a CUDA device it exits 1 and prints no result.
@@ -109,8 +114,9 @@ QP_TOL = 1e-3              # max |z|, |y| difference, relative to max(1, |ref|),
 RHO_RTOL = 2e-2
 UNRESOLVED = 1e-5
 # max abs difference of the outputs; (12, 2) covers norms up to 2, (12, 1)
-# the non-normal d = 4 Liouvillians up to 1.6 (outputs up to e^1.6)
-EXPM_TOL = {(12, 0): 1e-5, (18, 12): 5e-3, (12, 2): 1e-5, (12, 1): 1e-5}
+# the non-normal d = 4 Liouvillians up to 1.6 (outputs up to e^1.6), (12, 4)
+# the damped four-qubit chain's 256 x 256 Liouvillians up to its bound 5.16
+EXPM_TOL = {(12, 0): 1e-5, (18, 12): 5e-3, (12, 2): 1e-5, (12, 1): 1e-5, (12, 4): 1e-5}
 # d = 4: the kernel against the float64 plain result too
 EXPM_F64_TOL = 1e-5
 # admm_big against its plain version: iters float32 steps whose row sums run
@@ -204,11 +210,34 @@ RESCUE = dict(lanes=6, steps=20, tol=1e-4,
 # (expected_launches); 4 lanes over 12 steps within 1e-3 of the port's
 # float64 CPU run on the same plants in the final fidelity, exit codes
 # equal (the float32 closed loop of cnot_state tracks float64 to 1e-4
-# over 60 steps and branches between steps 70 and 100).
+# over 60 steps and branches between steps 70 and 100). Two more at full
+# width launch the last two kernel instances: damped_chain4
+# (damped_chain4_scenario: four damped qubits, every plant step one
+# expm_small launch at d 256 in its cluster2d instance at the budget (12, 4)
+# expm_budget_for gives the chain; QP n 32, 6 steps, the default 2x150) at
+# B 128, whose float32 closed loop branches from float64 in step 1's eight
+# line-searched SQP iterations, as the three-qubit problem's does (tp_3q),
+# only further: the JAX package's own float32 run ends more than 5e-2 from
+# its x64 run and the port's float32 CPU run more than 1e-3 from float64
+# (tests/test_torch_large.py::test_chain_float32_branches_in_jax_too), so
+# its first step is held to 1e-5 of float64 (tracking) and the final
+# fidelity of all 6 steps to 5e-2, exit codes equal; and cnot_h250
+# (cnot_h250_scenario: QP n 750, admm_big's cluster instance at 10 CTAs a
+# lane, 0 / 200 / 642 launches a run) at B 16, 2 lanes over 6 steps held
+# to float64 (cut from cnot_h80's 4 x 12: its 642 cold Newton-Schulz K^-1
+# builds at n 750 make the float64 CPU run about 30 s a lane-step on one
+# thread). Its float32 QPs complete only with the Newton-Schulz K^-1's last
+# step formed in float64 (solvers/boxqp.ns_inverse): float32's own
+# iteration stalls near 1e-5 at n 750 and, on the card at B 16, step 0's
+# QPs failed acceptance by up to 3.7x (perf_qp_floor.py).
 SLICE_FLEETS = {"damped_pair": dict(batch=128, reps=2, parity_lanes=4, parity_steps=12,
                                     parity_tol=1e-3),
                 "cnot_h80": dict(batch=128, reps=2, parity_lanes=4, parity_steps=12,
-                                 parity_tol=1e-3)}
+                                 parity_tol=1e-3),
+                "damped_chain4": dict(batch=128, reps=2, parity_lanes=4, parity_steps=6,
+                                      parity_tol=5e-2, tracking=(1, 1e-5)),
+                "cnot_h250": dict(batch=16, reps=2, parity_lanes=2, parity_steps=6,
+                                  parity_tol=1e-3)}
 # The learned-model cells, on the flagship's problem (not_state, n = 10):
 # every lane carries its own model, refit after each step (streaming), and
 # every QP runs cold at the library's 2x150 (benchfleet.make_runner's
@@ -357,13 +386,21 @@ SHARDED = dict(batch=BATCH, fid_min=0.998, equal_tol=1e-6)
 # cold at 3 x 300); the cluster instance: cnot_h80's n 240 at its batch, at
 # 80 and 100 iterations and at the 300 a round its cold QPs launch, n 241
 # (rows the cluster does not divide), one cluster alone (B 1), n 320 and
-# 512 (clusters of 2 and 4) and its largest n, 736 (8 CTAs); then the
-# streaming instance at n 737 and 1024
+# 512 (clusters of 2 and 4), 736 (8 CTAs), 737 (10, above the portable 8),
+# cnot_h250's launch (B 16, n 750, 300 iterations) and its largest n, 1008
+# (16 CTAs); then the streaming instance (a cluster of 16 CTAs a lane) at n
+# 1009, 1024 and 4096, and on the workspace at n 29,057 (one lane of a
+# 3.4 GB K^-1, two iterations)
 ADMM_SHAPES = ((2048, 32, 50), (2048, 32, 19), (1024, 50, 40), (256, 150, 50), (256, 239, 50),
                (1024, 40, 150), (128, 150, 100), (128, 150, 80), (1024, 20, 150), (1, 20, 150),
                (1024, 24, 150), (128, 150, 300), (128, 240, 80), (128, 240, 100),
                (128, 240, 300), (128, 241, 80), (1, 240, 300), (64, 320, 50), (16, 512, 50),
-               (16, 736, 50), (16, 737, 50), (1, 1024, 10))
+               (16, 736, 50), (16, 737, 50), (16, 750, 300), (16, 1008, 50), (16, 1009, 50),
+               (1, 1024, 10), (2, 4096, 10), (1, 29057, 2))
+# from this n on admm_input builds K^-1 directly, a seeded symmetric matrix
+# of K^-1's scale (the kernel only multiplies by it): Gauss-Jordan of the
+# 29,057 x 29,057 QP would take hours
+ADMM_DIRECT_N = 2048
 # the bound's peaks: one H100 SXM at its 700 W limit (NVIDIA's data sheet),
 # float32 outside the tensor cores and device memory
 PEAK_FLOPS = 67e12
@@ -392,7 +429,11 @@ EXPM_CASES = {"d2_12_0": (BATCH, EXPM_D, 12, 0, 1e-3, 0.8),
               # step (16 x 16 Liouvillians at its budget (12, 1)), four
               # qubits in the certified form, d 17 (a partial tile) and
               # d 32; the cluster instance at d 64, 97, 98, 100 and its
-              # largest d, 116; the workspace at d 117
+              # largest d, 116; the cluster2d instance at d 117 and 128
+              # (4 x 4 tiles of 32), 129 (3 x 3 of 48), 256 (4 x 4 of 64)
+              # and damped_chain4's plant step (B 128, d 256, its 256 x 256
+              # Liouvillians up to the chain's norm bound 5.16 at its
+              # budget (12, 4)); the grid2d instance at d 300
               "d9_12_2_b1024": (1024, 9, 12, 2, 0.05, 2.0),
               "d16_12_1_b128": (128, 16, 12, 1, 0.05, 1.6),
               "d16_12_0_b1024": (1024, 16, 12, 0, 1e-3, 0.8),
@@ -403,43 +444,64 @@ EXPM_CASES = {"d2_12_0": (BATCH, EXPM_D, 12, 0, 1e-3, 0.8),
               "d98_12_2_b4": (4, 98, 12, 2, 0.05, 2.0),
               "d100_12_2_b4": (4, 100, 12, 2, 0.05, 2.0),
               "d116_12_2_b4": (4, 116, 12, 2, 0.05, 2.0),
-              "d117_12_2_b4": (4, 117, 12, 2, 0.05, 2.0)}
+              "d117_12_2_b4": (4, 117, 12, 2, 0.05, 2.0),
+              "d128_12_2_b4": (4, 128, 12, 2, 0.05, 2.0),
+              "d129_12_2_b4": (4, 129, 12, 2, 0.05, 2.0),
+              "d256_12_2_b4": (4, 256, 12, 2, 0.05, 2.0),
+              "d256_12_4_b128": (128, 256, 12, 4, 0.5, 5.16),
+              "d300_12_2_b2": (2, 300, 12, 2, 0.05, 2.0)}
+# the cases on Liouvillians (non-normal, both squaring branches), the
+# Lindblad plants' steps; the others on -i H
+EXPM_LIOUVILLIAN = ("d4_12_1", "d16_12_1_b128", "d256_12_4_b128")
 # a real float32 batch at d 4 (expm_pallas takes real input): run as
 # complex64, the real part returned
 EXPM_REAL = (1024, 4, 12, 2)
-# a NaN matrix at d 8 (a team), d 16 (the tile instance) and d 100 (a
-# cluster of 8: the cluster-wide norm), by batch and the NaN matrix's index
-EXPM_NAN = {8: (301, 7), 16: (301, 7), 100: (4, 1)}
+# a NaN matrix at d 8 (a team), d 16 (the tile instance), d 100 (a
+# cluster of 8: the cluster-wide norm), d 256 (a cluster of 16 tiles) and
+# d 300 (the grid instance: its matrices' squaring counts differ), by batch
+# and the NaN matrix's index
+EXPM_NAN = {8: (301, 7), 16: (301, 7), 100: (4, 1), 256: (4, 1), 300: (3, 1)}
 # ptxas must report no spill stores or loads in these instances: the seven
-# expm teams, the 25 tile instances (d 1, 9-32), the cluster and the
-# workspace instance, the five admm_big register instances, the cluster
-# instance and the two streaming ones
+# expm teams, the 25 tile instances (d 1, 9-32), the cluster instance, the
+# three cluster2d ones (tiles of 32, 48, 64) and the grid2d one, the five
+# admm_big register instances, the cluster instance and the two streaming
+# ones
 EXPM_INSTANCES = (*(f"expm_small_kernelILi{d}E" for d in range(2, 9)), "expm_tile_kernel",
-                  "expm_cluster_kernel", "expm_workspace_kernel")
+                  "expm_cluster_kernel", "expm_wide_kernel")
 NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
             "admm_cluster_kernel", "admm_stream_kernel", *EXPM_INSTANCES)
-INSTANCE_COUNT = 4 + (5 + 1 + 2) + (7 + 25 + 1 + 1)
+INSTANCE_COUNT = 4 + (5 + 1 + 2) + (7 + 25 + 1 + 3 + 1)
 # every plan the kernel library computes against the Python one
 PLAN_BATCHES = (1, 4, 16, 128, 1024, BATCH)
 PLAN_SIZES = {"expm_small": 160, "admm_big": 4096}
 # The redesigned instances against the first ones and the library: the
-# tile instance at damped_pair's d 16 B 128 (12, 1) and the cluster
-# instance at cnot_h80's launch (B 128, n 240, 300 iterations) must take
-# less device time than the first block and streaming instances took on an
-# H100 80GB HBM3 at 700 W (PERF.md section 6: 10.82 and 2,044.90 us), and
-# the cluster instance at d 100 B 4 less than torch.linalg.matrix_exp on
-# the same batch. The first two are times taken at a 700 W limit: they
-# hold only on a card at that limit (a lower one runs slower under load).
+# tile instance at damped_pair's d 16 B 128 (12, 1), the cluster instance
+# at cnot_h80's launch (B 128, n 240, 300 iterations), the cluster2d
+# instance at d 117 B 4 (12, 2), the cluster instance at 10 CTAs (B 16,
+# n 737, 50 iterations) and the streaming one (B 1, n 1024, 10 iterations)
+# must take less device time than the first block and streaming instances
+# took on an H100 80GB HBM3 at 700 W (PERF.md section 6: 10.82, 2,044.90,
+# 1,380.20, 2,492.42 and 558.33 us), and the instances at d 100, 117 and
+# 128 B 4 less than torch.linalg.matrix_exp on the same batch. The first
+# ones are times taken at a 700 W limit: they hold only on a card at that
+# limit (a lower one runs slower under load). SPEED_RECORDED: beside
+# matrix_exp, not gated (damped_chain4's plant step).
 SPEED_BOUNDS_US = {("expm_small", "d16_12_1_b128"): 10.82,
-                   ("admm_big", "B128_n240_it300"): 2044.90}
+                   ("admm_big", "B128_n240_it300"): 2044.90,
+                   ("expm_small", "d117_12_2_b4"): 1380.20,
+                   ("admm_big", "B16_n737_it50"): 2492.42,
+                   ("admm_big", "B1_n1024_it10"): 558.33}
 SPEED_BOUNDS_WATTS = 700.0
-SPEED_LIBRARY = ("d100_12_2_b4",)
+SPEED_LIBRARY = ("d100_12_2_b4", "d117_12_2_b4", "d128_12_2_b4")
+SPEED_RECORDED = ("d256_12_4_b128",)
 # `--time-kernels [ROOT]`: device times of these shapes with the package of
 # the checkout at ROOT, to set two commits side by side in one call
 TIME_EXPM = ("d9_12_2_b1024", "d16_12_1_b128", "d16_12_0_b1024", "d32_12_2_b128",
-             "d64_12_2_b16", "d100_12_2_b4")
+             "d64_12_2_b16", "d100_12_2_b4", "d117_12_2_b4", "d128_12_2_b4", "d256_12_2_b4",
+             "d256_12_4_b128")
 TIME_ADMM = ((128, 150, 300), (128, 240, 80), (128, 240, 100), (128, 240, 300), (64, 320, 50),
-             (16, 512, 50), (1, 1024, 10))
+             (16, 512, 50), (16, 737, 50), (16, 750, 300), (16, 1008, 50), (1, 1024, 10),
+             (2, 4096, 10))
 # boxqp_big, whole solves: drag's cold warm-phase and warm-started steady
 # forms (Gauss-Jordan), freq's (Newton-Schulz), crosstalk's one form (every
 # solve cold) and cnot's at eps 1e-8; the warm form starts from the cold
@@ -579,7 +641,7 @@ def phase_build(build) -> dict:
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": build.build_seconds,
           "ptxas": report})
     require(len(report) == INSTANCE_COUNT,
-            f"expected 4 boxqp_small, 8 admm_big and 34 expm_small instances: {report}")
+            f"expected 4 boxqp_small, 8 admm_big and 37 expm_small instances: {report}")
     spilled = {name: rec for name, rec in report.items()
                if rec.get("spill_stores", -1) != 0 or rec.get("spill_loads", -1) != 0}
     require(not spilled, f"spills in {spilled}")
@@ -592,7 +654,9 @@ def qp_batch(B: int, n: int, seed: int, spread: float = 0.0):
     over orders of magnitude as the large-n presets' condensed QPs have."""
     rng = np.random.default_rng(seed)
     G = rng.normal(size=(B, n, n))
-    P = np.einsum("bij,bkj->bik", G, G) + 0.5 * np.eye(n)
+    # above n 511 by BLAS: numpy's einsum loop takes tens of seconds there
+    GG = G @ np.swapaxes(G, 1, 2) if n >= 512 else np.einsum("bij,bkj->bik", G, G)
+    P = GG + 0.5 * np.eye(n)
     q = rng.normal(size=(B, n)) * 2
     if spread:
         d = np.exp(rng.normal(scale=spread, size=(B, n)))
@@ -698,8 +762,9 @@ def phase_plans(build, expm_mod, admm_mod) -> dict:
     return rec
 
 
-# the instances whose grid is B x cluster blocks
-GRID_B = ("tile", "cluster", "workspace", "stream", "stream_ws")
+# the instances whose grid is B x cluster blocks (grid2d's is what the card
+# holds at once)
+GRID_B = ("tile", "cluster", "cluster2d", "stream", "stream_ws")
 
 
 def check_launch(name, kind, mod, build, graph_kernel_launches, call, B, size) -> dict:
@@ -720,7 +785,7 @@ def check_launch(name, kind, mod, build, graph_kernel_launches, call, B, size) -
         want["grid"] = (B * plan.cluster, 1, 1)
     require(all(got[k] == v for k, v in want.items()),
             f"{name}: the call launched {got}, the plan {plan}")
-    if plan.instance == "cluster":
+    if plan.cluster > 1:
         require(lib[4] >= 1, f"{name}: the card holds no cluster of {plan}")
     return {"plan": plan._asdict(), "max_active_clusters": lib[4], "launch": got}
 
@@ -762,10 +827,10 @@ def liouvillian_batch(B: int, seed: int, max_norm: float, min_norm: float, level
 
 
 def expm_input(name: str) -> torch.Tensor:
-    """The batch of EXPM_CASES[name]: Liouvillians for the (12, 1) cases
+    """The batch of EXPM_CASES[name]: Liouvillians for EXPM_LIOUVILLIAN
     (the Lindblad plants' steps), -i H for the others."""
     B, d, k, sq, lo, hi = EXPM_CASES[name]
-    if sq == 1:
+    if name in EXPM_LIOUVILLIAN:
         return liouvillian_batch(B, seed=k + d, max_norm=hi, min_norm=lo,
                                  levels=int(round(d ** 0.5)))
     return expm_batch(B, d, seed=k + d, max_norm=hi, min_norm=lo)
@@ -773,14 +838,35 @@ def expm_input(name: str) -> torch.Tensor:
 
 def admm_input(B: int, n: int, iters: int, gj_inverse):
     """admm_big's arguments at (B, n, iters): SPD QPs (qp_batch), K^-1 by
-    Gauss-Jordan, seeded rho and iterates. :return: (args, kwargs)."""
-    P, q, lb, ub = qp_batch(B, n, seed=n + iters)
+    Gauss-Jordan, seeded rho and iterates; from n = ADMM_DIRECT_N on K^-1
+    is a seeded symmetric matrix (direct_kinv) and the vectors are drawn on
+    the card. :return: (args, kwargs)."""
     rng = np.random.default_rng(n)
     rho = torch.tensor(rng.uniform(0.05, 2.0, B) * n, dtype=torch.float32, device=DEVICE)
-    kinv = gj_inverse(P + (1e-6 + rho)[:, None, None] * torch.eye(n, device=DEVICE))
-    x, z, y = (torch.tensor(rng.normal(size=(B, n)) * s, dtype=torch.float32, device=DEVICE)
-               for s in (0.3, 0.3, 0.5))
+    if n >= ADMM_DIRECT_N:
+        g = torch.Generator(device=DEVICE).manual_seed(n + iters)
+        draw = lambda scale: torch.randn((B, n), generator=g, device=DEVICE) * scale
+        kinv = direct_kinv(B, n, rho, g)
+        q, lb, ub = draw(2.0), -draw(1.0).abs(), draw(1.0).abs()
+        x, z, y = draw(0.3), draw(0.3), draw(0.5)
+    else:
+        P, q, lb, ub = qp_batch(B, n, seed=n + iters)
+        kinv = gj_inverse(P + (1e-6 + rho)[:, None, None] * torch.eye(n, device=DEVICE))
+        x, z, y = (torch.tensor(rng.normal(size=(B, n)) * s, dtype=torch.float32, device=DEVICE)
+                   for s in (0.3, 0.3, 0.5))
     return (kinv, q, lb, ub, rho, x, z, y), dict(iters=iters, sigma=1e-6, alpha=1.6)
+
+
+def direct_kinv(B: int, n: int, rho: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """A symmetric (B, n, n) matrix of the scale of K^-1 = (P + rho I)^-1
+    for a P of norm about rho: (I + S / 2) / (1 + rho), S a Wigner matrix
+    of spectral radius about 1, drawn on the card from g."""
+    G = torch.randn((B, n, n), generator=g, device=DEVICE)
+    S = G + G.mT
+    del G
+    S.mul_(0.25 / (2 * n) ** 0.5)
+    S.diagonal(dim1=1, dim2=2).add_(1.0)
+    return S.div_((1.0 + rho)[:, None, None])
 
 
 def phase_expm(expm_mod, graph_node_types, floor_us: float, build,
@@ -800,7 +886,7 @@ def phase_expm(expm_mod, graph_node_types, floor_us: float, build,
     rec = {"phase": "expm_small", "gpu": smi_line(), "launch_floor_us": floor_us}
     for name, (B, d, k, sq, lo, hi) in EXPM_CASES.items():
         A = expm_input(name)
-        liouvillian = sq == 1
+        liouvillian = name in EXPM_LIOUVILLIAN
         call_k = lambda: expm_mod.expm_small(A, taylor_k=k, max_squarings=sq)
         call_p = lambda: expm_mod.expm_small_ref(A, taylor_k=k, max_squarings=sq)
         call_l = lambda: torch.linalg.matrix_exp(A)
@@ -886,6 +972,10 @@ def phase_admm(admm_mod, gj_inverse, build, graph_kernel_launches) -> dict:
         err.update(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(out_k, out_p)),
                    kernel_ms=cuda_ms(call_k), device_us=graph_us(call_k),
                    **bound(admm_mod.admm_big_work(B, n, iters)), plain_ms=cuda_ms(call_p))
+        if err["plan"]["instance"].startswith("stream"):
+            # the streaming instances read K^-1 every iteration: their own
+            # bytes bound beside the function's
+            err["own_bytes_bound_us"] = admm_mod.stream_bytes(B, n, iters) / PEAK_BYTES * 1e6
         rec[f"B{B}_n{n}_it{iters}"] = err
         worst = max(err["rel_dx"], err["rel_dz"], err["rel_dy"])
         require(np.isfinite(worst) and worst <= ADMM_TOL,
@@ -912,6 +1002,10 @@ def phase_speed(ex: dict, ad: dict) -> dict:
         got, lib = ex[name]["device_us"] / 1e3, ex[name]["library_ms"]
         rec[name] = {"device_ms": got, "library_ms": lib}
         require(got < lib, f"expm_small {name}: {got} ms, torch.linalg.matrix_exp {lib} ms")
+    for name in SPEED_RECORDED:
+        got, lib = ex[name]["device_us"] / 1e3, ex[name]["library_ms"]
+        rec[name] = {"device_ms": got, "library_ms": lib, "kernel_over_library": got / lib,
+                     "gated": False}
     emit(rec)
     return rec
 
@@ -1162,7 +1256,8 @@ def phase_slice_fleet(name, make, make_runner, run_hostloop_fleet, fleet_fidelit
                       counters) -> dict:
     """One of SLICE_FLEETS on the card in float32 (a warm-up run, then the
     timed run), its gates and launches, and its first lanes over the first
-    steps against the float64 CPU run on the same plants."""
+    steps against the float64 CPU run on the same plants (and, with
+    `tracking`, over its first steps to a tighter bound)."""
     spec = SLICE_FLEETS[name]
     B, reps = spec["batch"], spec["reps"]
     sc, sc64 = make(DEVICE, torch.float32), make("cpu", torch.float64)
@@ -1187,6 +1282,20 @@ def phase_slice_fleet(name, make, make_runner, run_hostloop_fleet, fleet_fidelit
               "bound": spec["parity_tol"], "cpu_s": time.perf_counter() - t0,
               "exit_codes_equal": bool((out_s["exit_code"].cpu() == out64["exit_code"]).all()),
               "launches": parity_launches}
+    if "tracking" in spec:
+        t_steps, t_tol = spec["tracking"]
+        cut_t = lambda s: dataclasses.replace(s, config=dataclasses.replace(s.config,
+                                                                            n_steps=t_steps))
+        for fn in counters.values():
+            fn.launches = 0
+        _, out_t = run_hostloop_fleet(cut_t(sc), lanes, plants=plants[:lanes])
+        parity["launches"] = {k: parity["launches"][k] + fn.launches
+                              for k, fn in counters.items()}
+        _, out_t64 = run_hostloop_fleet(cut_t(sc64), lanes, plants=plants64[:lanes])
+        dt_fid = np.abs(fleet_fidelity(sc, out_t["final_x"])
+                        - fleet_fidelity(sc64, out_t64["final_x"]))
+        parity["tracking"] = {"steps": t_steps, "max_abs_dfid": float(dt_fid.max()),
+                              "bound": t_tol}
     rec = {"phase": "slice_fleet", "gpu": smi_line(), **metrics, "runs": reps,
            "launches": launches, "launches_a_run": per_run,
            "n_qp": sc.config.horizon * sc.config.dim_u, "state_dim": int(sc.x0.shape[0]),
@@ -1200,6 +1309,9 @@ def phase_slice_fleet(name, make, make_runner, run_hostloop_fleet, fleet_fidelit
             f"{name} fleet lanes failed: {metrics}")
     require(parity["exit_codes_equal"] and parity["max_abs_dfid"] <= parity["bound"],
             f"{name}: first {lanes} lanes differ from the float64 CPU run: {parity}")
+    if "tracking" in parity:
+        require(parity["tracking"]["max_abs_dfid"] <= parity["tracking"]["bound"],
+                f"{name}: the first steps differ from the float64 CPU run: {parity}")
     return rec
 
 
@@ -1388,11 +1500,11 @@ def damped_pair_scenario(device, dtype, gamma: float = 0.005):
         dtype=dtype)
 
 
-def cnot_h80_scenario(device, dtype, horizon: int = 80):
+def cnot_h80_scenario(device, dtype, horizon: int = 80, name: str = "cnot_h80"):
     """cnot_state at order 2 with a longer horizon (QP n = 3 horizon, 240
     at 80): its targets rebuilt for n_steps + horizon + 1 columns with the
-    same incline min(1, 2k / n_steps), renamed so no tuning table applies
-    (8 warm SQP iterations, cold duals, its own 3x300)."""
+    same incline min(1, 2k / n_steps), named `name`, which no tuning table
+    knows (8 warm SQP iterations, cold duals, its own 3x300)."""
     from mpc4quantum_tpu_torch import presets
 
     sc = presets.cnot_state(order=2, device=device, dtype=dtype)
@@ -1400,11 +1512,70 @@ def cnot_h80_scenario(device, dtype, horizon: int = 80):
     incline = torch.tensor([min(1.0, 2 * k / n) for k in range(n + horizon + 1)],
                            dtype=sc.U_targ.dtype, device=sc.U_targ.device)
     return dataclasses.replace(
-        sc, name="cnot_h80",
+        sc, name=name,
         X_targ=sc.target_state[:, None] * incline[None, :].to(sc.X_targ.dtype),
         U_targ=torch.zeros((sc.config.dim_u, n + horizon), dtype=sc.U_targ.dtype,
                            device=sc.U_targ.device),
         config=dataclasses.replace(sc.config, horizon=horizon))
+
+
+def cnot_h250_scenario(device, dtype):
+    """cnot_state at horizon 250 (QP n 750, admm_big's cluster instance at
+    10 CTAs a lane): a window that spans the whole 50-unit entangling gate."""
+    return cnot_h80_scenario(device, dtype, horizon=250, name="cnot_h250")
+
+
+def damped_chain4_scenario(device, dtype, gamma: float = 0.005, coupling: float = 0.1):
+    """The JAX tests' three-qubit problem (three_qubit_problem) extended to a
+    chain of four qubits and damped, built from the port's public
+    constructors (no preset of its own): H0 = 0.05 (Z1 Z2 + Z2 Z3 + Z3 Z4), a
+    0.5 X drive on each qubit (4 controls), amplitude damping sqrt(gamma)
+    sigma_- on each qubit in the model (the order-1 discretization of the
+    Lindbladian drift and the four Hamiltonian controls, dim_x 256) and in the
+    plant (`LindbladPlant`, a 256 x 256 Liouvillian a step: expm_small's
+    cluster2d instance); |0000> -> |1111> from a start rotated by 1e-2 on
+    each qubit, Q on the two populations, R 1e-2 I, sat 2.5, dt 0.5, horizon
+    8 (QP n 32), 6 steps, the default QP budget."""
+    from mpc4quantum_tpu_torch import MPCConfig, presets
+    from mpc4quantum_tpu_torch.ops.liouville import (discretize_homogeneous, lindblad_generator,
+                                                     liouville_generator)
+    from mpc4quantum_tpu_torch.plants.lindblad import LindbladPlant
+
+    X = np.array([[0, 1], [1, 0]], complex)
+    Z = np.array([[1, 0], [0, -1]], complex)
+    sminus = np.sqrt(gamma) * np.array([[0.0, 1.0], [0.0, 0.0]], complex)
+
+    def on(ops: dict) -> np.ndarray:
+        """The four-qubit operator with ops[k] on qubit k, the identity elsewhere."""
+        out = np.eye(1, dtype=complex)
+        for k in range(4):
+            out = np.kron(out, ops.get(k, np.eye(2, dtype=complex)))
+        return out
+
+    H0 = 0.5 * coupling * sum(on({k: Z, k + 1: Z}) for k in range(3))
+    H1s = [0.5 * on({k: X}) for k in range(4)]
+    c_ops = [on({k: sminus}) for k in range(4)]
+    th = 1e-2
+    R1 = np.array([[np.cos(th / 2), -1j * np.sin(th / 2)], [-1j * np.sin(th / 2), np.cos(th / 2)]])
+    R = on({k: R1 for k in range(4)})
+    rho0 = np.zeros((16, 16), complex)
+    rho0[0, 0] = 1.0
+    rho0 = R @ rho0 @ R.conj().T
+    targ = np.zeros((16, 16), complex)
+    targ[15, 15] = 1.0
+    Qd = np.zeros(256)
+    Qd[[0, 255]] = 1.0
+    dt, H, n_steps, order = 0.5, 8, 6, 1
+    A = discretize_homogeneous([lindblad_generator(H0, c_ops)]
+                               + [liouville_generator(h) for h in H1s], dt, order)
+    plant = LindbladPlant.create(H0, H1s, c_ops=c_ops)
+    return presets.scenario_from_arrays(
+        "damped_chain4", x0=rho0.flatten(), A=A.numpy(),
+        X_targ=np.tile(targ.flatten()[:, None], (1, n_steps + H + 1)),
+        U_targ=np.zeros((4, n_steps + H)), Q=np.diag(Qd), R=np.eye(4) * 1e-2, Qf=np.diag(Qd),
+        sat=2.5, du=None, target_state=targ.flatten(),
+        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=4, order=order), plant=plant,
+        device=device, dtype=dtype)
 
 
 def phase_train_then_control(systems, torch_mods, counters, host_flag) -> dict:
@@ -2410,7 +2581,9 @@ def main() -> int:
     for name in ("mpc_complex", "mpc_embedded", "batched_complex", "batched_embedded"):
         total = add(rec[name]["launches"])
     phase_rescue(presets, run_hostloop_fleet, fleet_fidelity, counters)
-    for name, make in (("damped_pair", damped_pair_scenario), ("cnot_h80", cnot_h80_scenario)):
+    for name, make in (("damped_pair", damped_pair_scenario), ("cnot_h80", cnot_h80_scenario),
+                       ("damped_chain4", damped_chain4_scenario),
+                       ("cnot_h250", cnot_h250_scenario)):
         rec = phase_slice_fleet(name, make, make_runner, run_hostloop_fleet, fleet_fidelity,
                                 counters)
         total = add(rec["launches"])

@@ -1,9 +1,10 @@
 // Relaxed-ADMM iterations of a batch of box QPs from a precomputed K^-1,
 // any n >= 1: up to n = 239 one block a lane with each thread's part of a
-// K^-1 row in registers; at n 240-736 one thread-block cluster a lane,
-// K^-1 spread over the cluster's registers and shared memory (the cluster
-// instance); above it streaming K^-1's rows from device memory (the
-// streaming instance). The last two are at the end of this file.
+// K^-1 row in registers; at n 240-1008 one thread-block cluster of up to 16
+// CTAs a lane, K^-1 spread over the cluster's registers and shared memory
+// (the cluster instance); above it a cluster of 16 CTAs a lane streaming
+// its rows of K^-1 from device memory every iteration (the streaming
+// instances). The last two are at the end of this file.
 //
 // Replaces the Pallas TPU kernel
 // mpc4quantum_tpu/ops/pallas_qp.py::_admm_loop_kernel (dispatched by
@@ -61,7 +62,7 @@
 //   iterations are serial, and wgmma would need TF32 or bf16 operands,
 //   whose ~3 digits the ADMM's 1e-6 tolerances cannot take.
 //
-// The cluster instance, n = 240-736 (kClusterMaxN). A lane's K^-1 no
+// The cluster instance, n = 240-1008 (kClusterMaxN). A lane's K^-1 no
 // longer fits one SM (at n = 240 it is 230 KB against 256 KB of registers
 // and 227 KB of shared memory), so a cluster of c CTAs takes one lane and
 // CTA k holds rows [k R, k R + R) of it, R = ceil(n / c), for the whole
@@ -90,32 +91,52 @@
 // at 0.69-0.72 us an iteration and st.async at 0.18-0.21 us on an H100.
 // cluster.sync() comes once after every CTA has started and set up its
 // barriers, before any remote store, and once at the end, before any CTA
-// exits. c (cluster_plan) is the least in 2..8 whose CTA fits 512 threads
+// exits. c (cluster_plan) is the least in 2..16 whose CTA fits 512 threads
 // and 227 KB: at n 240 c = 2, a CTA 256 threads and 48 KB, so two CTAs
 // share an SM and B 128 runs its 256 CTAs in one wave on 132 SMs (the card
 // holds 132 such clusters at once); n 241-416 c = 2, n 512 c = 4, n 673-736
-// c = 8 (at n 737 a CTA of 8 would need 233 KB). The rounding order
+// c = 8, and above the portable 8 CTAs (cudaFuncAttributeNonPortable-
+// ClusterSizeAllowed) n 737-800 c = 10 (cnot at horizon 250's n 750: 160
+// threads, 195 KB a CTA), n 961-1008 c = 16 (at n 1009 a CTA of 16 would
+// need 232,592 bytes of shared memory, over the 232,448). A cluster of 9-16 CTAs fits
+// one GPC of the card (16-18 SMs), so the card holds about one such
+// cluster a GPC at once and B 16 runs in two waves. The rounding order
 // differs from the plain version's: float32 rounding, held to ADMM_TOL.
 // What bounds it: each iteration's serial chain (the dot products' FMA
 // chains, the shuffles, the clip, the exchange), about 1.3 us an iteration
 // at B 128 n 240 against 0.22 us of float32 arithmetic.
 //
-// The streaming instance, n > 736. One block of 1024 threads takes one lane
-// and reads K^-1 from device memory every iteration, as the Pallas kernel's
-// one-dispatch-a-lane-tile form does above 4 MB a block
-// (pallas_qp.py:439-447). Warp w takes rows 4w..4w+3, then the next four of
-// its stride: its 32 threads read the four rows in coalesced 128-byte pieces
-// (up to 16 loads in flight a thread), multiply by the rhs vector, which
-// lives in shared memory (2 n floats, double-buffered), and sum each row by
-// a xor shuffle; thread j of the warp then updates z and y of row 4w + j
-// elementwise, keeping x, z and y of the lane in the output arrays, and
-// writes that row of the next rhs vector into the other buffer: one barrier
-// an iteration. A row sums its columns in another order than the plain
-// version (strided by 32, then a shuffle tree). It is bound by the bandwidth
-// of L2 or device memory (one SM a lane). Above n = 29,056 the two rhs
-// buffers (8 n bytes) pass the 227 KB of shared memory; there they sit in a
-// workspace in device memory that the wrapper allocates (B x 2 n floats),
-// so no n is refused.
+// The streaming instances, n > 1008. K^-1 no longer fits the registers and
+// shared memory of 16 SMs, so it is read from device memory (or L2) every
+// iteration, as the Pallas kernel's one-dispatch-a-lane-tile form does above
+// 4 MB a block (pallas_qp.py:439-447). One SM a lane would leave most of
+// the card idle at small B and draw on one SM's loads; so a cluster of 16
+// CTAs (kStreamCluster, non-portable) takes a lane and CTA k streams its
+// rows [k R, k R + R) only, so a lane draws on 16 SMs' load units and
+// bandwidth. Warp w takes rows 4w..4w+3 of the CTA's
+// rows, then the next four of its stride: its 32 threads read the four rows
+// in coalesced 128-byte pieces (up to 16 loads in flight a thread), multiply
+// by the CTA's copy of the rhs vector and sum each row by a xor shuffle;
+// thread j of the warp then updates x, z and y of row 4w + j, kept in the
+// output arrays. The next rhs vector is exchanged as in the cluster
+// instance: each row's entry to every CTA by st.async on that CTA's
+// mbarrier of the buffer (2 n floats a CTA, double-buffered), a
+// __syncthreads between a CTA's reads and its sends. Plain coalesced loads
+// into registers, not TMA bulk copies: a prototype that streams each warp's
+// rows in 256-column segments through a ring of shared-memory slots by
+// cp.async.bulk (each copy the 16-byte aligned span around the segment;
+// perf_stream.py) took 1.6-2.3x this instance's time at n 1009-8191 (H100
+// 80GB HBM3, 700 W): K^-1 then crosses shared memory on its way to the
+// FMAs, five shared loads for four FMAs, and each warp waits on its own
+// copies. A row sums its columns in
+// another order than the plain version (strided by 32, then a shuffle
+// tree). It is bound by the bandwidth of L2 or device memory: K^-1 is read
+// iters times, 4 n^2 iters bytes a lane, against the function's one read
+// (admm_big_work). Above n = 29,054 the two rhs buffers (8 n bytes) pass the
+// 227 KB of shared memory; there they sit in a workspace in device memory
+// that the wrapper allocates (B x 2 n floats), each CTA writes its rows into
+// it and a cluster barrier an iteration makes the vector whole (the
+// stream_ws instance), so no n is refused.
 //
 // mpc4q_admm_big_plan returns the instance, cluster size, threads and
 // shared bytes of a call (kernels/admm_big.py::admm_big_plan computes the
@@ -132,21 +153,25 @@ namespace {
 
 constexpr int kMaxN = 239;  // the largest n of the register instances
 constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr int kStreamThreads = 1024;
-constexpr int kStreamRows = 4;  // rows a warp of the streaming instance sums at once
-// the largest n whose two rhs buffers fit the 227 KB of shared memory a
-// block may opt into
-constexpr int kStreamSmemMaxN = 232448 / 8;
+// the streaming instances: CTAs a lane (a non-portable cluster), threads a
+// CTA, rows a warp sums at once
+constexpr int kStreamCluster = 16;
+constexpr int kStreamThreads = 512;
+constexpr int kStreamRows = 4;
+// the largest n whose two rhs buffers and their mbarriers fit the 227 KB of
+// shared memory a block may opt into
+constexpr int kStreamSmemMaxN = (232448 - 16) / 8;
 constexpr unsigned kFull = 0xffffffffu;
-// the cluster instance: register columns and parts of a row, the portable
-// cluster size, threads and shared memory a CTA may have, its largest n
+// the cluster instance: register columns and parts of a row, its largest
+// cluster (above the portable 8: a non-portable size), threads and shared
+// memory a CTA may have, its largest n
 constexpr int kClusterC = 40;
 constexpr int kClusterS = 4;
 constexpr int kClusterRows = 2;  // rows a thread
-constexpr int kMaxCluster = 8;
+constexpr int kMaxCluster = 16;
 constexpr int kClusterMaxThreads = 512;
 constexpr int kMaxSmem = 232448;
-constexpr int kClusterMaxN = 736;
+constexpr int kClusterMaxN = 1008;
 
 // NaN-propagating max, min and clip, matching jnp.maximum / jnp.minimum:
 // fmaxf / fminf drop a NaN, and a NaN lane must never read as converged
@@ -582,12 +607,19 @@ cudaLaunchConfig_t cluster_config(const ClusterPlan& plan, int B, cudaStream_t s
   return cfg;
 }
 
-// opted into once, at the most a CTA may take, so a launch makes no other
-// API call and can be captured in a CUDA graph
+// opted into once, at the most a CTA may take and with clusters above the
+// portable 8 CTAs, so a launch makes no other API call and can be captured
+// in a CUDA graph
 cudaError_t cluster_attr() {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(admm_cluster_kernel<kClusterC, kClusterS, kClusterRows>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  static const cudaError_t attr = [] {
+    cudaError_t err =
+        cudaFuncSetAttribute(admm_cluster_kernel<kClusterC, kClusterS, kClusterRows>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(admm_cluster_kernel<kClusterC, kClusterS, kClusterRows>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return err;
+  }();
   return attr;
 }
 
@@ -605,10 +637,13 @@ cudaError_t launch_cluster(const float* kinv, const float* q, const float* lb, c
                             rho, x, z, y, x_out, z_out, y_out, n, iters, sigma, alpha);
 }
 
-// the streaming instance: rhs in shared memory (SMEM), or in the lane's
-// slice of the workspace ws (B x 2n floats)
+// the streaming instances: a cluster of c CTAs a lane, CTA k rows [k R,
+// k R + R) read from K^-1 in device memory every iteration; the rhs vector
+// in each CTA's shared memory, exchanged by st.async (SMEM), or in the
+// lane's slice of the workspace ws (B x 2n floats) with a cluster barrier an
+// iteration
 template <bool SMEM>
-__global__ void __launch_bounds__(kStreamThreads)
+__global__ void __launch_bounds__(kStreamThreads, 1)
 admm_stream_kernel(const float* __restrict__ kinv, const float* __restrict__ q_in,
                    const float* __restrict__ lb_in, const float* __restrict__ ub_in,
                    const float* __restrict__ rho_in, const float* __restrict__ x_in,
@@ -617,8 +652,15 @@ admm_stream_kernel(const float* __restrict__ kinv, const float* __restrict__ q_i
                    float* __restrict__ y_out, float* ws, int n, int iters, float sigma,
                    float alpha) {
   extern __shared__ __align__(16) float smem[];
-  const size_t lane = blockIdx.x;
-  float* rhs = SMEM ? smem : ws + lane * 2 * n;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const size_t lane = blockIdx.x / c;
+  const int R = cluster_rows(n, c), r0 = rank * R;
+  const int rows = n - r0 < R ? n - r0 : R;  // >= 1 (stream_cluster)
+  const int t = threadIdx.x, T = blockDim.x;
+  // the two buffers' mbarriers, then the two rhs buffers of n floats
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* rhs = SMEM ? smem + 4 : ws + lane * 2 * n;
   const float* klane = kinv + lane * n * n;
   const size_t base = lane * n;
   const float* q = q_in + base;
@@ -629,77 +671,141 @@ admm_stream_kernel(const float* __restrict__ kinv, const float* __restrict__ q_i
   float* y = y_out + base;
   const float rho = __ldg(rho_in + lane);
   const float one_m_alpha = 1.0f - alpha;
-  // the lane's iterates go to the outputs, where the updates keep them, and
-  // the first rhs vector to buffer 0
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float xi = __ldg(x_in + base + i), zi = __ldg(z_in + base + i),
-                yi = __ldg(y_in + base + i);
-    x[i] = xi;
-    z[i] = zi;
-    y[i] = yi;
-    rhs[i] = sigma * xi - __ldg(q + i) + rho * zi - yi;
+  // this CTA's rows of the iterates go to the outputs, where the updates
+  // keep them
+  for (int i = t; i < rows; i += T) {
+    const int r = r0 + i;
+    x[r] = __ldg(x_in + base + r);
+    z[r] = __ldg(z_in + base + r);
+    y[r] = __ldg(y_in + base + r);
   }
-  __syncthreads();
-  const int warp = threadIdx.x / 32, t = threadIdx.x % 32, warps = blockDim.x / 32;
+  const uint32_t bar0 = smem_u32(bars), bar1 = smem_u32(bars + 1);
+  if (SMEM && t == 0) init_bars(bar0, bar1);
+  // every CTA has started and set up its barriers before any remote store
+  cluster.sync();
+  // this CTA's rows of the rhs vector of iteration `it` to every CTA's
+  // buffer it & 1 (or to the workspace), from the iterates in the outputs
+  auto post = [&](int it) {
+    float* v = rhs + (it & 1) * n;
+    const uint32_t bar = it & 1 ? bar1 : bar0;
+    if (SMEM && t == 0) expect_bytes(bar, 4 * n);
+    for (int i = t; i < rows; i += T) {
+      const int r = r0 + i;
+      const float vr = sigma * x[r] - __ldg(q + r) + rho * z[r] - y[r];
+      if constexpr (SMEM) {
+        for (int dst = 0; dst < c; ++dst) send(smem_u32(v + r), bar, dst, vr);
+      } else {
+        __stcg(v + r, vr);
+      }
+    }
+    if constexpr (!SMEM) {
+      // the workspace's buffer is whole for every CTA after the barrier
+      __threadfence();
+      cluster.sync();
+    }
+  };
+  if (iters > 0) post(0);
+  const int warp = t / 32, lane32 = t % 32, warps = T / 32;
   for (int it = 0; it < iters; ++it) {
+    // buffer it & 1 is whole: its barrier's phase it / 2 has ended
+    if (SMEM) wait_phase(it & 1 ? bar1 : bar0, (it >> 1) & 1);
     const float* v = rhs + (it & 1) * n;
-    float* v_next = rhs + ((it + 1) & 1) * n;
     // kStreamRows rows a warp at a time and the column loop unrolled by 4,
-    // so each thread has up to 16 loads in flight; after the shuffle sums
-    // thread j updates row r0 + j
-    for (int r0 = warp * kStreamRows; r0 < n; r0 += warps * kStreamRows) {
-      const int rows = n - r0 < kStreamRows ? n - r0 : kStreamRows;
-      const float* krow = klane + (size_t)r0 * n;
+    // so each thread has up to 16 loads of K^-1 in flight; after the
+    // shuffle sums thread j updates row g0 + j
+    for (int g0 = warp * kStreamRows; g0 < rows; g0 += warps * kStreamRows) {
+      const int nr = rows - g0 < kStreamRows ? rows - g0 : kStreamRows;
+      const float* krow = klane + (size_t)(r0 + g0) * n;
       float acc[kStreamRows];
 #pragma unroll
       for (int j = 0; j < kStreamRows; ++j) acc[j] = 0.0f;
 #pragma unroll 4
-      for (int c = t; c < n; c += 32) {
-        const float vc = v[c];
+      for (int col = lane32; col < n; col += 32) {
+        // the workspace's vector through L2 only: other SMs write it
+        const float vc = SMEM ? v[col] : __ldcg(v + col);
 #pragma unroll
         for (int j = 0; j < kStreamRows; ++j)
-          if (j < rows) acc[j] = fmaf(__ldg(krow + (size_t)j * n + c), vc, acc[j]);
+          if (j < nr) acc[j] = fmaf(__ldg(krow + (size_t)j * n + col), vc, acc[j]);
       }
       float mine = 0.0f;
 #pragma unroll
       for (int j = 0; j < kStreamRows; ++j) {
         for (int m = 16; m > 0; m >>= 1) acc[j] += __shfl_xor_sync(kFull, acc[j], m);
-        if (t == j) mine = acc[j];
+        if (lane32 == j) mine = acc[j];
       }
-      if (t < rows) {
-        const int r = r0 + t;
+      if (lane32 < nr) {
+        const int r = r0 + g0 + lane32;
         const float zr = z[r], yr = y[r];
         const float z_arg = alpha * mine + one_m_alpha * zr;
         const float z_new = nan_min(nan_max(z_arg + yr / rho, __ldg(lb + r)), __ldg(ub + r));
-        const float y_new = yr + rho * (z_arg - z_new);
         x[r] = mine;
         z[r] = z_new;
-        y[r] = y_new;
-        v_next[r] = sigma * mine - __ldg(q + r) + rho * z_new - y_new;
+        y[r] = yr + rho * (z_arg - z_new);
       }
     }
-    __syncthreads();
+    if (it + 1 < iters) {
+      // every thread of this CTA has read buffer it & 1 and updated its rows
+      // before any of them is sent: a CTA writes into another's next buffer
+      // only after it has all of that CTA's rows of the current one, so no
+      // CTA overwrites a buffer that another still reads (with the
+      // workspace: the cluster barrier of the last post)
+      __syncthreads();
+      post(it + 1);
+    }
   }
+  // every store into this CTA has arrived (each buffer was waited on); the
+  // last cluster barrier before any CTA exits
+  cluster.sync();
+}
+
+// the launch configuration of a streaming instance at size n
+cudaLaunchConfig_t stream_config(int B, int n, bool smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * kStreamCluster);
+  cfg.blockDim = dim3(kStreamThreads);
+  cfg.dynamicSmemBytes = smem ? 16 + 8 * n : 0;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kStreamCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// opted into once an instance, at the largest n, with clusters above the
+// portable 8 CTAs, so a launch makes no other API call
+template <bool SMEM>
+cudaError_t stream_attr() {
+  static const cudaError_t attr = [] {
+    cudaError_t err = cudaFuncSetAttribute(admm_stream_kernel<SMEM>,
+                                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess && SMEM)
+      err = cudaFuncSetAttribute(admm_stream_kernel<SMEM>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 16 + 8 * kStreamSmemMaxN);
+    return err;
+  }();
+  return attr;
 }
 
 cudaError_t launch_stream(const float* kinv, const float* q, const float* lb, const float* ub,
                           const float* rho, const float* x, const float* z, const float* y,
                           float* x_out, float* z_out, float* y_out, float* ws, int B, int n,
                           int iters, float sigma, float alpha, cudaStream_t stream) {
-  if (n <= kStreamSmemMaxN) {
-    // opted into once, at the largest n, so a launch makes no other API call
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        admm_stream_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(2 * sizeof(float) * kStreamSmemMaxN));
-    if (attr != cudaSuccess) return attr;
-    admm_stream_kernel<true><<<B, kStreamThreads, 2 * sizeof(float) * n, stream>>>(
-        kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, nullptr, n, iters, sigma, alpha);
-  } else {
-    if (ws == nullptr) return cudaErrorInvalidValue;
-    admm_stream_kernel<false><<<B, kStreamThreads, 0, stream>>>(
-        kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, ws, n, iters, sigma, alpha);
-  }
-  return cudaGetLastError();
+  const bool smem = n <= kStreamSmemMaxN;
+  if (!smem && ws == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t attr = smem ? stream_attr<true>() : stream_attr<false>();
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchAttribute cluster_dim;
+  const cudaLaunchConfig_t cfg = stream_config(B, n, smem, stream, &cluster_dim);
+  if (smem)
+    return cudaLaunchKernelEx(&cfg, admm_stream_kernel<true>, kinv, q, lb, ub, rho, x, z, y,
+                              x_out, z_out, y_out, (float*)nullptr, n, iters, sigma, alpha);
+  return cudaLaunchKernelEx(&cfg, admm_stream_kernel<false>, kinv, q, lb, ub, rho, x, z, y,
+                            x_out, z_out, y_out, ws, n, iters, sigma, alpha);
 }
 
 // the register instances by n: (C, S, LANES, TAIL, NMAX)
@@ -753,10 +859,19 @@ extern "C" int mpc4q_admm_big_plan(int B, int n, int query, int* out) {
       out[2] = T;
       return cudaSuccess;
     case kStream:
-    case kStreamWs:
+    case kStreamWs: {
+      out[1] = kStreamCluster;
       out[2] = kStreamThreads;
-      out[3] = inst == kStream ? (int)(2 * sizeof(float) * n) : 0;
-      return cudaSuccess;
+      out[3] = inst == kStream ? 16 + 8 * n : 0;
+      if (!query) return cudaSuccess;
+      const cudaError_t attr = inst == kStream ? stream_attr<true>() : stream_attr<false>();
+      if (attr != cudaSuccess) return attr;
+      cudaLaunchAttribute cluster_dim;
+      const cudaLaunchConfig_t cfg = stream_config(B, n, inst == kStream, nullptr, &cluster_dim);
+      return inst == kStream
+                 ? cudaOccupancyMaxActiveClusters(&out[4], admm_stream_kernel<true>, &cfg)
+                 : cudaOccupancyMaxActiveClusters(&out[4], admm_stream_kernel<false>, &cfg);
+    }
     default:
       break;
   }

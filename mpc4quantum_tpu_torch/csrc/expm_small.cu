@@ -3,9 +3,11 @@
 // chain; at d = 1 and 9-32 one block a matrix, each thread a tile of each
 // product with its rows of X in registers (the tile instance); at d 33-116
 // one thread-block cluster a matrix, each CTA a row panel, P copied to every
-// CTA through distributed shared memory (the cluster instance); above
-// d 116 one block a matrix on a workspace in device memory (the workspace
-// instance). The three are at the end of this file.
+// CTA through distributed shared memory (the cluster instance); at d
+// 117-256 one cluster of up to 16 CTAs a matrix, each CTA a 2D tile of each
+// product (the cluster2d instance); above d 256 the same tiles on a
+// workspace in device memory, one cooperative launch over the batch (the
+// grid2d instance). The four are at the end of this file.
 //
 // Replaces the Pallas TPU kernel mpc4quantum_tpu/ops/pallas_expm.py::_expm_kernel.
 // With max_squarings > 0 each matrix takes its 1-norm,
@@ -108,12 +110,46 @@
 // bounds it: each CTA's share of the flops (d^2 ceil(d / c) complex FMAs a
 // product) and the c remote copies of its panel a product.
 //
-// The workspace instance, d > 116: two copies of P no longer fit a CTA's
-// shared memory, so one block takes one matrix with X and the two buffers
-// of P in the matrix's slice of a workspace in device memory that the
-// wrapper allocates (B x 3 x 8 d^2 bytes), thread t the entries t, t +
-// blockDim, ... of each product: the first block instance's code, so no d
-// is refused. Its loads go through L1 and L2.
+// The cluster2d instance, d 117-256 (kWideMaxD). Two copies of P no longer
+// fit a CTA, and one CTA a matrix would leave most SMs idle at small B (B 4:
+// 4 of 132). So P is cut into g x g tiles of side T = 16 m (m the least in
+// 2..4 with g <= 4: d 117-128 4 x 4 tiles of 32, 129-144 3 x 3 of 48,
+// 145-192 4 x 4 of 48, 193-256 4 x 4 of 64), and a cluster of g^2 CTAs (16:
+// above the portable 8, a non-portable cluster) takes one matrix. CTA (I, J)
+// keeps tile (I, J) of X, X^2, X^3 and of both iterates of P in its shared
+// memory for the whole call (5 T^2 complex, 160 KB at T 64). The Taylor
+// polynomial of degree K is evaluated by Paterson-Stockmeyer in blocks of 3
+// (X^2, X^3, then one product a block: 5 products at K 12 where Horner takes
+// 12; the same polynomial, another rounding). A product's tile (I, J) sums g
+// k-panels, the left operand's tile (I, K) and the right one's tile (K, J),
+// read from their owners through distributed shared memory into registers
+// while the previous panel is used, then staged in the CTA's own shared
+// memory; each of 256 threads holds an m x m block of the output in
+// registers (rows ty + 16 r, columns tx + 16 c) and takes 2 m shared loads
+// for m^2 complex FMAs (4 m^2 float32 FMAs: 64 at m 4). One cluster barrier
+// a product: every CTA writes its output tile into a buffer that no CTA
+// reads in that product. The 1-norm is a cluster reduction in tile-row
+// order, as the cluster instance's, so every CTA finds the same squaring
+// count and a NaN matrix comes out all NaN. Padded rows and columns are
+// zero in X and stay zero in every product. What bounds it: float32 FMA
+// issue, 8 d^3 flops a product spread over g^2 SMs; at B 4 the card runs 64
+// of its SMs, and the card holds 7 clusters of 16 at once (its GPCs). The
+// sums run in another order than the plain version's: float32 rounding,
+// held to EXPM_TOL. Below d 117 neither instance is faster everywhere
+// (perf_expm_wide.py runs the tiles of 32 at d 33-116; H100 80GB HBM3,
+// 700 W): the 2D tiles take 0.43-0.78 of the cluster instance's time at
+// d 64-116 and B 4-16, the cluster instance 0.34-0.84 of theirs at d 33,
+// and 0.60-0.67 at B 128 and d 80-100; the boundary is the cluster
+// instance's shared-memory limit.
+//
+// The grid2d instance, d > 256: the same tiles (side 64, g = ceil(d / 64) a
+// side) in a workspace in device memory that the wrapper allocates (X, X^2,
+// X^3, P twice, the norm's partial sums and each matrix's squaring count),
+// which L2 holds for the tiles in use; one cooperative launch of as many
+// blocks as the card holds at once (at most one a tile) walks over the
+// batch's tiles, with a grid barrier a product. Its loads of tiles bypass L1
+// (ld.cg): other SMs write them. A matrix whose squarings are done skips the
+// later ones.
 //
 // mpc4q_expm_small_plan returns the instance, cluster size, threads and
 // shared bytes of a call (kernels/expm.py::expm_small_plan computes the
@@ -669,94 +705,416 @@ cudaError_t launch_cluster(const float2* A, float2* out, int B, int d, int taylo
 }
 
 // ---------------------------------------------------------------------------
-// The workspace instance, d > kClusterMaxD: one block a matrix, X and the
-// two buffers of P in the matrix's slice of a workspace in device memory.
+// The 2D-tile instances, d > kClusterMaxD: P is cut into g x g tiles of side
+// T = 16 m, one CTA a tile, and each product is a tiled complex GEMM. In the
+// cluster instance (d <= kWideMaxD) a cluster of g^2 CTAs takes one matrix
+// and each tile of X and of the two iterates of P stays in its owner's
+// shared memory for the whole call; in the grid instance (d > kWideMaxD) the
+// tiles sit in a workspace in device memory (L2 holds the resident tiles)
+// and the blocks of one cooperative launch walk over every matrix's tiles.
 
-constexpr int kWorkspaceThreads = 1024;
+constexpr int kWideMaxD = 256;     // the largest d of the cluster instance
+constexpr int kWideSide = 4;       // at most 4 x 4 tiles: a cluster of 16 CTAs
+constexpr int kWideThreads = 256;  // 16 x 16 threads, an m x m block of the tile each
+constexpr int kWideMaxM = 4;       // tiles of side at most 64
+constexpr int kWideBufs = 5;       // X, X^2, X^3 and the two iterates of P
 
-// out = (I if diag else 0) + X P * scale over the block's entries,
-// summed over m = 0..d-1 in order
-__device__ __forceinline__ void block_product(const float2* X, const float2* P, float2* out,
-                                              int d, float scale, bool diag) {
-  const int E = d * d;
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    const int i = e / d, j = e - i * d;
-    const float2* x = X + i * d;
-    const float2 x0 = x[0], p0 = P[j];
-    float re = x0.x * p0.x - x0.y * p0.y;
-    float im = x0.x * p0.y + x0.y * p0.x;
-    for (int m = 1; m < d; ++m) {
-      const float2 xm = x[m], pm = P[m * d + j];
-      cfma(xm.x, xm.y, pm.x, pm.y, re, im);
-    }
-    out[e] = diag ? make_float2((i == j ? 1.0f : 0.0f) + re * scale, im * scale)
-                  : make_float2(re, im);
-  }
+// the cluster instance's m: the least in 2..4 whose tiles of side 16 m
+// cover d with at most kWideSide a side (the grid instance takes kWideMaxM)
+__host__ __device__ constexpr int wide_m(int d) {
+  int m = 2;
+  while (m < kWideMaxM && (d + 16 * m - 1) / (16 * m) > kWideSide) ++m;
+  return m;
+}
+__host__ __device__ constexpr int wide_side(int d, int m) { return (d + 16 * m - 1) / (16 * m); }
+// shared bytes: the CTA's own tiles of X, X^2, X^3 and of P twice (the
+// cluster instance only), the staged k-panel of the left operand (rows
+// padded by one entry, so a warp's reads of two rows fall on different
+// banks) and of the right one
+__host__ __device__ constexpr int wide_smem(int m, bool grid) {
+  return 8 * ((grid ? 0 : kWideBufs * 256 * m * m) + 16 * m * (16 * m + 1) + 256 * m * m);
+}
+static_assert(wide_smem(kWideMaxM, false) <= kMaxSmem, "the cluster instance's tiles fit a CTA");
+static_assert(wide_side(kWideMaxD, wide_m(kWideMaxD)) == kWideSide, "d 256: 4 x 4 tiles of 64");
+static_assert(wide_side(kClusterMaxD + 1, wide_m(kClusterMaxD + 1)) == kWideSide, "d 117: 4 x 4 of 32");
+
+// a load and a store of this CTA's view of a tile: through L2 only in the
+// grid instance (its tiles are written by other SMs; L1 is not coherent),
+// plain (shared or distributed shared memory) in the cluster instance
+template <bool GRID, typename V>
+__device__ __forceinline__ V ld(const V* p) {
+  if constexpr (GRID) return __ldcg(p); else return *p;
+}
+template <bool GRID, typename V>
+__device__ __forceinline__ void st(V* p, V v) {
+  if constexpr (GRID) __stcg(p, v); else *p = v;
 }
 
-// one block an SM at the most threads: ptxas may take 64 registers a thread
-__global__ void __launch_bounds__(kWorkspaceThreads, 1)
-expm_workspace_kernel(const float2* __restrict__ A, float2* __restrict__ out, float2* ws, int d,
-                      int taylor_k, int max_squarings) {
-  extern __shared__ __align__(16) float scratch[];  // 32 floats: the norm's reduction
-  const int E = d * d;
-  const size_t b = blockIdx.x;
-  // X, then the two buffers of P, in the matrix's slice of the workspace
-  float2* X = ws + b * 3 * E;
-  float2* p = X + E;  // the current iterate
-  float2* p_next = X + 2 * E;
-  const float2* a = A + b * E;
-  for (int e = threadIdx.x; e < E; e += blockDim.x) X[e] = __ldg(a + e);
-  __syncthreads();
+// one k-panel of a tile (T^2 entries), entry t + 256 q into r[q]
+template <int N, bool GRID>
+__device__ __forceinline__ void fetch_panel(const float2* src, float2 (&r)[N], int t) {
+#pragma unroll
+  for (int q = 0; q < N; ++q) r[q] = ld<GRID>(src + t + kWideThreads * q);
+}
 
-  int s = 0;
+template <int M, bool GRID>
+__global__ void __launch_bounds__(kWideThreads, 1)
+expm_wide_kernel(const float2* __restrict__ A, float2* __restrict__ out, float2* ws, int B, int d,
+                 int taylor_k, int max_squarings) {
+  constexpr int T = 16 * M, TT = T * T, TA = T + 1;
+  extern __shared__ __align__(16) float2 smem2[];
+  float2* own = smem2;                            // X, X^2, X^3, P, P' (cluster)
+  float2* As = smem2 + (GRID ? 0 : kWideBufs * TT);  // T x TA: the left k-panel
+  float2* Bs = As + T * TA;                       // T x T: the right operand's k-panel
+  float* colpart = reinterpret_cast<float*>(As);  // g x G partial column sums (cluster)
+  float* scratch = reinterpret_cast<float*>(Bs);  // 32 floats: the block's reductions
+  const int g = wide_side(d, M), G = g * T, tiles = g * g;
+  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
+  // the grid instance's workspace after the tiles: g x G partial sums and
+  // the squaring count of each matrix
+  float* ws_col = reinterpret_cast<float*>(ws + (size_t)B * kWideBufs * tiles * TT);
+  int* ws_s = reinterpret_cast<int*>(ws_col + (size_t)B * g * G);
+  // this CTA's tiles (b, I, J): its rank's in the cluster instance; item w =
+  // blockIdx.x, + gridDim.x, ... of the batch's B g^2 in the grid one
+  const long long items = GRID ? (long long)B * tiles : 1;
+  const long long first = GRID ? blockIdx.x : 0, stride = GRID ? gridDim.x : 1;
+  auto item = [&](long long w, size_t& b, int& I, int& J) {
+    int r;
+    if constexpr (GRID) {
+      b = (size_t)(w / tiles);
+      r = (int)(w - (long long)b * tiles);
+    } else {
+      b = blockIdx.x / tiles;
+      r = (int)cg::this_cluster().block_rank();
+    }
+    I = r / g;
+    J = r - I * g;
+  };
+  // tile (I, J) of matrix b's buffer `buf` (0 X, 1 X^2, 2 X^3, 3 and 4 the
+  // iterates of P): this CTA's own, and any CTA's (in the cluster instance
+  // through distributed shared memory)
+  auto mine = [&](size_t b, int buf, int I, int J) -> float2* {
+    if constexpr (GRID) return ws + ((b * kWideBufs + buf) * tiles + I * g + J) * (size_t)TT;
+    else return own + buf * TT;
+  };
+  auto at = [&](size_t b, int buf, int I, int J) -> const float2* {
+    if constexpr (GRID) return ws + ((b * kWideBufs + buf) * tiles + I * g + J) * (size_t)TT;
+    else return cg::this_cluster().map_shared_rank(own + buf * TT, I * g + J);
+  };
+  auto barrier = [] {
+    if constexpr (GRID) cg::this_grid().sync(); else cg::this_cluster().sync();
+  };
+
+  // X = A, zero past d (the padded rows and columns stay zero in every
+  // product)
+  for (long long w = first; w < items; w += stride) {
+    size_t b;
+    int I, J;
+    item(w, b, I, J);
+    const float2* a = A + b * d * d;
+    float2* X = mine(b, 0, I, J);
+    for (int e = t; e < TT; e += kWideThreads) {
+      const int i = I * T + e / T, j = J * T + e % T;
+      st<GRID>(X + e, i < d && j < d ? __ldg(a + (size_t)i * d + j) : make_float2(0.0f, 0.0f));
+    }
+    if (GRID && I == 0 && J == 0 && t == 0) st<GRID>(ws_s + b, 0);
+  }
+  // every CTA of the cluster has started, and every tile is set, before any
+  // tile is read
+  barrier();
+
+  int s = 0;  // the cluster instance's squaring count (its one matrix)
   if (max_squarings > 0) {
-    float norm1 = 0.0f;
-    for (int c = threadIdx.x; c < d; c += blockDim.x) {
-      float col = 0.0f;
-      for (int i = 0; i < d; ++i) {
-        const float2 v = X[i * d + c];
-        col += sqrtf(v.x * v.x + v.y * v.y);
+    // the 1-norm: each tile's column sums to every CTA of the cluster (to
+    // the workspace in the grid instance), then each tile adds the g partial
+    // sums of each column in tile-row order and takes the NaN-propagating
+    // max, so every tile of a matrix finds the same norm and squaring count
+    for (long long w = first; w < items; w += stride) {
+      size_t b;
+      int I, J;
+      item(w, b, I, J);
+      const float2* X = mine(b, 0, I, J);
+      if (t < T) {  // T <= 64: one column a thread
+        float col = 0.0f;
+        for (int i = 0; i < T; ++i) {
+          const float2 v = ld<GRID>(X + i * T + t);
+          col += sqrtf(v.x * v.x + v.y * v.y);
+        }
+        const int slot = I * G + J * T + t;
+        if constexpr (GRID) {
+          __stcg(ws_col + b * g * G + slot, col);
+        } else {
+          for (int dst = 0; dst < tiles; ++dst)
+            cg::this_cluster().map_shared_rank(colpart, dst)[slot] = col;
+        }
       }
-      norm1 = nan_max(norm1, col);
     }
-    const float scale = squarings(block_nan_max(norm1, scratch), max_squarings, &s);
-    for (int e = threadIdx.x; e < E; e += blockDim.x) {
-      X[e].x *= scale;
-      X[e].y *= scale;
+    barrier();
+    for (long long w = first; w < items; w += stride) {
+      size_t b;
+      int I, J;
+      item(w, b, I, J);
+      const float* cp = GRID ? ws_col + b * g * G : colpart;
+      float norm1 = 0.0f;
+      for (int j = t; j < G; j += kWideThreads) {
+        float col = 0.0f;
+        for (int k = 0; k < g; ++k) col += ld<GRID>(cp + k * G + j);
+        norm1 = nan_max(norm1, col);
+      }
+      int sb = 0;
+      const float scale = squarings(block_nan_max(norm1, scratch), max_squarings, &sb);
+      float2* X = mine(b, 0, I, J);
+      for (int e = t; e < TT; e += kWideThreads) {
+        const float2 v = ld<GRID>(X + e);
+        st<GRID>(X + e, make_float2(v.x * scale, v.y * scale));
+      }
+      if (GRID && I == 0 && J == 0 && t == 0) st<GRID>(ws_s + b, sb);
+      s = sb;
+      __syncthreads();  // the reduction's scratch is free for the next tile
     }
+    // every tile of X is scaled (and, in the cluster instance, no CTA reads
+    // its partial sums any more) before the first product
+    barrier();
   }
-  for (int e = threadIdx.x; e < E; e += blockDim.x)
-    p[e] = make_float2(e / d == e % d ? 1.0f : 0.0f, 0.0f);
-  __syncthreads();
 
-  // Horner Taylor: P = I + X P / k for k = K..1; then s squarings
-  for (int k = taylor_k; k >= 1; --k) {
-    block_product(X, p, p_next, d, inv_step(k), true);
-    __syncthreads();
-    float2* t = p;
-    p = p_next;
-    p_next = t;
+  // The Taylor polynomial T(X) = sum_{k <= K} X^k / k! by Paterson-Stockmeyer
+  // in blocks of 3: T = C_0 + Y (C_1 + Y (C_2 + ...)), Y = X^3, C_j = sum_i
+  // X^i / (3j + i)! over i < 3, 3j + i <= K, which needs X^2 = X X, Y = X^2 X
+  // and one product a block past the first two (at K = 12: 5 products where
+  // Horner takes 12; the same polynomial, another rounding). Q = C_jq (+ Y /
+  // K! when K is a multiple of 3: the top block is then I / K! alone) is set
+  // from the CTA's own tiles, then the products Q' = C_j + Y Q for j = jq - 1
+  // .. 0 and the squarings P' = P P alternate between buffers 3 and 4. In the
+  // grid instance a matrix whose s squarings are done skips the later ones
+  // (its result stays in buffer 3 + (jq + s) % 2).
+  const int m3 = taylor_k / 3;
+  const bool top_scalar = m3 >= 1 && taylor_k == 3 * m3;
+  const int jq = top_scalar ? m3 - 1 : m3;
+  const int n_pow = taylor_k >= 3 ? 2 : (taylor_k == 2 ? 1 : 0);
+  const int nops = n_pow + jq + (GRID ? max_squarings : s);
+  // C_j's coefficient of X^i (0 past K), as the float of 1 / (3j + i)!
+  auto coef = [&](int j, int i) {
+    const int k = 3 * j + i;
+    if (k > taylor_k) return 0.0f;
+    double f = 1.0;
+    for (int q = 2; q <= k; ++q) f /= q;
+    return (float)f;
+  };
+  // C_j = c0 I + c1 X + c2 X^2 at entry (i, jj) of the CTA's own tile (I,
+  // J), (gi, gj) in the matrix
+  auto block_c = [&](size_t b, int I, int J, float c0, float c1, float c2, int i, int jj, int gi,
+                     int gj) {
+    const float2 x = ld<GRID>(mine(b, 0, I, J) + i * T + jj);
+    float re = (gi == gj && gi < d ? c0 : 0.0f) + c1 * x.x, im = c1 * x.y;
+    if (c2 != 0.0f) {
+      const float2 x2 = ld<GRID>(mine(b, 1, I, J) + i * T + jj);
+      re += c2 * x2.x;
+      im += c2 * x2.y;
+    }
+    return make_float2(re, im);
+  };
+  for (int op = 0; op <= nops; ++op) {
+    if (op == n_pow) {
+      // Q = C_jq (+ Y / K!) into buffer 3, every tile's before any is read
+      const float top = top_scalar ? coef(m3, 0) : 0.0f;
+      const float c0 = coef(jq, 0), c1 = coef(jq, 1), c2 = coef(jq, 2);
+      for (long long w = first; w < items; w += stride) {
+        size_t b;
+        int I, J;
+        item(w, b, I, J);
+        float2* Q = mine(b, 3, I, J);
+        for (int e = t; e < TT; e += kWideThreads) {
+          const int i = e / T, jj = e - i * T;
+          float2 v = block_c(b, I, J, c0, c1, c2, i, jj, I * T + i, J * T + jj);
+          if (top_scalar) {
+            const float2 y = ld<GRID>(mine(b, 2, I, J) + e);
+            v.x += top * y.x;
+            v.y += top * y.y;
+          }
+          st<GRID>(Q + e, v);
+        }
+      }
+      barrier();
+    }
+    if (op == nops) break;
+    // this op's product: X^2 = X X, Y = X^2 X, Q' = C_j + Y Q, or P' = P P
+    const int h = op - n_pow;  // Horner block index past the powers
+    const bool power = op < n_pow, horner = !power && h < jq;
+    const int cur = 3 + (power ? 0 : h & 1), nxt = 3 + (power ? 0 : (h + 1) & 1);
+    const int lbuf = power ? op : (horner ? 2 : cur);
+    const int rbuf = power ? 0 : cur;
+    const int dbuf = power ? op + 1 : nxt;
+    const int j = horner ? jq - 1 - h : 0;
+    const float c0 = coef(j, 0), c1 = coef(j, 1), c2 = coef(j, 2);
+    for (long long w = first; w < items; w += stride) {
+      size_t b;
+      int I, J;
+      item(w, b, I, J);
+      if (GRID && !power && !horner && h - jq >= ld<GRID>(ws_s + b)) continue;
+      // tile (I, J) of the product: sum over K of left (I, K) times right
+      // (K, J), the k-panels staged in shared memory, the next one loaded
+      // into registers while this one is used
+      float accr[M][M], acci[M][M];
+#pragma unroll
+      for (int r = 0; r < M; ++r)
+#pragma unroll
+        for (int c = 0; c < M; ++c) accr[r][c] = acci[r][c] = 0.0f;
+      float2 ra[M * M], rb[M * M];
+      fetch_panel<M * M, GRID>(at(b, lbuf, I, 0), ra, t);
+      fetch_panel<M * M, GRID>(at(b, rbuf, 0, J), rb, t);
+      for (int K = 0; K < g; ++K) {
+#pragma unroll
+        for (int q = 0; q < M * M; ++q) {
+          const int e = t + kWideThreads * q, i = e / T;
+          As[i * TA + e - i * T] = ra[q];
+          Bs[e] = rb[q];
+        }
+        __syncthreads();
+        if (K + 1 < g) {
+          fetch_panel<M * M, GRID>(at(b, lbuf, I, K + 1), ra, t);
+          fetch_panel<M * M, GRID>(at(b, rbuf, K + 1, J), rb, t);
+        }
+        // rows ty + 16 r and columns tx + 16 c of the tile: M + M shared
+        // loads for M^2 complex FMAs (4 M^2 float32 FMAs)
+#pragma unroll 4
+        for (int kk = 0; kk < T; ++kk) {
+          float2 av[M], bv[M];
+#pragma unroll
+          for (int r = 0; r < M; ++r) av[r] = As[(ty + 16 * r) * TA + kk];
+#pragma unroll
+          for (int c = 0; c < M; ++c) bv[c] = Bs[kk * T + tx + 16 * c];
+#pragma unroll
+          for (int r = 0; r < M; ++r)
+#pragma unroll
+            for (int c = 0; c < M; ++c)
+              cfma(av[r].x, av[r].y, bv[c].x, bv[c].y, accr[r][c], acci[r][c]);
+        }
+        __syncthreads();
+      }
+      float2* dst = mine(b, dbuf, I, J);
+#pragma unroll
+      for (int r = 0; r < M; ++r)
+#pragma unroll
+        for (int c = 0; c < M; ++c) {
+          const int i = ty + 16 * r, jj = tx + 16 * c;
+          float2 v = make_float2(accr[r][c], acci[r][c]);
+          if (horner) {
+            const float2 cj = block_c(b, I, J, c0, c1, c2, i, jj, I * T + i, J * T + jj);
+            v.x += cj.x;
+            v.y += cj.y;
+          }
+          st<GRID>(dst + i * T + jj, v);
+        }
+    }
+    // every tile of the op is written before any is read by the next; in
+    // the cluster instance also the last barrier before any CTA exits, so
+    // no CTA reads the shared memory of one that has exited
+    barrier();
   }
-  for (int step = 0; step < s; ++step) {
-    block_product(p, p, p_next, d, 1.0f, false);
-    __syncthreads();
-    float2* t = p;
-    p = p_next;
-    p_next = t;
+
+  for (long long w = first; w < items; w += stride) {
+    size_t b;
+    int I, J;
+    item(w, b, I, J);
+    const int sb = GRID ? ld<GRID>(ws_s + b) : s;
+    const float2* P = mine(b, 3 + ((jq + sb) & 1), I, J);
+    float2* o = out + b * d * d;
+    for (int e = t; e < TT; e += kWideThreads) {
+      const int i = I * T + e / T, j = J * T + e % T;
+      if (i < d && j < d) o[(size_t)i * d + j] = ld<GRID>(P + e);
+    }
   }
-  float2* o = out + b * E;
-  for (int e = threadIdx.x; e < E; e += blockDim.x) o[e] = p[e];
 }
 
-cudaError_t launch_workspace(const float2* A, float2* out, float2* ws, int B, int d, int taylor_k,
+// the attributes of a 2D-tile instance, set once: its shared memory and, in
+// the cluster instance, clusters above the portable 8 CTAs
+template <int M, bool GRID>
+cudaError_t wide_attrs() {
+  static const cudaError_t attr = [] {
+    cudaError_t err = cudaFuncSetAttribute(expm_wide_kernel<M, GRID>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           wide_smem(M, GRID));
+    if (err == cudaSuccess && !GRID)
+      err = cudaFuncSetAttribute(expm_wide_kernel<M, GRID>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return err;
+  }();
+  return attr;
+}
+
+template <int M>
+cudaLaunchConfig_t wide_cluster_config(int B, int d, cudaStream_t stream, cudaLaunchAttribute* at) {
+  const int c = wide_side(d, M) * wide_side(d, M);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * c);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = wide_smem(M, false);
+  cfg.stream = stream;
+  at->id = cudaLaunchAttributeClusterDimension;
+  at->val.clusterDim.x = c;
+  at->val.clusterDim.y = 1;
+  at->val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int M>
+cudaError_t launch_cluster2d(const float2* A, float2* out, int B, int d, int taylor_k,
                              int max_squarings, cudaStream_t stream) {
+  const cudaError_t attr = wide_attrs<M, false>();
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchAttribute at;
+  const cudaLaunchConfig_t cfg = wide_cluster_config<M>(B, d, stream, &at);
+  return cudaLaunchKernelEx(&cfg, expm_wide_kernel<M, false>, A, out, (float2*)nullptr, B, d,
+                            taylor_k, max_squarings);
+}
+
+// the clusters of a cluster2d launch the card holds at once
+template <int M>
+cudaError_t cluster2d_capacity(int B, int d, int* count) {
+  const cudaError_t attr = wide_attrs<M, false>();
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchAttribute at;
+  const cudaLaunchConfig_t cfg = wide_cluster_config<M>(B, d, nullptr, &at);
+  return cudaOccupancyMaxActiveClusters(count, expm_wide_kernel<M, false>, &cfg);
+}
+
+// the blocks the card holds at once of the grid instance (0 on an error):
+// a cooperative launch needs all of its blocks resident
+int grid2d_resident() {
+  static const int resident = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        wide_attrs<kWideMaxM, true>() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, expm_wide_kernel<kWideMaxM, true>,
+                                                      kWideThreads,
+                                                      wide_smem(kWideMaxM, true)) != cudaSuccess)
+      return 0;
+    return sms * per_sm;
+  }();
+  return resident;
+}
+
+cudaError_t launch_grid2d(const float2* A, float2* out, float2* ws, int B, int d, int taylor_k,
+                          int max_squarings, cudaStream_t stream) {
   if (ws == nullptr) return cudaErrorInvalidValue;
-  const int E = d * d;
-  const int threads = E >= kWorkspaceThreads ? kWorkspaceThreads : (E + 31) / 32 * 32;
-  expm_workspace_kernel<<<B, threads, 32 * sizeof(float), stream>>>(A, out, ws, d, taylor_k,
-                                                                    max_squarings);
-  return cudaGetLastError();
+  const int resident = grid2d_resident();
+  if (resident < 1) return cudaErrorLaunchOutOfResources;
+  const long long tiles = (long long)B * wide_side(d, kWideMaxM) * wide_side(d, kWideMaxM);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles < resident ? tiles : resident));
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = wide_smem(kWideMaxM, true);
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeCooperative;
+  at[0].val.cooperative = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, expm_wide_kernel<kWideMaxM, true>, A, out, ws, B, d, taylor_k,
+                            max_squarings);
 }
 
 template <int D>
@@ -767,27 +1125,28 @@ cudaError_t launch(const float2* A, float2* out, int B, int taylor_k, int max_sq
   return cudaGetLastError();
 }
 
-enum Instance { kTeam = 0, kTile = 1, kCluster = 2, kWorkspace = 3 };
+enum Instance { kTeam = 0, kTile = 1, kCluster = 2, kCluster2d = 3, kGrid2d = 4 };
 
 Instance instance(int d) {
   if (d >= 2 && d <= 8) return kTeam;
   if (d <= kTileMaxD) return kTile;
-  return d <= kClusterMaxD ? kCluster : kWorkspace;
+  if (d <= kClusterMaxD) return kCluster;
+  return d <= kWideMaxD ? kCluster2d : kGrid2d;
 }
 
 }  // namespace
 
 // The launch plan of a call: out[0] the instance (0 team, 1 tile, 2
-// cluster, 3 workspace), out[1] the cluster size (1 outside the cluster
-// instance), out[2] the threads a block, out[3] the dynamic shared bytes a
-// block; with query nonzero out[4] the clusters of that shape the card can
-// hold at once (cudaOccupancyMaxActiveClusters; 0 outside the cluster
-// instance). Returns a cudaError_t.
+// cluster, 3 cluster2d, 4 grid2d), out[1] the cluster size (1 outside the
+// two cluster instances), out[2] the threads a block, out[3] the dynamic
+// shared bytes a block; with query nonzero out[4] the clusters of that shape
+// the card can hold at once (cudaOccupancyMaxActiveClusters; 0 outside the
+// cluster instances). Returns a cudaError_t.
 extern "C" int mpc4q_expm_small_plan(int B, int d, int query, int* out) {
   if (B < 1 || d < 1) return cudaErrorInvalidValue;
   const Instance inst = instance(d);
   out[0] = inst;
-  out[1] = inst == kCluster ? cluster_size(B, d) : 1;
+  out[1] = 1;
   out[4] = 0;
   switch (inst) {
     case kTeam:
@@ -798,13 +1157,24 @@ extern "C" int mpc4q_expm_small_plan(int B, int d, int query, int* out) {
       out[2] = tile_threads(d);
       out[3] = tile_smem(d);
       return cudaSuccess;
-    case kWorkspace:
-      out[2] = d * d >= kWorkspaceThreads ? kWorkspaceThreads : (d * d + 31) / 32 * 32;
-      out[3] = 32 * sizeof(float);
+    case kCluster2d: {
+      const int m = wide_m(d), g = wide_side(d, m);
+      out[1] = g * g;
+      out[2] = kWideThreads;
+      out[3] = wide_smem(m, false);
+      if (!query) return cudaSuccess;
+      if (m == 2) return cluster2d_capacity<2>(B, d, &out[4]);
+      if (m == 3) return cluster2d_capacity<3>(B, d, &out[4]);
+      return cluster2d_capacity<4>(B, d, &out[4]);
+    }
+    case kGrid2d:
+      out[2] = kWideThreads;
+      out[3] = wide_smem(kWideMaxM, true);
       return cudaSuccess;
     default:
       break;
   }
+  out[1] = cluster_size(B, d);
   out[2] = cluster_threads(d, out[1]);
   out[3] = cluster_smem(d, out[1]);
   if (!query) return cudaSuccess;
@@ -825,7 +1195,10 @@ extern "C" int mpc4q_expm_small_plan(int B, int d, int query, int* out) {
   return cudaOccupancyMaxActiveClusters(&out[4], expm_cluster_kernel, &cfg);
 }
 
-// ws: null, or at d > kClusterMaxD a workspace of B x 3 x d^2 float2
+// ws: null, or at d > kWideMaxD a workspace of B (10 G^2 + g G + 1) floats,
+// g = ceil(d / 64), G = 64 g: per matrix X, X^2, X^3 and P twice on the
+// padded side, the norm's partial column sums and the squaring count
+// (kernels/expm.py::grid2d_ws_floats)
 extern "C" int mpc4q_expm_small(const void* A, void* out, void* ws, int B, int d, int taylor_k,
                                 int max_squarings, void* stream) {
   if (B <= 0) return cudaSuccess;
@@ -853,5 +1226,12 @@ extern "C" int mpc4q_expm_small(const void* A, void* out, void* ws, int B, int d
   }
 #undef TILE
   if (d <= kClusterMaxD) return launch_cluster(a, o, B, d, taylor_k, max_squarings, s);
-  return launch_workspace(a, o, static_cast<float2*>(ws), B, d, taylor_k, max_squarings, s);
+  if (d <= kWideMaxD) {
+    switch (wide_m(d)) {
+      case 2: return launch_cluster2d<2>(a, o, B, d, taylor_k, max_squarings, s);
+      case 3: return launch_cluster2d<3>(a, o, B, d, taylor_k, max_squarings, s);
+      default: return launch_cluster2d<4>(a, o, B, d, taylor_k, max_squarings, s);
+    }
+  }
+  return launch_grid2d(a, o, static_cast<float2*>(ws), B, d, taylor_k, max_squarings, s);
 }

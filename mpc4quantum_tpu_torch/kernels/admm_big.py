@@ -8,17 +8,19 @@ instance depends on n alone (`admm_big_plan`):
 - n <= 239: one block a lane, each thread's part of a K^-1 row in
   registers (and, above n 160, the rest of it in shared memory);
 - 240 <= n <= CLUSTER_MAX_N: one thread-block cluster of c CTAs a lane (c
-  the least in 2..8 that fits: 2 at n 240-416, 8 at n 673-736), CTA k
+  the least in 2..16 that fits: 2 at n 240-416, 8 at n 673-736, 10 at
+  cnot_h250's n 750, 16 at 1008; above 8 a non-portable size), CTA k
   holding rows [k R, k R + R) of K^-1 for the whole launch, two rows a
   thread, 40 columns of each row part in registers and the rest in shared
   memory; each iteration's rhs vector goes to every CTA by st.async,
   counted on each CTA's mbarrier, with no cluster-wide barrier in the
   loop, so K^-1 is read from device memory once a launch. It is bound by
   each iteration's serial chain;
-- above: one block a lane streams K^-1's rows from L2 or device memory
-  every iteration, with the rhs vector in shared memory, and above n =
-  STREAM_SMEM_MAX_N in a workspace in device memory that this wrapper
-  allocates.
+- above: a cluster of STREAM_CLUSTER CTAs a lane, each streaming its rows
+  of K^-1 from L2 or device memory every iteration, the rhs vector
+  exchanged as in the cluster instance ("stream"), and above n =
+  STREAM_SMEM_MAX_N kept in a workspace in device memory that this wrapper
+  allocates, with a cluster barrier an iteration ("stream_ws").
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -35,11 +37,11 @@ from . import _build
 # the largest n of the register instances and of the cluster instance
 # (kMaxN, kClusterMaxN in csrc/admm_big.cu)
 REG_MAX_N = 239
-CLUSTER_MAX_N = 736
+CLUSTER_MAX_N = 1008
 # the largest n whose streaming instance keeps its two rhs buffers (8 n
-# bytes) in shared memory; above it they sit in a workspace
-# (kStreamSmemMaxN)
-STREAM_SMEM_MAX_N = 29056
+# bytes) and their mbarriers in shared memory; above it they sit in a
+# workspace (kStreamSmemMaxN)
+STREAM_SMEM_MAX_N = 29054
 # the instances in the order of mpc4q_admm_big_plan's ids: the register
 # instances by their largest n, the cluster, the streaming instance with
 # its rhs in shared memory and on the workspace
@@ -49,10 +51,13 @@ INSTANCES = ("reg32", "reg64", "reg128", "reg160", "reg239", "cluster", "stream"
 _REG_FORMS = ((32, 32, 1, 4, False), (64, 64, 1, 1, False), (128, 64, 2, 1, False),
               (160, 40, 4, 1, False), (REG_MAX_N, 32, 4, 1, True))
 # the cluster instance's register columns and parts a row, rows a thread,
-# the portable cluster size, a CTA's most threads and shared bytes
-_CLUSTER_C, _CLUSTER_S, _CLUSTER_ROWS, MAX_CLUSTER = 40, 4, 2, 8
+# its largest cluster (above the portable 8: a non-portable size), a CTA's
+# most threads and shared bytes
+_CLUSTER_C, _CLUSTER_S, _CLUSTER_ROWS, MAX_CLUSTER = 40, 4, 2, 16
 _CLUSTER_THREADS, MAX_SMEM = 512, 232448
-_STREAM_THREADS = 1024
+# the streaming instances: CTAs a lane and threads a CTA (kStreamCluster,
+# kStreamThreads)
+STREAM_CLUSTER, _STREAM_THREADS = 16, 512
 
 
 class Plan(NamedTuple):
@@ -74,7 +79,7 @@ def _part_stride(L: int, C: int) -> int:
 
 
 def _cluster_fit(n: int):
-    """(c, threads, shared bytes) of the least cluster in 2..8 whose CTA
+    """(c, threads, shared bytes) of the least cluster in 2..16 whose CTA
     fits n, or None (cluster_plan in csrc/admm_big.cu)."""
     L = _part_len(n, _CLUSTER_S)
     PL = _part_stride(L, _CLUSTER_C)
@@ -104,19 +109,27 @@ def admm_big_plan(B: int, n: int) -> Plan:
     if n <= CLUSTER_MAX_N:
         return Plan("cluster", *_cluster_fit(n))
     if n <= STREAM_SMEM_MAX_N:
-        return Plan("stream", 1, _STREAM_THREADS, 8 * n)
-    return Plan("stream_ws", 1, _STREAM_THREADS, 0)
+        return Plan("stream", STREAM_CLUSTER, _STREAM_THREADS, 16 + 8 * n)
+    return Plan("stream_ws", STREAM_CLUSTER, _STREAM_THREADS, 0)
 
 
 def admm_big_work(B: int, n: int, iters: int):
     """The work of one `admm_big` call, counted from its shapes (FMA = 2
     flops): per lane iters (2n^2 + 8n) flops and 4 (n^2 + 9n + 1) bytes -
     K^-1, q, lb, ub, x, z, y and rho read once, x, z and y written once,
-    whatever the instance (the streaming one reads K^-1 every iteration).
+    whatever the instance (the streaming ones read K^-1 every iteration:
+    `stream_bytes`).
 
     :return: (flops, bytes).
     """
     return B * iters * (2 * n * n + 8 * n), 4 * B * (n * n + 9 * n + 1)
+
+
+def stream_bytes(B: int, n: int, iters: int) -> int:
+    """The bytes a streaming instance moves for one call: K^-1 read every
+    iteration, the vectors once (its own bytes bound, beside the function's
+    `admm_big_work`)."""
+    return 4 * B * (iters * n * n + 9 * n + 1)
 
 
 def admm_iters_ref(kinv, q, lb, ub, rho, x, z, y, *, iters: int, sigma: float,

@@ -14,8 +14,16 @@ or real input. The instance depends on d (`expm_small_plan`):
   the least that fits, raised to 132 / B at small B, at most 8), CTA k a
   row panel of each product, P copied into every CTA through distributed
   shared memory, one cluster barrier a product;
-- above SMEM_MAX_D: one block a matrix on a workspace in device memory
-  that this wrapper allocates.
+- SMEM_MAX_D < d <= WIDE_MAX_D (cluster2d): P cut into g x g tiles of side
+  16 m, one cluster of g^2 CTAs (up to 16, a non-portable size) a matrix,
+  each CTA keeping its tiles of X, X^2, X^3 and P in shared memory and
+  summing each product's k-panels from their owners through distributed
+  shared memory, an m x m block of the tile a thread in registers; the
+  Taylor polynomial by Paterson-Stockmeyer in blocks of 3 (5 products at
+  taylor_k 12, where Horner takes 12);
+- above WIDE_MAX_D (grid2d): the same tiles of side 64 on a workspace in
+  device memory that this wrapper allocates, one cooperative launch over
+  the batch's tiles with a grid barrier a product.
 A real float32 batch is run as complex64 and its real part returned,
 which is exact: the exponential of a real matrix is real. On a CPU tensor
 the wrapper runs the plain version; on a CUDA tensor it launches the
@@ -31,15 +39,20 @@ import torch
 from ..ops.expm import expm_taylor
 from . import _build
 
-# the largest d of the tile instance, and of the cluster instance (the
-# last whose CTA holds two copies of P and a panel of X, 8 stride (2 d +
-# ceil(d / c)) bytes, at c <= 8); above it X and P sit in a workspace
-# (kTileMaxD, kClusterMaxD in csrc/expm_small.cu)
+# the largest d of the tile instance, of the cluster instance (the last
+# whose CTA holds two copies of P and a panel of X, 8 stride (2 d +
+# ceil(d / c)) bytes, at c <= 8) and of the cluster2d instance (4 x 4 tiles
+# of 64); above it the tiles sit in a workspace (kTileMaxD, kClusterMaxD,
+# kWideMaxD in csrc/expm_small.cu)
 TILE_MAX_D = 32
 SMEM_MAX_D = 116
+WIDE_MAX_D = 256
 # the instances in the order of mpc4q_expm_small_plan's ids
-INSTANCES = ("team", "tile", "cluster", "workspace")
+INSTANCES = ("team", "tile", "cluster", "cluster2d", "grid2d")
 MAX_CLUSTER, MAX_SMEM, SMS = 8, 232448, 132
+# the 2D-tile instances: tiles a side at most (kWideSide: a cluster of 16),
+# threads a block, the largest m (tiles of side 16 m)
+WIDE_SIDE, WIDE_THREADS, WIDE_MAX_M = 4, 256, 4
 
 
 class Plan(NamedTuple):
@@ -70,6 +83,32 @@ def _cluster_size(B: int, d: int) -> int:
     return c
 
 
+def _wide_m(d: int) -> int:
+    """wide_m in csrc/expm_small.cu: the least m in 2..4 whose tiles of
+    side 16 m cover d with at most WIDE_SIDE a side."""
+    m = 2
+    while m < WIDE_MAX_M and -(-d // (16 * m)) > WIDE_SIDE:
+        m += 1
+    return m
+
+
+def _wide_smem(m: int, grid: bool) -> int:
+    """The CTA's own tiles of X, X^2, X^3 and P twice (cluster2d only) and
+    the two staged k-panels, the left one's rows padded by one entry."""
+    T = 16 * m
+    return 8 * ((0 if grid else 5 * T * T) + T * (T + 1) + T * T)
+
+
+def grid2d_ws_floats(B: int, d: int) -> int:
+    """The grid2d instance's workspace in floats, laid out as
+    expm_wide_kernel in csrc/expm_small.cu reads it: per matrix X, X^2, X^3
+    and P twice on the padded side G = 64 ceil(d / 64), G ceil(d / 64)
+    partial column sums and the squaring count."""
+    g = -(-d // (16 * WIDE_MAX_M))
+    G = 16 * WIDE_MAX_M * g
+    return B * (10 * G * G + g * G + 1)
+
+
 def expm_small_plan(B: int, d: int) -> Plan:
     """The launch plan of an `expm_small` call at batch B and size d, as the
     kernel library computes it (mpc4q_expm_small_plan)."""
@@ -90,22 +129,35 @@ def expm_small_plan(B: int, d: int) -> Plan:
         c = _cluster_size(B, d)
         tiles = (-(-d // c) + 1) // 2 * ((d + 1) // 2)
         return Plan("cluster", c, min(1024, (tiles + 31) // 32 * 32), _cluster_smem(d, c))
-    return Plan("workspace", 1, min(1024, (d * d + 31) // 32 * 32), 128)
+    if d <= WIDE_MAX_D:
+        m = _wide_m(d)
+        return Plan("cluster2d", (-(-d // (16 * m))) ** 2, WIDE_THREADS, _wide_smem(m, False))
+    return Plan("grid2d", 1, WIDE_THREADS, _wide_smem(WIDE_MAX_M, True))
+
+
+def taylor_products(taylor_k: int) -> int:
+    """The least matrix products that evaluate a Taylor polynomial of degree
+    taylor_k by Paterson-Stockmeyer: X^2 .. X^p, then Horner in X^p over
+    blocks of degree up to p, p - 1 + ceil(k / p) - 1 products at the best
+    p (5 at 12, where Horner takes 12; 0 at degree 1)."""
+    return min(p + -(-taylor_k // p) - 2 for p in range(1, max(taylor_k, 1) + 1))
 
 
 def expm_small_work(B: int, d: int, taylor_k: int, squarings: int = 0):
     """The work of one `expm_small` call, counted from its shapes: per
-    matrix taylor_k (8d^3 + 2d^2) flops of Horner Taylor (a complex FMA is 8
-    flops) and 16 d^2 bytes (complex64 in and out), plus 8d^3 flops for
-    each of the `squarings` the call's matrices take in all (0 at
-    max_squarings = 0). The norm and the scaling are not counted. It counts
-    the function's work, not the kernel's design: the team's threads each
-    reading all of X, the shuffles of a squaring, a cluster's copies of P,
-    add nothing to it.
+    matrix the least products of its Taylor polynomial (`taylor_products`,
+    8d^3 flops each: a complex FMA is 8 flops), 2d^2 flops a coefficient,
+    and 16 d^2 bytes (complex64 in and out), plus 8d^3 flops for each of the
+    `squarings` the call's matrices take in all (0 at max_squarings = 0).
+    The norm and the scaling are not counted. It counts the function's
+    work, not the kernel's design: the Horner instances' extra products,
+    the team's threads each reading all of X, the shuffles of a squaring, a
+    cluster's copies of P, add nothing to it.
 
     :return: (flops, bytes).
     """
-    return B * taylor_k * (8 * d ** 3 + 2 * d * d) + squarings * 8 * d ** 3, 16 * d * d * B
+    taylor = taylor_products(taylor_k) * 8 * d ** 3 + taylor_k * 2 * d * d
+    return B * taylor + squarings * 8 * d ** 3, 16 * d * d * B
 
 
 def expm_small_ref(A: torch.Tensor, taylor_k: int = 18, max_squarings: int = 12) -> torch.Tensor:
@@ -158,8 +210,8 @@ def expm_small(A: torch.Tensor, taylor_k: int = 18, max_squarings: int = 12) -> 
     if A.data_ptr() % 16:
         A = A.clone()
     out = torch.empty((B, d, d), dtype=torch.complex64, device=A.device)
-    ws = (torch.empty((B, 3, d, d), dtype=torch.complex64, device=A.device)
-          if d > SMEM_MAX_D else None)
+    ws = (torch.empty(grid2d_ws_floats(B, d), dtype=torch.float32, device=A.device)
+          if d > WIDE_MAX_D else None)
     lib = _build.library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
     rc = lib.mpc4q_expm_small(A.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(),

@@ -171,8 +171,13 @@ def _ns_inverse(K, iters: int, X0=None, guard: float = 0.5):
         r0 = (eye - K @ X0).abs().sum(dim=-1).amax(dim=-1)
         kept = r0 < guard
         X = torch.where(kept[..., None, None], X0.to(K.dtype), X)
-    for _ in range(iters):
-        X = X @ (2.0 * eye - K @ X)
+    for i in range(iters):
+        if i == iters - 1 and K.dtype == torch.float32:
+            # the same step, X + X (I - K X), its residual formed in float64
+            R = eye.double() - K.double() @ X.double()
+            X = X + X @ R.to(K.dtype)
+        else:
+            X = X @ (2.0 * eye - K @ X)
     return X, kept
 
 
@@ -180,6 +185,14 @@ def ns_inverse(K, iters: int = 30, X0=None, guard: float = 0.5):
     """Inverse of a batch of SPD matrices (..., n, n) by the Newton-Schulz
     iteration X <- X (2I - K X), matmuls only. The cold init
     X = K^T / (||K||_1 ||K||_inf) contracts for SPD K.
+
+    In float32 the last step is taken as X + X (I - K X) with I - K X formed
+    in float64: the same step in exact arithmetic, but float32's own
+    iteration stalls where the rounding of K X is as large as the residual
+    (about n eps cond(K)), and ADMM's fixed point inherits the error as a
+    dual residual of about ||I - K X|| |P x|. At cnot_state's horizon 250
+    (n 750) that stall, ~1e-5, failed the acceptance test; the float64
+    residual brings X to float32's rounding of K^-1 (~2e-7 there).
 
     :param X0: optional warm start, the inverse of a nearby matrix (the
         previous solve's). Each element keeps X0 where ||I - K X0||_inf <

@@ -5,8 +5,9 @@
 
 Runs each fleet of chip_smoke.FLEETS at its batch (the main pass only, where
 a fleet has a rescue pass), then the two learned-model fleets (chip_smoke's
-LEARN and DISCREP: per-lane refits, recorded) and the two scenarios of no
-preset (chip_smoke's SLICE_FLEETS: damped_pair, cnot_h80), or only the
+LEARN and DISCREP: per-lane refits, recorded) and the four scenarios of no
+preset (chip_smoke's SLICE_FLEETS: damped_pair, cnot_h80, damped_chain4,
+cnot_h250), or only the
 fleets named: one warm-up run, then one run under torch.profiler. Prints one JSON line a fleet - device time
 in all and by kernel, launches, and the busy share against the unprofiled
 wall time - then the card's name and power limit. The profiler on the
@@ -63,7 +64,9 @@ def fleets():
         gen = torch.Generator(device=plants.device).manual_seed(7) if sigma else None
         yield name, sc, plants, dict(record=True, generator=gen, model_update_fn=fit)
     for name, make in (("damped_pair", cs.damped_pair_scenario),
-                       ("cnot_h80", cs.cnot_h80_scenario)):
+                       ("cnot_h80", cs.cnot_h80_scenario),
+                       ("damped_chain4", cs.damped_chain4_scenario),
+                       ("cnot_h250", cs.cnot_h250_scenario)):
         sc = make("cuda", torch.float32)
         yield name, sc, lanes(sc, cs.SLICE_FLEETS[name]["batch"]), {}
 
@@ -83,7 +86,7 @@ def profile_fleets(names=()):
         by_kernel = {}
         for key in ("boxqp_small_kernel", "admm_big_kernel", "admm_cluster_kernel",
                     "admm_stream_kernel", "expm_small_kernel", "expm_tile_kernel",
-                    "expm_cluster_kernel", "expm_workspace_kernel"):
+                    "expm_cluster_kernel", "expm_wide_kernel"):
             times = [t for n, t in acts if key in n]
             by_kernel[key] = {"launches": len(times), "device_ms": sum(times) / 1e3,
                               "device_us_a_launch": sum(times) / max(len(times), 1)}

@@ -27,9 +27,12 @@ pytestmark = pytest.mark.cuda
 # the expm kernel's instances: 2-4 (one team of 2 or 4 threads), 5-8 (a
 # team of 8, the 3-qubit plant's d = 8), the tile instance at d = 1 and
 # 9-32 (the damped pair's Liouvillian d = 16, a partial tile at d = 17),
-# the cluster instance at d 33-116 (one cluster of CTAs a matrix) and the
-# workspace above (d = 117)
-EXPM_SIZES = [1, *range(2, 9), 9, 16, 17, 32, 33, 64, 100, 116, 117]
+# the cluster instance at d 33-116 (one cluster of CTAs a matrix), the
+# cluster2d instance at d 117-256 (a cluster of 16 CTAs a matrix, tiles of
+# 32 at d 117 and 128, of 48 at d 129 in a cluster of 9, of 64 at d 256, the
+# damped four-qubit chain's Liouvillian) and the grid2d instance above (one
+# cooperative launch on a workspace, d 300)
+EXPM_SIZES = [1, *range(2, 9), 9, 16, 17, 32, 33, 64, 100, 116, 117, 128, 129, 256, 300]
 
 
 @pytest.fixture
@@ -95,18 +98,20 @@ def test_boxqp_kernel_scaled_matches_plain(cuda, n):
 
 
 @pytest.mark.parametrize("n", [1, 17, 31, 32, 33, 50, 64, 65, 128, 129, 150, 160, 161, 239,
-                               240, 241, 256, 320, 416, 417, 512, 736, 737, 1024])
+                               240, 241, 256, 320, 416, 417, 512, 736, 737, 750, 801, 1008,
+                               1009, 1024])
 def test_admm_kernel_matches_plain(cuda, n):
     """Every instance and its edges: a warp per lane up to 32 columns, whole
     rows in registers up to 64, rows split over 2 threads up to 128 and over
     4 up to 160, then 32 columns of each part in registers and the rest in
     shared memory (above 48 KB of it at n = 239); from n = 240 the cluster
     instance (a cluster of CTAs a lane, 2 CTAs up to n 416, 3 from 417, 8
-    at 736; n not a multiple of four at 241), and from n = 737 the
-    streaming instance (rows read from device memory every iteration, four
-    rows a warp). Split, clustered and streamed rows add their parts in
-    another order than the plain row sum: float32 rounding, well inside
-    the bound."""
+    at 736, 10 at 737-800 (cnot_h250's 750), 11 from 801, 16 at 1008; n
+    not a multiple of four at 241), and from n = 1009 the streaming
+    instance (a cluster of 16 CTAs a lane, each reading its rows from
+    device memory every iteration, four rows a warp). Split, clustered and
+    streamed rows add their parts in another order than the plain row sum:
+    float32 rounding, well inside the bound."""
     B = 300 if n < 512 else 16
     P, q, lb, ub = qp_batch(B, n, seed=n, device=cuda)
     rng = np.random.default_rng(n + 1)
@@ -135,20 +140,30 @@ def test_library_plans_equal_the_python_plans(cuda, B):
                                                       *plan[1:]), (kind, B, size)
 
 
-@pytest.mark.parametrize("B,d", [(128, 16), (4, 100), (16, 64), (1, 33), (4, 117)])
+@pytest.mark.parametrize("B,d", [(128, 16), (4, 100), (16, 64), (1, 33), (4, 117), (4, 129),
+                                 (128, 256), (2, 300)])
 def test_expm_launch_follows_its_plan(cuda, B, d):
     """The kernel node of a captured call has the plan's block, shared
-    bytes and cluster dimensions: the instance the plan names ran."""
+    bytes and cluster dimensions: the instance the plan names ran. The
+    grid2d instance's grid is one block a tile, at most what the card holds
+    at once (a cooperative launch)."""
     plan = expm_mod.expm_small_plan(B, d)
     A = hermitian_batch(B, d, seed=d, hi=2.0, device=cuda)
     (launch,) = graph_kernel_launches(lambda: expm_small(A, 12, 2))
-    assert launch == {"grid": (B * plan.cluster, 1, 1), "block": (plan.threads, 1, 1),
-                      "smem": plan.smem, "cluster": (plan.cluster, 1, 1)}
-    if plan.instance == "cluster":
+    grid = launch.pop("grid")
+    assert launch == {"block": (plan.threads, 1, 1), "smem": plan.smem,
+                      "cluster": (plan.cluster, 1, 1)}
+    if plan.instance == "grid2d":
+        tiles = B * (-(-d // 64)) ** 2
+        assert grid[1:] == (1, 1) and 1 <= grid[0] <= tiles
+    else:
+        assert grid == (B * plan.cluster, 1, 1)
+    if plan.cluster > 1:
         assert _build.plan("expm_small", B, d, query=True)[4] >= 1
 
 
-@pytest.mark.parametrize("B,n", [(128, 240), (1, 240), (16, 736), (16, 737)])
+@pytest.mark.parametrize("B,n", [(128, 240), (1, 240), (16, 736), (16, 737), (16, 750),
+                                 (16, 1008), (1, 1009)])
 def test_admm_launch_follows_its_plan(cuda, B, n):
     plan = admm_mod.admm_big_plan(B, n)
     P, q, lb, ub = qp_batch(B, n, seed=n, device=cuda)
@@ -159,6 +174,7 @@ def test_admm_launch_follows_its_plan(cuda, B, n):
         lambda: admm_big(kinv, q, lb, ub, rho, x, z, y, iters=3, sigma=1e-6, alpha=1.6))
     assert launch == {"grid": (B * plan.cluster, 1, 1), "block": (plan.threads, 1, 1),
                       "smem": plan.smem, "cluster": (plan.cluster, 1, 1)}
+    assert _build.plan("admm_big", B, n, query=True)[4] >= 1
 
 
 def test_admm_kernel_workspace_path_matches_plain(cuda):

@@ -11,7 +11,7 @@ import torch
 from mpc4quantum_tpu_torch import convert, presets
 from mpc4quantum_tpu_torch.kernels.admm_big import admm_big_work
 from mpc4quantum_tpu_torch.kernels.boxqp import boxqp_small_work
-from mpc4quantum_tpu_torch.kernels.expm import expm_small_work
+from mpc4quantum_tpu_torch.kernels.expm import expm_small_work, taylor_products
 from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
 
 ENTRY_POINTS = [*presets.PRESETS.values(), presets.scenario_from_arrays,
@@ -90,10 +90,19 @@ def test_admm_big_work_matches_hand_count(args, flops, nbytes):
 
 
 @pytest.mark.parametrize("args,flops,nbytes", [
-    # d = 2, Taylor 12, no squaring: 12 (64 + 8) = 864 flops, 64 bytes a matrix
-    ((5, 2, 12), 5 * 864, 5 * 64),
-    # d = 3, Taylor 12, 3 squarings in all: 2 * 12 * 234 + 3 * 216 flops
-    ((2, 3, 12, 3), 2 * 12 * 234 + 3 * 216, 2 * 144),
+    # d = 2, Taylor 12 in 5 products (Paterson-Stockmeyer), no squaring:
+    # 5 * 64 + 12 * 8 = 416 flops, 64 bytes a matrix
+    ((5, 2, 12), 5 * 416, 5 * 64),
+    # d = 3, Taylor 12, 3 squarings in all: 2 (5 * 216 + 12 * 18) + 3 * 216 flops
+    ((2, 3, 12, 3), 2 * 1296 + 3 * 216, 2 * 144),
 ])
 def test_expm_small_work_matches_hand_count(args, flops, nbytes):
     assert expm_small_work(*args) == (flops, nbytes)
+
+
+@pytest.mark.parametrize("taylor_k,products", [(1, 0), (2, 1), (3, 2), (4, 2), (6, 3), (12, 5),
+                                               (18, 7)])
+def test_taylor_products_are_paterson_stockmeyers(taylor_k, products):
+    """min over p of p - 1 + ceil(k / p) - 1: at 12, X^2 and X^3 and three
+    Horner steps in X^3 (the top coefficient times X^3 needs no product)."""
+    assert taylor_products(taylor_k) == products

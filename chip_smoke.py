@@ -33,8 +33,11 @@ seven fleets through `run_hostloop_fleet`, built with no device argument
 `crosstalk` (B = 1024, every step a warm solve) and `cnot_state` (B = 128,
 order 2, lanes under 0.99 re-run at order 3) - checks their quality gates
 and their kernel launch counts, and holds each fleet's first lanes against
-the float64 plain path on the CPU; a short cnot run in which every lane is
-marginal drives the rescue pass on the card. Then the learned-model and
+the float64 plain path on the CPU; then `bench_entry` runs the benchmark
+entry, bench_torch.main() at its defaults (the flagship at B = 16384 and
+the six presets), in the same process, with its gates and each kernel's
+launches against the runners' budgets; a short cnot run in which every
+lane is marginal drives the rescue pass on the card. Then the learned-model and
 single-rollout phases, and the command line (`python -m
 mpc4quantum_tpu_torch`): one rollout on the adaptive Cholesky QP, the LQR
 rollout, `--batch 1024`, the flagship fleet through `--hostloop` with
@@ -1250,6 +1253,61 @@ def expected_launches(runner, n_steps: int) -> dict:
     return {"boxqp_small": 0, "expm_small": n_steps,
             "admm_big": warm * cfg.qp_params.n_rounds
             + steady * runner.steady_qp_params.n_rounds}
+
+
+def phase_bench_entry(bench, presets, make_runner, counters, flagship: dict) -> dict:
+    """bench_torch.main() at its defaults, in this process so the kernels'
+    build is reused: the flagship at B 16384 and the six presets on the
+    card in float32. Its one JSON line, its gates, the card's name, and each
+    kernel's launches against what the runners' budgets give
+    (expected_launches a run, times the entry's runs, plus cnot's rescue
+    pass as the entry point reports it)."""
+    for fn in counters.values():
+        fn.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        res = bench.main(env={})
+    launches = {k: fn.launches for k, fn in counters.items()}
+    lines = printed.getvalue().strip().splitlines()
+    presets_res = res["presets"]
+    sc, plants = bench.flagship(4, DEVICE, torch.float32)
+    runners = {"flagship": (make_runner(sc, plants, **bench.flagship_overrides(sc)),
+                            sc.config.n_steps, 1 + bench.DEFAULT_REPS)}
+    for name, (_, kw, _) in bench.PRESET_SPEC.items():
+        sc = presets.PRESETS[name](**kw)
+        runners[name] = (make_runner(sc, make_lanes(sc.plant, 4)), sc.config.n_steps,
+                         bench.PRESET_REPS)
+    expected = dict.fromkeys(counters, 0)
+    for name, (runner, n_steps, runs) in runners.items():
+        rescue = presets_res.get(name, {}).get("rescue_launches", {})
+        for k, v in expected_launches(runner, n_steps).items():
+            expected[k] += v * runs + rescue.get(k, 0)
+    headline = ("device", "power_limit", "batch", "value", "unit", "fidelity_mean",
+                "fidelity_min", "completed_frac", "compile_s", "vs_baseline",
+                "baseline_cpu_s_per_rollout", "calib_chain_ms", "calib_dispatch_ms",
+                "preset_gates_ok")
+    per_preset = ("batch", "rollouts_per_s", "rollouts_per_s_median", "first_run_s",
+                  "fidelity_mean", "fidelity_min", "exit_early_frac", "rescued_lanes",
+                  "rescue_s", "gate_failed")
+    rec = {"phase": "bench_entry", **{k: res[k] for k in headline},
+           "chip_smoke_flagship_rollouts_per_s": flagship["rollouts_per_s"],
+           "presets": {n: {k: m.get(k) for k in per_preset} for n, m in presets_res.items()},
+           "launches": launches, "expected_launches": expected}
+    emit(rec)
+    require(len(lines) == 1 and json.loads(lines[0]) == json.loads(json.dumps(res)),
+            f"bench_entry printed {len(lines)} lines, not its one JSON line")
+    require(res["device"] == torch.cuda.get_device_name(0),
+            f"bench_entry ran on {res['device']}, not {torch.cuda.get_device_name(0)}")
+    require(list(presets_res) == list(bench.PRESET_SPEC) and res["preset_gates_ok"],
+            f"bench_entry preset gates: {rec}")
+    require(all(m["completed_frac"] == 1.0 and m["qp_fail_frac"] == 0.0
+                for m in presets_res.values()), f"bench_entry preset lanes failed: {rec}")
+    require(presets_res["not_gate"]["exit_early_frac"] == 1.0,
+            f"bench_entry not_gate lanes did not all exit early: {rec}")
+    require(res["fidelity_mean"] > 0.98 and res["fidelity_min"] > 0.95
+            and res["completed_frac"] >= 0.999, f"bench_entry flagship gates: {rec}")
+    require(launches == expected, f"bench_entry kernel launches {launches}, expected {expected}")
+    return rec
 
 
 def phase_slice_fleet(name, make, make_runner, run_hostloop_fleet, fleet_fidelity,
@@ -2572,6 +2630,9 @@ def main() -> int:
                                          sc, plants64, out)
         defaults[name] = {"metrics": metrics, "fid64": fid64, "codes64": codes64,
                           "fid": fleet_fidelity(sc, out["final_x"])}
+    import bench_torch
+    total = add(phase_bench_entry(bench_torch, presets, make_runner, counters,
+                                  flagship)["launches"])
     phase_kinv_builds(presets, fleet_runner, run_hostloop_fleet)
     for kind in ("riccati", "warm_kinv"):
         total = add(phase_kinv_fleet(kind, presets, run_hostloop_fleet, fleet_fidelity,

@@ -69,7 +69,7 @@ from ..solvers.boxqp import BoxQPParams
 from ..solvers.condense import QPResult, quad_program
 from ..solvers.lqr import lqr_quad_program
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
-from ..utils.profiling import host_flag
+from ..utils.profiling import host_flag, spans
 from .driver import (Carry, ModelApplyFns, MPCConfig, MPCResult, SQPState, StepContext,
                      advance, bilinear_model, context, lqr_seed_guess, record_row, select,
                      sqp_init, sqp_update_from_qp)
@@ -154,31 +154,34 @@ class FleetRunner:
                   R_s, qp: BoxQPParams, single_shot: bool, kinv0=None):
         """One SQP iteration of every lane: (the new state, the QP result)."""
         H = self.config.horizon
-        if self.model_fns is not None:
-            A_s, B_s, D_s = self.model_fns.linearize(model_A, s.Xg[:, :, :H], s.Ug)
-        else:
-            A_s, B_s, D_s = model_along_traj(bmodel, s.Xg[:, :, :H], s.Ug)
-        if self.qp_kernel == "lqr":
-            lres = lqr_quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s,
-                                    sat=self.sat, Delta_s=D_s)
-            # a non-finite rollout (NaN or inf gains) is a solver failure
-            ok = (torch.isfinite(lres.X.abs()).flatten(1).all(dim=1)
-                  & torch.isfinite(lres.U).flatten(1).all(dim=1))
-            res = QPResult(X=lres.X, U=lres.U, obj=lres.cost, converged=ok)
-        else:
-            # carried duals seed single-shot (steady) solves only; warm-phase
-            # iterations re-linearize aggressively and run cold. y crosses the
-            # warm/steady seam unscaled, rho in the solver's space.
-            seeded = single_shot and self.carry_duals
-            res = quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s, D_s,
-                               ctx.u_prev, self.sat, self.du, U_warm=s.Ug, params=qp,
-                               backend=self.config.qp_backend, Y_warm=s.y if seeded else None,
-                               rho_warm=s.rho if seeded else None, kinv0=kinv0,
-                               kernel=self.qp_kernel if self.qp_kernel in ("small", "big")
-                               else None)
-        s_new = sqp_update_from_qp(s, res, ctx.X_ref, ctx.U_ref, Q_s, R_s,
-                                   single_shot, self.config.step_tol)
-        return select(s.done, s, s_new), res
+        with spans.span("sqp.iter"):
+            with spans.span("sqp.linearize", events=True):
+                if self.model_fns is not None:
+                    A_s, B_s, D_s = self.model_fns.linearize(model_A, s.Xg[:, :, :H], s.Ug)
+                else:
+                    A_s, B_s, D_s = model_along_traj(bmodel, s.Xg[:, :, :H], s.Ug)
+            if self.qp_kernel == "lqr":
+                lres = lqr_quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s,
+                                        sat=self.sat, Delta_s=D_s)
+                # a non-finite rollout (NaN or inf gains) is a solver failure
+                ok = (torch.isfinite(lres.X.abs()).flatten(1).all(dim=1)
+                      & torch.isfinite(lres.U).flatten(1).all(dim=1))
+                res = QPResult(X=lres.X, U=lres.U, obj=lres.cost, converged=ok)
+            else:
+                # carried duals seed single-shot (steady) solves only; warm-phase
+                # iterations re-linearize aggressively and run cold. y crosses the
+                # warm/steady seam unscaled, rho in the solver's space.
+                seeded = single_shot and self.carry_duals
+                res = quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s, D_s,
+                                   ctx.u_prev, self.sat, self.du, U_warm=s.Ug, params=qp,
+                                   backend=self.config.qp_backend,
+                                   Y_warm=s.y if seeded else None,
+                                   rho_warm=s.rho if seeded else None, kinv0=kinv0,
+                                   kernel=self.qp_kernel if self.qp_kernel in ("small", "big")
+                                   else None)
+            s_new = sqp_update_from_qp(s, res, ctx.X_ref, ctx.U_ref, Q_s, R_s,
+                                       single_shot, self.config.step_tol)
+            return select(s.done, s, s_new), res
 
     def step(self, step: int, carry: Carry, duals, model, bmodel: BilinearModel, plants: Plant,
              X_targ: torch.Tensor, U_targ: torch.Tensor, Q_s: torch.Tensor, R_s: torch.Tensor,
@@ -194,27 +197,32 @@ class FleetRunner:
         :return: (carry, duals, model, the step's SQPState, kinv).
         """
         cfg = self.config
-        ctx = context(carry, step, cfg, X_targ, U_targ, plants)
-        s = sqp_init(carry, duals)
-        if step <= 1 or not cfg.warm_start:
-            n_it = self.warm_sqp_iters[min(step, len(self.warm_sqp_iters) - 1)]
-            for it in range(n_it):
-                s, _ = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s, cfg.qp_params, False)
-                if self.early_exit and it + 1 < n_it and host_flag(s.done.all()):
-                    break
-        else:
-            s, res = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s,
-                                    self.steady_qp_params, True, kinv0=kinv)
-            if self.carry_kinv:
-                kinv = self._carry_kinv(kinv, res, carry.done, kinv_counts)
+        warm = step <= 1 or not cfg.warm_start
+        with spans.span("fleet.step", phase="warm" if warm else "steady"):
+            ctx = context(carry, step, cfg, X_targ, U_targ, plants)
+            s = sqp_init(carry, duals)
+            if warm:
+                n_it = self.warm_sqp_iters[min(step, len(self.warm_sqp_iters) - 1)]
+                for it in range(n_it):
+                    s, _ = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s, cfg.qp_params,
+                                          False)
+                    if self.early_exit and it + 1 < n_it and host_flag(s.done.all()):
+                        break
+            else:
+                s, res = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s,
+                                        self.steady_qp_params, True, kinv0=kinv)
+                if self.carry_kinv:
+                    kinv = self._carry_kinv(kinv, res, carry.done, kinv_counts)
 
-        def plant_step(x_true, u):
-            return plants.step(x_true, u, cfg.dt, self.expm_taylor_k, self.expm_max_squarings)
+            def plant_step(x_true, u):
+                with spans.span("plant.step", events=True):
+                    return plants.step(x_true, u, cfg.dt, self.expm_taylor_k,
+                                       self.expm_max_squarings)
 
-        carry, duals, model = advance(carry, s, step, cfg, ctx, bmodel, model, plants,
-                                      plant_step, self.exit_condition,
-                                      model_fns=self.model_fns, **advance_kw)
-        return carry, duals, model, s, kinv
+            carry, duals, model = advance(carry, s, step, cfg, ctx, bmodel, model, plants,
+                                          plant_step, self.exit_condition,
+                                          model_fns=self.model_fns, **advance_kw)
+            return carry, duals, model, s, kinv
 
     def run(self, x0: torch.Tensor, model, plants: Plant,
             X_targ: torch.Tensor, U_targ: torch.Tensor, Q: torch.Tensor,
@@ -265,113 +273,115 @@ class FleetRunner:
         cfg = self.config
         H, dim_u = cfg.horizon, cfg.dim_u
         B, dev, rdtype = plants.lanes, plants.device, plants.real_dtype
-        n_obs = getattr(plants, "n_obs", x0.shape[-1])
-        x0 = x0.to(dev, plants.dtype)
-        x0 = (x0.expand(B, -1) if x0.dim() == 1 else x0).clone()
-        sigma = getattr(plants, "sigma", None)
-        if noise is None and generator is not None:
-            draw = lambda: torch.randn((cfg.n_steps, B, n_obs), generator=generator,
-                                       dtype=rdtype, device=dev)
-            noise = draw() if plants.real_state else torch.complex(draw(), draw())
-        if noise is None and sigma is not None and bool((sigma != 0).any()):
-            raise ValueError("plants with measurement noise (sigma > 0) need `noise` or "
-                             "a `generator`")
-        if noise is not None:
-            if tuple(noise.shape) != (cfg.n_steps, B, n_obs):
-                raise ValueError(f"noise has shape {tuple(noise.shape)}, expected "
-                                 f"{(cfg.n_steps, B, n_obs)}")
-            noise = noise.to(dev, plants.dtype)
-        streaming = cfg.streaming and model_update_fn is not None
-        if streaming and not plants.streaming_ok:
-            raise ValueError(f"{type(plants).__name__}: streaming model refits are not "
-                             "supported on this plant kind")
-        model = models_to(model, dev)
-        if streaming and model.A.dim() == 2:
-            model = tile_lanes(model, B)
-        # the state costs in the model's dtype (complex for a quantum model,
-        # real for a classical or real-embedded one), as the reference's mpc()
-        Q_s = torch.cat([Q.expand(H, -1, -1), Qf[None]], dim=0).to(dev, model.A.dtype)
-        R_s = R.expand(H, -1, -1)
-        lx0 = plants.lift(x0)
-        X_guess = lx0[:, :, None].expand(-1, -1, H + 1).clone()
-        U_guess = torch.zeros((B, dim_u, H), dtype=rdtype, device=dev)
-        if cfg.lqr_seed:
-            X_guess, U_guess = lqr_seed_guess(model.A, lx0, X_targ, U_targ, Q_s, R_s, self.sat,
-                                              cfg, self.model_fns)
-        carry = Carry(
-            x_cur=x0, x_true=x0.clone(), X_guess=X_guess, U_guess=U_guess,
-            u_last=U_targ[:, 0].to(rdtype).expand(B, -1).clone(),
-            exit_code=torch.zeros(B, dtype=torch.int32, device=dev),
-            done=torch.zeros(B, dtype=torch.bool, device=dev))
-        duals = (torch.zeros((B, H * dim_u), dtype=rdtype, device=dev),
-                 torch.zeros(B, dtype=rdtype, device=dev))
-        rec = None
-        if record:
-            n = cfg.n_steps
-            rec = (torch.zeros((B, x0.shape[1], n + 1), dtype=x0.dtype, device=dev),   # xs
-                   torch.zeros((B, dim_u, n), dtype=rdtype, device=dev),               # us
-                   torch.zeros((B, n), dtype=rdtype, device=dev),                      # objs
-                   torch.zeros((B, n), dtype=torch.int32, device=dev),                 # iters
-                   torch.zeros((B, n), dtype=torch.bool, device=dev))                  # active
-            rec[0][:, :, 0] = x0
-        # the K-inverse carry: None until the first steady solve and after
-        # each cold re-entry; kinv_counts as documented on the attribute
-        kinv, kinv_counts = None, None
-        if self.carry_kinv:
-            kinv_counts = torch.zeros(2, dtype=torch.int64, device=dev)
-        start = 0
-        self.checkpoint_seconds = []
-        checkpointing = bool(checkpoint_path) and checkpoint_every > 0
-        if checkpoint_path and resume and os.path.exists(checkpoint_path):
-            state = restore_checkpoint(checkpoint_path, self._state(
-                0, carry, duals, model, noise, rec, self._kinv_slot(None, kinv_counts, B, rdtype)))
-            start, carry, duals, model, noise, rec, kinv, kinv_counts = self._unpack(state)
-        bmodel = bilinear_model(model, cfg)
-        # measurement-aligned cold re-entry of the carry
-        kinv_m = cfg.measure_freq if self.carry_kinv else 0
+        with spans.run(dev):
+            n_obs = getattr(plants, "n_obs", x0.shape[-1])
+            x0 = x0.to(dev, plants.dtype)
+            x0 = (x0.expand(B, -1) if x0.dim() == 1 else x0).clone()
+            sigma = getattr(plants, "sigma", None)
+            if noise is None and generator is not None:
+                draw = lambda: torch.randn((cfg.n_steps, B, n_obs), generator=generator,
+                                           dtype=rdtype, device=dev)
+                noise = draw() if plants.real_state else torch.complex(draw(), draw())
+            if noise is None and sigma is not None and bool((sigma != 0).any()):
+                raise ValueError("plants with measurement noise (sigma > 0) need `noise` or "
+                                 "a `generator`")
+            if noise is not None:
+                if tuple(noise.shape) != (cfg.n_steps, B, n_obs):
+                    raise ValueError(f"noise has shape {tuple(noise.shape)}, expected "
+                                     f"{(cfg.n_steps, B, n_obs)}")
+                noise = noise.to(dev, plants.dtype)
+            streaming = cfg.streaming and model_update_fn is not None
+            if streaming and not plants.streaming_ok:
+                raise ValueError(f"{type(plants).__name__}: streaming model refits are not "
+                                 "supported on this plant kind")
+            model = models_to(model, dev)
+            if streaming and model.A.dim() == 2:
+                model = tile_lanes(model, B)
+            # the state costs in the model's dtype (complex for a quantum model,
+            # real for a classical or real-embedded one), as the reference's mpc()
+            Q_s = torch.cat([Q.expand(H, -1, -1), Qf[None]], dim=0).to(dev, model.A.dtype)
+            R_s = R.expand(H, -1, -1)
+            lx0 = plants.lift(x0)
+            X_guess = lx0[:, :, None].expand(-1, -1, H + 1).clone()
+            U_guess = torch.zeros((B, dim_u, H), dtype=rdtype, device=dev)
+            if cfg.lqr_seed:
+                X_guess, U_guess = lqr_seed_guess(model.A, lx0, X_targ, U_targ, Q_s, R_s, self.sat,
+                                                  cfg, self.model_fns)
+            carry = Carry(
+                x_cur=x0, x_true=x0.clone(), X_guess=X_guess, U_guess=U_guess,
+                u_last=U_targ[:, 0].to(rdtype).expand(B, -1).clone(),
+                exit_code=torch.zeros(B, dtype=torch.int32, device=dev),
+                done=torch.zeros(B, dtype=torch.bool, device=dev))
+            duals = (torch.zeros((B, H * dim_u), dtype=rdtype, device=dev),
+                     torch.zeros(B, dtype=rdtype, device=dev))
+            rec = None
+            if record:
+                n = cfg.n_steps
+                rec = (torch.zeros((B, x0.shape[1], n + 1), dtype=x0.dtype, device=dev),   # xs
+                       torch.zeros((B, dim_u, n), dtype=rdtype, device=dev),               # us
+                       torch.zeros((B, n), dtype=rdtype, device=dev),                      # objs
+                       torch.zeros((B, n), dtype=torch.int32, device=dev),                 # iters
+                       torch.zeros((B, n), dtype=torch.bool, device=dev))                  # active
+                rec[0][:, :, 0] = x0
+            # the K-inverse carry: None until the first steady solve and after
+            # each cold re-entry; kinv_counts as documented on the attribute
+            kinv, kinv_counts = None, None
+            if self.carry_kinv:
+                kinv_counts = torch.zeros(2, dtype=torch.int64, device=dev)
+            start = 0
+            self.checkpoint_seconds = []
+            checkpointing = bool(checkpoint_path) and checkpoint_every > 0
+            if checkpoint_path and resume and os.path.exists(checkpoint_path):
+                state = restore_checkpoint(checkpoint_path, self._state(
+                    0, carry, duals, model, noise, rec,
+                    self._kinv_slot(None, kinv_counts, B, rdtype)))
+                start, carry, duals, model, noise, rec, kinv, kinv_counts = self._unpack(state)
+            bmodel = bilinear_model(model, cfg)
+            # measurement-aligned cold re-entry of the carry
+            kinv_m = cfg.measure_freq if self.carry_kinv else 0
 
-        last_saved = last_beat = start
-        t_beat = time.perf_counter()
-        for step in range(start, cfg.n_steps):
-            if progress_every and step - last_beat >= progress_every:
-                elapsed = max(time.perf_counter() - t_beat, 1e-9)
-                rate = (step - start) / elapsed
-                print(f"[fleet] step {step}/{cfg.n_steps} B={B} {rate:.2f} steps/s "
-                      f"({B * rate:.0f} lane-steps/s) "
-                      f"done_frac={float(carry.done.float().mean()):.3f} "
-                      f"elapsed={elapsed:.1f}s", file=sys.stderr, flush=True)
-                last_beat = step
-            if kinv_m > 1 and step % kinv_m == 0:
-                kinv = None
-            prev = carry
-            carry, duals, model, s, kinv = self.step(
-                step, carry, duals, model, bmodel, plants, X_targ, U_targ, Q_s, R_s, kinv,
-                kinv_counts, noise_t=None if noise is None else noise[step],
-                observe_fn=observe_fn, model_update_fn=model_update_fn if streaming else None)
+            last_saved = last_beat = start
+            t_beat = time.perf_counter()
+            for step in range(start, cfg.n_steps):
+                if progress_every and step - last_beat >= progress_every:
+                    elapsed = max(time.perf_counter() - t_beat, 1e-9)
+                    rate = (step - start) / elapsed
+                    print(f"[fleet] step {step}/{cfg.n_steps} B={B} {rate:.2f} steps/s "
+                          f"({B * rate:.0f} lane-steps/s) "
+                          f"done_frac={float(carry.done.float().mean()):.3f} "
+                          f"elapsed={elapsed:.1f}s", file=sys.stderr, flush=True)
+                    last_beat = step
+                if kinv_m > 1 and step % kinv_m == 0:
+                    kinv = None
+                prev = carry
+                carry, duals, model, s, kinv = self.step(
+                    step, carry, duals, model, bmodel, plants, X_targ, U_targ, Q_s, R_s, kinv,
+                    kinv_counts, noise_t=None if noise is None else noise[step],
+                    observe_fn=observe_fn, model_update_fn=model_update_fn if streaming else None)
+                if record:
+                    rec[1][:, :, step], rec[2][:, step], rec[3][:, step], rec[4][:, step] = \
+                        record_row(prev, s)
+                if streaming:
+                    bmodel = bilinear_model(model, cfg)
+                if record:
+                    rec[0][:, :, step + 1] = carry.x_cur
+                if (checkpointing and step + 1 - last_saved >= checkpoint_every
+                        and step + 1 < cfg.n_steps):
+                    t0 = time.perf_counter()
+                    save_checkpoint(checkpoint_path,
+                                    self._state(step + 1, carry, duals, model, noise, rec,
+                                                self._kinv_slot(kinv, kinv_counts, B, rdtype)))
+                    self.checkpoint_seconds.append(time.perf_counter() - t0)
+                    last_saved = step + 1
+            self.kinv_counts = kinv_counts
+            out = {"final_x": carry.x_cur, "exit_code": carry.exit_code, "model_state": model}
             if record:
-                rec[1][:, :, step], rec[2][:, step], rec[3][:, step], rec[4][:, step] = \
-                    record_row(prev, s)
-            if streaming:
-                bmodel = bilinear_model(model, cfg)
-            if record:
-                rec[0][:, :, step + 1] = carry.x_cur
-            if (checkpointing and step + 1 - last_saved >= checkpoint_every
-                    and step + 1 < cfg.n_steps):
-                t0 = time.perf_counter()
-                save_checkpoint(checkpoint_path,
-                                self._state(step + 1, carry, duals, model, noise, rec,
-                                            self._kinv_slot(kinv, kinv_counts, B, rdtype)))
-                self.checkpoint_seconds.append(time.perf_counter() - t0)
-                last_saved = step + 1
-        self.kinv_counts = kinv_counts
-        out = {"final_x": carry.x_cur, "exit_code": carry.exit_code, "model_state": model}
-        if record:
-            xs, us, objs, iters, active = rec
-            out.update(xs=xs, us=us, objs=objs, sqp_iters=iters,
-                       n_valid=active.sum(dim=1, dtype=torch.int32))
-        if checkpoint_path and os.path.exists(checkpoint_path):
-            os.remove(checkpoint_path)
-        return out
+                xs, us, objs, iters, active = rec
+                out.update(xs=xs, us=us, objs=objs, sqp_iters=iters,
+                           n_valid=active.sum(dim=1, dtype=torch.int32))
+            if checkpoint_path and os.path.exists(checkpoint_path):
+                os.remove(checkpoint_path)
+            return out
 
     @staticmethod
     def _carry_kinv(kinv, res: QPResult, done, counts):

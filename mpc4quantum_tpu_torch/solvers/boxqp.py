@@ -28,7 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..utils.linalg import gj_inverse
-from ..utils.profiling import host_flag
+from ..utils.profiling import host_flag, spans
 from .riccati import KINV_RICCATI, riccati_kinv_batch
 
 KINV_METHODS = ("gj", "ns") + KINV_RICCATI
@@ -164,7 +164,10 @@ def _ns_inverse(K, iters: int, X0=None, guard: float = 0.5):
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     n1 = K.abs().sum(dim=-2).amax(dim=-1)
     ninf = K.abs().sum(dim=-1).amax(dim=-1)
-    X = K.transpose(-1, -2) / (n1 * ninf)[..., None, None]
+    # written contiguous, the layout torch.where gives a lane the guard
+    # sends cold, so that lane's K @ X rounds as the cold chain's does
+    X = torch.div(K.transpose(-1, -2), (n1 * ninf)[..., None, None],
+                  out=torch.empty_like(K, memory_format=torch.contiguous_format))
     kept = None
     if X0 is not None:
         # induced inf-norm of the residual: the largest row sum of |I - K X0|
@@ -303,26 +306,27 @@ def solve_boxqp_fixed(P, q, lb, ub, x0=None, y0=None, rho0=None,
     Kinv = rho_prev = guard_cold = None
     for rnd in range(params.n_rounds):
         K = P + (sigma + rho)[:, None, None] * eye
-        if params.kinv == "gj":
-            Kinv = gj_inverse(K)
-        elif use_riccati and rnd == 0:
-            Ar, Br, Qr, Rr = (t.to(P.dtype) for t in lqr_data)
-            Kinv = riccati_kinv_batch(Ar, Br, Qr, Rr, rho, sigma, d=d,
-                                      pscan=params.kinv == "riccati_pscan")
-            for _ in range(params.ns_polish):
-                Kinv = Kinv @ (2.0 * eye - K @ Kinv)
-        elif rnd > 0 and (use_riccati or kinv0 is not None):
-            # K moved by (rho - rho_prev) I: the rescaled previous inverse
-            # contracts wherever it had converged (no guard can tell a large
-            # rho jump from a partial inverse; acceptance flags the rest)
-            c = torch.clamp((sigma + rho_prev) / (sigma + rho), max=1.0)
-            Kinv = ns_inverse(K, params.ns_refresh, X0=c[:, None, None] * Kinv,
-                              guard=float("inf"))
-        elif kinv0 is not None:
-            Kinv, kept = _ns_inverse(K, params.ns_refresh, X0=kinv0, guard=params.ns_guard)
-            guard_cold = ~kept
-        else:
-            Kinv = ns_inverse(K, params.ns_iters)
+        with spans.span("qp.kinv", events=True):
+            if params.kinv == "gj":
+                Kinv = gj_inverse(K)
+            elif use_riccati and rnd == 0:
+                Ar, Br, Qr, Rr = (t.to(P.dtype) for t in lqr_data)
+                Kinv = riccati_kinv_batch(Ar, Br, Qr, Rr, rho, sigma, d=d,
+                                          pscan=params.kinv == "riccati_pscan")
+                for _ in range(params.ns_polish):
+                    Kinv = Kinv @ (2.0 * eye - K @ Kinv)
+            elif rnd > 0 and (use_riccati or kinv0 is not None):
+                # K moved by (rho - rho_prev) I: the rescaled previous inverse
+                # contracts wherever it had converged (no guard can tell a large
+                # rho jump from a partial inverse; acceptance flags the rest)
+                c = torch.clamp((sigma + rho_prev) / (sigma + rho), max=1.0)
+                Kinv = ns_inverse(K, params.ns_refresh, X0=c[:, None, None] * Kinv,
+                                  guard=float("inf"))
+            elif kinv0 is not None:
+                Kinv, kept = _ns_inverse(K, params.ns_refresh, X0=kinv0, guard=params.ns_guard)
+                guard_cold = ~kept
+            else:
+                Kinv = ns_inverse(K, params.ns_iters)
         rho_prev = rho
         x, z, y = admm(Kinv, q, lb, ub, rho, x, z, y, iters=params.max_iter, sigma=sigma,
                        alpha=params.alpha)

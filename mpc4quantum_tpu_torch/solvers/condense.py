@@ -18,6 +18,7 @@ import torch
 
 from ..kernels.boxqp import MAX_N, boxqp_accept, boxqp_big, boxqp_small
 from ..utils.linalg import cx_mm
+from ..utils.profiling import spans
 from .boxqp import BoxQPParams, solve_boxqp
 from .riccati import KINV_RICCATI, embed_costs, embed_ltv
 
@@ -174,8 +175,9 @@ def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, s
     params = BoxQPParams() if params is None else params
     if backend not in QP_BACKENDS:
         raise ValueError(f"backend={backend!r} is not one of {QP_BACKENDS}")
-    P, q, lb, ub, w, M = qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev,
-                                 sat, du)
+    with spans.span("qp.condense", events=True):
+        P, q, lb, ub, w, M = qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev,
+                                     sat, du)
     x0 = None if U_warm is None else U_warm.transpose(1, 2).reshape(P.shape[0], -1).to(P.dtype)
     iters = kinv = guard_cold = None
     if backend == "chol":

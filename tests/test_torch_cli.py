@@ -4,7 +4,7 @@ the fleet runner's mid-run checkpoint and resume (mirroring the JAX
 package's tests/test_hostloop_ckpt.py: a run that crashes after a
 checkpoint and is called again returns exactly what the uninterrupted run
 returns, the record included; a completed run deletes its checkpoint;
-resume=False starts cold), `utils.profiling.time_fn`, and `python -m
+resume=False starts cold), `utils.profiling.profile_trace`, and `python -m
 mpc4quantum_tpu_torch` in each mode: its JSON keys are those of the JAX
 CLI (read from the JAX package's source), its single rollout's values
 those of JAX `mpc(**scenario.mpc_args())` on the same preset (fidelity
@@ -35,7 +35,7 @@ from mpc4quantum_tpu_torch.mpc.driver import Carry
 from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
 from mpc4quantum_tpu_torch.utils.checkpoint import (ModelHistory, restore_checkpoint,
                                                     save_checkpoint)
-from mpc4quantum_tpu_torch.utils.profiling import mpc_throughput, profile_trace, time_fn
+from mpc4quantum_tpu_torch.utils.profiling import profile_trace
 
 JAX_PACKAGE = Path(m4q.__file__).parent
 
@@ -94,19 +94,19 @@ def test_model_history_cadence():
     assert not torch.equal(hist.snapshots[0].A, hist.snapshots[2].A)
 
 
-def test_time_fn_trace_and_throughput(tmp_path):
-    t = time_fn(lambda x: x @ x, torch.eye(16), reps=2, name="mm")
-    assert t.name == "mm" and len(t.times) == 2 and t.best_s == min(t.times) > 0
-    assert t.compile_s > 0 and t.per_second(100) > 0
-    res = mpc(**presets.not_state(device="cpu").mpc_args())
-    counts = mpc_throughput(res, 2.0)
-    assert counts["mean_sqp_iters"] == pytest.approx(float(res.sqp_iters.float().mean()))
-    assert counts["rollouts_per_s"] == 0.5
+def test_profile_trace_carries_the_spans(tmp_path):
+    """The operator's exporter: off with no directory; on, its Chrome trace
+    holds an `mpc()` call's spans, under one fleet.run."""
     with profile_trace(None) as prof:
         assert prof is None
+    args = presets.not_state(device="cpu").mpc_args()
     with profile_trace(str(tmp_path / "trace")) as prof:
-        torch.eye(8) @ torch.eye(8)
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        res = mpc(**args)
+    assert int(res.exit_code) == 0
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("fleet.run") == 1
+    assert {"fleet.step", "sqp.iter", "qp.condense", "plant.step", "host.flag"} <= set(names)
 
 
 # ---------------------------------------------------------------------------

@@ -1878,8 +1878,9 @@ def phase_fleet_checkpoint(cli_main, presets, fleet_runner, make_runner, counter
                            host_flag) -> dict:
     """The flagship fleet (B = 16384) through `--hostloop --checkpoint P
     --checkpoint-every 5`, then a recorded fleet-runner run that crashes
-    after step 9, resumed from its checkpoint and held against the
-    uninterrupted run with torch.equal."""
+    after step 9 (run eagerly, where the advance is Python), resumed from
+    its checkpoint on the captured steps and held against the uninterrupted
+    run with torch.equal."""
     every, crash = CLI["ckpt_every"], CLI["crash_step"]
     spec = FLEETS["not_state"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -1902,6 +1903,8 @@ def phase_fleet_checkpoint(cli_main, presets, fleet_runner, make_runner, counter
                 raise RuntimeError("simulated crash")
             return orig(*a, **k)
         fleet_runner.advance = crashing
+        # the crash is raised in the eager advance: a replayed step calls no Python
+        runner._graphs = False
         try:
             runner.run(*args, record=True, checkpoint_path=path, checkpoint_every=every)
             crashed = False
@@ -1909,6 +1912,7 @@ def phase_fleet_checkpoint(cli_main, presets, fleet_runner, make_runner, counter
             crashed = True
         finally:
             fleet_runner.advance = orig
+            runner._graphs = True
         saved_s = list(runner.checkpoint_seconds)
         kept = os.path.exists(path)
         resumed, resumed_launches, _ = counted(
@@ -2007,10 +2011,13 @@ def warm_linearization(presets, name, fleet_runner, run_hostloop_fleet, B):
         calls.append((a, k))
         return orig(*a, **k)
     fleet_runner.quad_program = record
+    # eagerly: a captured solve's arguments are temporaries of its graphs
+    fleet_runner.FleetRunner._graphs = False
     try:
         run_hostloop_fleet(sc, B, plants=plants)
     finally:
         fleet_runner.quad_program = orig
+        fleet_runner.FleetRunner._graphs = True
     args, kw = calls[-1]
     x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, D_s, u_prev, sat, du = args
     params = kw["params"]

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,6 +20,22 @@ class _KernelNodeParams(ctypes.Structure):
                 ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
 
 
+@functools.lru_cache(maxsize=1)
+def _libcuda():
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    return cuda
+
+
+def node_count(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a graph captured with keep_graph=True."""
+    count = ctypes.c_size_t(0)
+    if _libcuda().cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    return count.value
+
+
 def _capture(fn):
     """A CUDA graph captured from one fn() after a warm-up call, and its
     nodes, read through libcuda's graph calls."""
@@ -27,12 +44,8 @@ def _capture(fn):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.POINTER(ctypes.c_size_t)]
-    count = ctypes.c_size_t(0)
-    if cuda.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(count)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
+    cuda = _libcuda()
+    count = ctypes.c_size_t(node_count(graph))
     nodes = (ctypes.c_void_p * count.value)()
     if cuda.cuGraphGetNodes(graph.raw_cuda_graph(), ctypes.cast(nodes, ctypes.c_void_p),
                             ctypes.byref(count)) != 0:

@@ -43,6 +43,11 @@ model prediction between measurements are the caller's (the row-sharded
 contractions of parallel/tensor.py); without it they are the dense
 ops.bilinear.model_along_traj and models.dmdc.predict.
 
+On the card a run's steps are replays of CUDA graphs that mpc/step_graphs.py
+captures once per signature of the run's inputs (process-wide, so `mpc()`
+captures once); a run stays eager off the card, with model_fns, with a
+streaming refit and on the chol QP.
+
 All state stays on the plants' device; the loop makes no host copy. With a
 checkpoint path, every `checkpoint_every` steps the whole loop state (carry,
 duals, models, noise, the record so far, the step cursor) is copied to the
@@ -70,6 +75,7 @@ from ..solvers.condense import QPResult, quad_program
 from ..solvers.lqr import lqr_quad_program
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.profiling import host_flag, spans
+from . import step_graphs
 from .driver import (Carry, ModelApplyFns, MPCConfig, MPCResult, SQPState, StepContext,
                      advance, bilinear_model, context, lqr_seed_guess, record_row, select,
                      sqp_init, sqp_update_from_qp)
@@ -82,7 +88,13 @@ QP_KERNELS = ("auto", "small", "big")
 class FleetRunner:
     """Receding-horizon MPC over a lane batch; build once, `run` any number
     of times. Every steady (single-shot) QP starts from the previous
-    solve's shifted dual and rho."""
+    solve's shifted dual and rho. On the card a run's steps replay CUDA
+    graphs captured once per signature (mpc/step_graphs.py)."""
+
+    # capture the steps where the inputs allow it (step_graphs.eager_reason);
+    # False (on an instance, or on the class for the runners that `mpc()` and
+    # run_hostloop_fleet build) runs the same inputs eagerly, for tests and probes
+    _graphs = True
 
     def __init__(self, config: MPCConfig, sat: float, du: Optional[float] = None,
                  warm_sqp_iters: Sequence[int] = (12,),
@@ -198,7 +210,7 @@ class FleetRunner:
         """
         cfg = self.config
         warm = step <= 1 or not cfg.warm_start
-        with spans.span("fleet.step", phase="warm" if warm else "steady"):
+        with spans.span("fleet.step", phase="warm" if warm else "steady", graph="eager"):
             ctx = context(carry, step, cfg, X_targ, U_targ, plants)
             s = sqp_init(carry, duals)
             if warm:
@@ -213,16 +225,21 @@ class FleetRunner:
                                         self.steady_qp_params, True, kinv0=kinv)
                 if self.carry_kinv:
                     kinv = self._carry_kinv(kinv, res, carry.done, kinv_counts)
-
-            def plant_step(x_true, u):
-                with spans.span("plant.step", events=True):
-                    return plants.step(x_true, u, cfg.dt, self.expm_taylor_k,
-                                       self.expm_max_squarings)
-
             carry, duals, model = advance(carry, s, step, cfg, ctx, bmodel, model, plants,
-                                          plant_step, self.exit_condition,
+                                          self._plant_stepper(plants), self.exit_condition,
                                           model_fns=self.model_fns, **advance_kw)
             return carry, duals, model, s, kinv
+
+    def _plant_stepper(self, plants: Plant) -> Callable:
+        """The plant step that a step hands to `driver.advance`, in the span
+        plant.step."""
+        cfg = self.config
+
+        def plant_step(x_true, u):
+            with spans.span("plant.step", events=True):
+                return plants.step(x_true, u, cfg.dt, self.expm_taylor_k,
+                                   self.expm_max_squarings)
+        return plant_step
 
     def run(self, x0: torch.Tensor, model, plants: Plant,
             X_targ: torch.Tensor, U_targ: torch.Tensor, Q: torch.Tensor,
@@ -339,6 +356,8 @@ class FleetRunner:
             bmodel = bilinear_model(model, cfg)
             # measurement-aligned cold re-entry of the carry
             kinv_m = cfg.measure_freq if self.carry_kinv else 0
+            graphs = step_graphs.for_run(self, plants, model, Q_s, R_s, X_targ, U_targ, x0,
+                                         noise, observe_fn, streaming, record)
 
             last_saved = last_beat = start
             t_beat = time.perf_counter()
@@ -353,14 +372,20 @@ class FleetRunner:
                     last_beat = step
                 if kinv_m > 1 and step % kinv_m == 0:
                     kinv = None
-                prev = carry
-                carry, duals, model, s, kinv = self.step(
-                    step, carry, duals, model, bmodel, plants, X_targ, U_targ, Q_s, R_s, kinv,
-                    kinv_counts, noise_t=None if noise is None else noise[step],
-                    observe_fn=observe_fn, model_update_fn=model_update_fn if streaming else None)
+                noise_t = None if noise is None else noise[step]
+                if graphs is None:
+                    prev = carry
+                    carry, duals, model, s, kinv = self.step(
+                        step, carry, duals, model, bmodel, plants, X_targ, U_targ, Q_s, R_s,
+                        kinv, kinv_counts, noise_t=noise_t, observe_fn=observe_fn,
+                        model_update_fn=model_update_fn if streaming else None)
+                    row = record_row(prev, s) if record else None
+                else:
+                    carry, duals, s, kinv, row = graphs.step(
+                        self, step, carry, duals, X_targ, U_targ, kinv, kinv_counts, noise_t,
+                        observe_fn, record)
                 if record:
-                    rec[1][:, :, step], rec[2][:, step], rec[3][:, step], rec[4][:, step] = \
-                        record_row(prev, s)
+                    rec[1][:, :, step], rec[2][:, step], rec[3][:, step], rec[4][:, step] = row
                 if streaming:
                     bmodel = bilinear_model(model, cfg)
                 if record:
@@ -374,6 +399,10 @@ class FleetRunner:
                     self.checkpoint_seconds.append(time.perf_counter() - t0)
                     last_saved = step + 1
             self.kinv_counts = kinv_counts
+            if graphs is not None:
+                # the carry is the graphs' buffers, which the next run overwrites
+                carry = carry._replace(x_cur=carry.x_cur.clone(),
+                                       exit_code=carry.exit_code.clone())
             out = {"final_x": carry.x_cur, "exit_code": carry.exit_code, "model_state": model}
             if record:
                 xs, us, objs, iters, active = rec

@@ -33,26 +33,33 @@ def size_of_library(order: int, dim_u: int) -> int:
     return control_powers(order, dim_u).shape[0]
 
 
-def lift_controls(us: torch.Tensor, powers) -> torch.Tensor:
+def lift_controls(us: torch.Tensor, powers, scales=None) -> torch.Tensor:
     """Evaluate a monomial library on controls.
 
     :param us: (dim_u, ...) real controls; trailing axes (time, lanes) are
         carried through.
     :param powers: static (L, dim_u) integer exponents; a negative exponent
         makes the monomial 0 (the convention for symbolic derivatives).
+    :param scales: optional static (L,) numbers multiplying the monomials,
+        applied as host scalars (a tensor of them would be a synchronizing
+        host-to-device copy at every call).
     :return: (L, ...) lifted controls.
     """
     powers = np.asarray(powers)
     cols = []
-    for row in powers:
+    for k, row in enumerate(powers):
         if (row < 0).any():
             cols.append(torch.zeros_like(us[0]))
             continue
+        c = 1.0 if scales is None else float(scales[k])
         acc = None
         for i, p in enumerate(row):
             for _ in range(int(p)):
                 acc = us[i] if acc is None else acc * us[i]
-        cols.append(torch.ones_like(us[0]) if acc is None else acc)
+        if acc is None:
+            cols.append(torch.ones_like(us[0]) if c == 1.0 else torch.full_like(us[0], c))
+        else:
+            cols.append(acc if c == 1.0 else acc * c)
     return torch.stack(cols, dim=0)
 
 
@@ -71,12 +78,7 @@ def diff_lift_controls(us: torch.Tensor, dpowers, dcoefs) -> torch.Tensor:
     :param us: (dim_u, ...) controls.
     :return: (dim_u, L-1, ...).
     """
-    tail = (1,) * (us.dim() - 1)
-    cols = [
-        torch.as_tensor(dcoefs[i], dtype=us.dtype, device=us.device).reshape(-1, *tail)
-        * lift_controls(us, dpowers[i])
-        for i in range(us.shape[0])
-    ]
+    cols = [lift_controls(us, dpowers[i], dcoefs[i]) for i in range(us.shape[0])]
     return torch.stack(cols, dim=0)
 
 

@@ -2,6 +2,10 @@
 exporter `profile_trace`, and the count of the host's reads of device
 flags that a data-dependent exit makes (`host_flag`).
 
+Where a step runs as CUDA-graph replays (mpc/step_graphs.py), the spans
+inside it are opened between the replays, in the order the capture met
+them, so the events of a timed span enclose the replays of its phase.
+
 The recorder is on only while torch.profiler records: `FleetRunner.run`
 reads that once as it is entered (`spans.run`) and holds it for the run.
 Off, a span site (`with spans.span(name):`) costs one flag test and enters
@@ -17,7 +21,8 @@ kept (`spans.runs`).
 
 The spans and their sites:
   fleet.run      FleetRunner.run (the root; its records share its run id)
-  fleet.step     FleetRunner.step, attrs {"phase": "warm" | "steady"}
+  fleet.step     FleetRunner.step and mpc/step_graphs.StepGraphs.step, attrs
+                 {"phase": "warm" | "steady", "graph": "replay" | "capture" | "eager"}
   sqp.iter       FleetRunner._sqp_iter
   sqp.linearize  the SQP iteration's linearization (events)
   qp.condense    solvers/condense.qp_data inside quad_program (events)
@@ -102,10 +107,16 @@ class SpanRecorder:
         self.run_id = 0
         self.runs: collections.deque = collections.deque(maxlen=KEEP_RUNS)
         self.open: list = []
+        # while mpc/step_graphs captures a piece of a step: the capture,
+        # which takes each span site as a mark in its script
+        self.capture = None
 
     def span(self, name: str, events: bool = False, **attrs):
         """A span named `name` (a context); events=True also times it on
-        the stream of a CUDA run. Off: the shared no-op context."""
+        the stream of a CUDA run. Off: the shared no-op context. During a
+        step capture: the capture's mark (mpc/step_graphs)."""
+        if self.capture is not None:
+            return self.capture.span(name, events, attrs or None)
         if not self.on:
             return _NOOP
         return Span(self, name, events and self.cuda, attrs or None)

@@ -59,9 +59,13 @@ def main() -> int:
         return 1
     from mpc4quantum_tpu_torch.benchfleet import run_hostloop_fleet
     from mpc4quantum_tpu_torch.kernels import boxqp as boxqp_mod
+    from mpc4quantum_tpu_torch.mpc.fleet_runner import FleetRunner
     from mpc4quantum_tpu_torch.solvers import boxqp as solvers
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    # eager steps: the probe swaps solver functions between runs and records
+    # their arguments, which a step's captured graphs would not see
+    FleetRunner._graphs = False
     forms = {"mixed": solvers.ns_inverse, "f32": f32_ns}
     solve = boxqp_mod.solve_boxqp_fixed
     plants64 = cs.make_lanes(cs.cnot_h250_scenario("cpu", torch.float64).plant, 16)

@@ -44,6 +44,8 @@ SPAN_METRICS = [m for m in BENCH["per_layer"]
                 if "_spans" in (ROOT / "benchmark" / "metrics" / f"{m['name']}.py").read_text()]
 EVENT_TIMED = ("model_stream_ms_per_step.fleet", "kinv_stream_ms_per_step.fleet",
                "plant_stream_ms_per_step.fleet")
+# the readers of the steps' graph attribute: off the card every step is eager
+GRAPH_METRICS = ("graph_replay_pct.fleet", "graph_replay_pct.rollout")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -222,7 +224,7 @@ def readings(tmp_path_factory):
 
 
 def test_readers_read_their_cells(readings):
-    assert len(SPAN_METRICS) == 6
+    assert len(SPAN_METRICS) == 8
     for m in SPAN_METRICS:
         for cell_name in CELLS:
             off_card, timed, _ = readings[cell_name]
@@ -232,7 +234,9 @@ def test_readers_read_their_cells(readings):
                 value = timed[m["name"]]
             else:
                 value = off_card[m["name"]]
-            if listed:
+            if listed and m["name"] in GRAPH_METRICS:
+                assert value == 0.0, (m["name"], cell_name)
+            elif listed:
                 assert value is not None and value > 0, (m["name"], cell_name)
             elif m["name"] != "kinv_stream_ms_per_step.fleet":
                 assert value is None, (m["name"], cell_name)
@@ -258,3 +262,74 @@ def test_reader_arithmetic(readings):
     assert timed["sqp_iters_per_rollout.rollout"] == count(recs, "sqp.iter") / 2
     flags = sum(sp.end_ns - sp.start_ns for sp in recs if sp.name == "host.flag")
     assert timed["flag_wait_ms_per_rollout.rollout"] == pytest.approx(flags * 1e-6 / 2)
+
+
+def test_fleet_step_graph_attribute_on_the_cpu(tmp_path):
+    """Off the card every step runs eagerly: the attribute graph "eager"."""
+    _, _, _ = traced(flagship_work(), tmp_path)
+    fleet, rollout = spans.runs[-2], spans.runs[-1]
+    for run in (fleet, rollout):
+        steps = [sp for sp in run if sp.name == "fleet.step"]
+        assert len(steps) == 20
+        assert {sp.attrs["graph"] for sp in steps} == {"eager"}
+
+
+def planted(graphs):
+    """A window of one run whose fleet.step spans carry the attribute graph
+    of each entry of `graphs` (None: no attribute), read through the
+    benchmark's span helper."""
+    run = [profiling.Span(spans, "fleet.run", False, None)]
+    run[0].start_ns, run[0].end_ns = 1, 10 ** 9
+    for k, g in enumerate(graphs):
+        sp = profiling.Span(spans, "fleet.step", False,
+                            {"phase": "steady"} if g is None else {"phase": "steady", "graph": g})
+        sp.start_ns, sp.end_ns = 2 + k, 3 + k
+        run.append(sp)
+    return run
+
+
+@pytest.mark.parametrize("graphs, pct", [(["replay"] * 20, 100.0),
+                                         (["capture"] * 3 + ["replay"] * 17, 85.0),
+                                         (["eager"] * 2 + ["replay"] * 6, 75.0),
+                                         ([None] * 20, None)])
+def test_graph_replay_readers(monkeypatch, graphs, pct):
+    monkeypatch.setattr(spans, "runs", [planted(graphs)])
+    for entry, name in (("fleet", "graph_replay_pct.fleet"),
+                        ("rollout", "graph_replay_pct.rollout")):
+        s = devtrace.Summary(entry=entry, steps=20, rollouts=1, window_s=1.0, busy_s=0.0,
+                             runtime_calls=0, syncs=0, fn_device_s={}, fn_launches={},
+                             schedule={}, device_ops=[], idle_gaps=[])
+        assert spec.metric_reader(name)(s) == pct, name
+        other = "rollout" if entry == "fleet" else "fleet"
+        assert spec.metric_reader(name)(dataclasses.replace(s, entry=other)) is None
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_timed_spans_on_a_captured_run(cuda, tmp_path):
+    """A fleet whose steps replay graphs captured in an untraced run: its
+    traced steps are replays, and the timed spans still read stream times."""
+    sc = presets.not_state(device=cuda)
+    plants = make_scenario_batch(sc.plant, 64, generator=torch.Generator().manual_seed(1))
+    runner = make_runner(sc, plants, qp_kernel="big")
+    go = lambda: runner.run(sc.x0, sc.model, plants, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf,
+                            record=True)
+    plain = go()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out = go()
+        torch.cuda.synchronize()
+    assert torch.equal(out["final_x"], plain["final_x"])
+    run = spans.runs[-1]
+    steps = [sp for sp in run if sp.name == "fleet.step"]
+    assert len(steps) == 20 and {sp.attrs["graph"] for sp in steps} == {"replay"}
+    timed = [sp for sp in run if sp.name in EVENT_SPANS]
+    assert {sp.name for sp in timed} == set(EVENT_SPANS)
+    assert all(sp.stream_ms() > 0 for sp in timed)
+    assert sum(sp.name == "sqp.iter" for sp in run) == 7 + 1 + 18

@@ -4,9 +4,11 @@ plain reference (reference/), computed in float64 from the same draws.
 Four numbers, each with its limit from the configuration file (set from
 readings of sound runs and of the reference computed in TF32, the control;
 see PERF.md):
-- plant_step_gap: the largest |x_{t+1} - U x_t U^H| over the recorded
-  steps, U the exact propagator of the lane's plant under the recorded
-  control u_t: the plant step (expm) from the program's own states;
+- plant_step_gap: the largest gap between x_{t+1} and the exact
+  propagator of the lane's plant under the recorded control u_t applied to
+  x_t (U x_t U^H, or the exponential of its Lindbladian where it has
+  collapse operators) over the recorded steps: the plant step (expm) from
+  the program's own states;
 - track_gap: over the lanes, the TRACK_QUANTILE quantile of each lane's
   largest |x_t - x_t^ref| over the first `track_steps` recorded states:
   linearize, condense, the QP solves and the plant in closed loop. A
@@ -52,7 +54,9 @@ def _worse(a: float, b: float) -> float:
 
 
 def step_gap(prob, ar, eps, xs, us, ok) -> float:
-    """The largest plant-step residual of recorded lanes `ok`."""
+    """The largest plant-step residual of recorded lanes `ok` against the
+    exact propagator of the lane's plant: U x U^H, or the exponential of its
+    Lindbladian where it has collapse operators."""
     if not bool(ok.any()):
         return float("nan")
     xs, us = xs[ok].to(ar.device, ar.cplx), us[ok].to(ar.device, ar.real)

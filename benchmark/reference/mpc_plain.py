@@ -6,9 +6,10 @@ configuration files: a bilinear Liouville model discretized to a given
 order, linearized along each lane's guess trajectory, the horizon condensed
 into one box QP, that QP solved by a fixed budget of relaxed ADMM rounds
 (OSQP's rho rebalance between rounds), a line-searched SQP on the first two
-steps and one warm single-shot solve a step after, and the exact plant step
-rho' = U rho U^H. Every lane runs every step; a lane that is done stays as
-it is.
+steps and one warm single-shot solve a step after, and the exact plant step:
+rho' = U rho U^H, or, where the plant has collapse operators, the
+exponential of its Lindbladian applied to vec(rho). Every lane runs every
+step; a lane that is done stays as it is.
 
 It imports nothing of the program under test, and takes nothing from it
 but what it judges. `Arith` sets its precision: "float64" is the reference
@@ -16,10 +17,11 @@ the benchmark compares against; "tf32" is the control: float32, with the
 inputs of every matrix product that a library GEMM computes rounded to
 TF32's 10-bit mantissa (what enabling TF32 on the card does to them:
 linearize, condense, the QP's cost and rollout, the Newton-Schulz inverse,
-the plant's conjugation), the arithmetic of the QP's ADMM and of the
-plant's matrix exponential in plain float32 (hand-written kernels, which
-TF32 does not reach), and the two float64 islands the program keeps in
-float32 (the line-search fit, the last Newton-Schulz residual) in float64.
+the plant's conjugation or its propagator's product with the state), the
+arithmetic of the QP's ADMM and of the plant's matrix exponential in plain
+float32 (hand-written kernels, which TF32 does not reach), and the two
+float64 islands the program keeps in float32 (the line-search fit, the
+last Newton-Schulz residual) in float64.
 """
 
 from __future__ import annotations
@@ -75,7 +77,9 @@ class Problem:
 
     model_H: [H0, H1, ..] of the model; plant_H: the nominal plant's, whose
     drift H0 each lane scales by (1 + eps); x0, target: row-major vec(rho);
-    X_targ (dim_x, n_steps + H + 1), U_targ (dim_u, n_steps + H)."""
+    X_targ (dim_x, n_steps + H + 1), U_targ (dim_u, n_steps + H); model_c,
+    plant_c: the (d, d) collapse operators L of the model's and the plant's
+    dissipators D[L], which no detuning scales (none: a closed system)."""
 
     model_H: list
     plant_H: list
@@ -92,6 +96,8 @@ class Problem:
     R: np.ndarray
     sat: float
     du: float
+    model_c: tuple = ()
+    plant_c: tuple = ()
 
     @property
     def dim_u(self) -> int:
@@ -152,13 +158,23 @@ def liouvillian(Hm: np.ndarray) -> np.ndarray:
     return -1j * (np.kron(Hm, eye) - np.kron(eye, Hm.T))
 
 
+def dissipator(L: np.ndarray) -> np.ndarray:
+    """D[L] rho = L rho L^dag - 1/2 {L^dag L, rho} on row-major vec(rho):
+    L (x) conj(L) - 1/2 (L^dag L (x) I + I (x) (L^dag L)^T)."""
+    eye = np.eye(L.shape[0])
+    LdL = L.conj().T @ L
+    return np.kron(L, L.conj()) - 0.5 * (np.kron(LdL, eye) + np.kron(eye, LdL.T))
+
+
 def discretize(prob: Problem, order: Optional[int] = None):
     """The order-k Taylor step of dx/dt = (A0 + sum_i u_i A_i) x with u held
     over dt: exp(dt A(u)) ~ sum_{m <= k} dt^m / m! A(u)^m, expanded into
-    monomials of u. :return: (exponents (L, dim_u) int, operators (L, dim_x,
-    dim_x) complex128)."""
+    monomials of u, A0 = -i[H0, .] + sum_L D[L] over model_c. :return:
+    (exponents (L, dim_u) int, operators (L, dim_x, dim_x) complex128)."""
     order = prob.order if order is None else order
     gens = [liouvillian(np.asarray(h, complex)) for h in prob.model_H]
+    for L in prob.model_c:
+        gens[0] = gens[0] + dissipator(np.asarray(L, complex))
     dim_x, dim_u = gens[0].shape[0], len(gens) - 1
     bins: dict = {}
     for m in range(order + 1):
@@ -354,14 +370,39 @@ def expm(G):
     return E
 
 
+# generator entries of one chunk of the open plant step's lane-steps: 256 MB
+# in complex128, so 256 lane-steps of a 256 x 256 Liouvillian
+OPEN_CHUNK = 2 ** 24
+
+
 def plant_step(prob: Problem, ar: Arith, H0_lanes, x, u):
-    """rho' = U rho U^H with U = exp(-i dt (H0_b + sum_j u_j H1_j))."""
+    """The exact step of each lane-step's plant, H = H0_b + sum_j u_j H1_j:
+    rho' = U rho U^H with U = exp(-i dt H); where the plant has collapse
+    operators, x' = exp(dt (-i[H, .] + sum_L D[L])) x on x = vec(rho)."""
     H1 = ar.c(np.stack(prob.plant_H[1:]))
     Hm = H0_lanes + torch.einsum("bj,jcd->bcd", u.to(ar.cplx), H1)
+    if prob.plant_c:
+        return _open_step(prob, ar, Hm, x)
     Um = expm((-1j * prob.dt) * Hm)
     d = Hm.shape[-1]
     rho = x.reshape(-1, d, d)
     return ar.mm(ar.mm(Um, rho), Um.conj().transpose(-1, -2)).reshape(x.shape)
+
+
+def _open_step(prob: Problem, ar: Arith, Hm, x):
+    """x' = exp(dt (-i[H_b, .] + D)) x of each lane-step's H_b, D the plant's
+    summed dissipators, in chunks of OPEN_CHUNK generator entries."""
+    d = Hm.shape[-1]
+    D = ar.c(sum(dissipator(np.asarray(L, complex)) for L in prob.plant_c))
+    eye = torch.eye(d, dtype=ar.cplx, device=ar.device)[None]
+    rows = max(1, OPEN_CHUNK // d ** 4)
+    out = []
+    for k in range(0, Hm.shape[0], rows):
+        Hk = Hm[k:k + rows]
+        LH = -1j * (torch.kron(Hk, eye) - torch.kron(eye, Hk.transpose(-1, -2).contiguous()))
+        E = expm(prob.dt * (LH + D))
+        out.append(ar.mm(E, x[k:k + rows, :, None])[..., 0])
+    return torch.cat(out)
 
 
 def lane_drifts(prob: Problem, ar: Arith, eps) -> torch.Tensor:

@@ -1,5 +1,10 @@
 """What decides `correct`: the outputs of the timed runs held against the
-plain reference (reference/), computed in float64 from the same draws.
+plain reference (reference/), computed in float64 from the same draws, on
+the loop the configuration's budgets state. A budget's QP (`warm_qp`,
+`steady_qp`) may state `"scale": true`: the reference then solves that
+phase's QPs Jacobi-scaled, as the program does where its tuned budget
+scales them, and judges the outputs against that solve; without the key
+the QP is solved unscaled.
 
 Four numbers, each with its limit from the configuration file (set from
 readings of sound runs and of the reference computed in TF32, the control;

@@ -5,7 +5,8 @@ configurations state it, written out in plain PyTorch from the
 configuration files: a bilinear Liouville model discretized to a given
 order, linearized along each lane's guess trajectory, the horizon condensed
 into one box QP, that QP solved by a fixed budget of relaxed ADMM rounds
-(OSQP's rho rebalance between rounds), a line-searched SQP on the first two
+(OSQP's rho rebalance between rounds; where a budget states `scale`, in
+Jacobi-equilibrated coordinates), a line-searched SQP on the first two
 steps and one warm single-shot solve a step after, and the exact plant step:
 rho' = U rho U^H, or, where the plant has collapse operators, the
 exponential of its Lindbladian applied to vec(rho). Every lane runs every
@@ -19,7 +20,8 @@ TF32's 10-bit mantissa (what enabling TF32 on the card does to them:
 linearize, condense, the QP's cost and rollout, the Newton-Schulz inverse,
 the plant's conjugation or its propagator's product with the state), the
 arithmetic of the QP's ADMM and of the plant's matrix exponential in plain
-float32 (hand-written kernels, which TF32 does not reach), and the two
+float32 (hand-written kernels, which TF32 does not reach; so is the Jacobi
+scaling of a scaled QP, which is elementwise), and the two
 float64 islands the program keeps in float32 (the line-search fit, the
 last Newton-Schulz residual) in float64.
 """
@@ -108,7 +110,8 @@ class Problem:
 class QPBudget:
     """A fixed-budget ADMM solve: `rounds` of `iters` steps, the inverse
     of K = P + (sigma + rho) I by "gj" (exact) or "ns" (cold Newton-Schulz,
-    `ns_iters` steps a round)."""
+    `ns_iters` steps a round); with `scale`, solved in the Jacobi-equilibrated
+    coordinates x' = x / d, d = diag(P)^-1/2 (`solve_box_qp`)."""
 
     rounds: int
     iters: int
@@ -121,6 +124,7 @@ class QPBudget:
     accept_rel: float = 1e-3
     kinv: str = "gj"
     ns_iters: int = 30
+    scale: bool = False
 
     @classmethod
     def from_dict(cls, d: dict) -> "QPBudget":
@@ -291,10 +295,25 @@ def newton_schulz(ar: Arith, K, iters: int):
     return X
 
 
-def _stats(P, q, x, z, y):
+def jacobi_scale(P, q, lb, ub, x0, y0):
+    """The box QP in the coordinates x' = x / d, d = diag(P)^-1/2: P' = D P D
+    (unit diagonal), q' = d q, the box and x0 over d, and the box's dual
+    y0' = d y0. :return: (P', q', lb', ub', x0', y0', d)."""
+    d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(P, dim1=-2, dim2=-1), min=1e-12))
+    return (P * d[..., :, None] * d[..., None, :], q * d, lb / d, ub / d, x0 / d,
+            None if y0 is None else y0 * d, d)
+
+
+def _stats(P, q, x, z, y, d=None):
+    """(prim, dual, xmax, zmax, pxmax, qmax, ymax) of each lane; of a QP
+    scaled by d, in the original coordinates: x = d x', so primal rows are
+    weighted by d, and P x + q + y = (P' x' + q' + y') / d."""
     mx = lambda v: v.abs().amax(dim=-1)
+    wp = (lambda v: v) if d is None else (lambda v: d * v)
+    wd = (lambda v: v) if d is None else (lambda v: v / d)
     Px = (P @ x[..., None])[..., 0]
-    return mx(x - z), mx(Px + q + y), mx(x), mx(z), mx(Px), mx(q), mx(y)
+    return (mx(wp(x - z)), mx(wd(Px + q + y)), mx(wp(x)), mx(wp(z)), mx(wd(Px)), mx(wd(q)),
+            mx(wd(y)))
 
 
 def _accepted(stats, eps_abs, eps_rel, acc_abs, acc_rel):
@@ -310,9 +329,19 @@ def solve_box_qp(ar: Arith, bud: QPBudget, P, q, lb, ub, x0, y0=None, rho0=None)
     `bud.iters` relaxed ADMM steps; rho rebalanced after each round on the
     lanes that round did not accept (OSQP's rule). rho0 <= 0 (or None) is
     cold: bud.rho0 times the mean of diag P.
-    :return: (z, y, rho, accepted), the last round's acceptance."""
+
+    With `bud.scale` the rounds run on the Jacobi-equilibrated QP
+    (`jacobi_scale`): x0 and the dual y0 come in unscaled and rho0 in the
+    scaled space; the cold rho and its clamps are taken against the mean of
+    diag P', K^-1 is that of P' + (sigma + rho) I, and the residuals, the
+    acceptance and the rebalance read the original coordinates (`_stats`).
+    :return: (z, y, rho, accepted), the last round's acceptance; z and y
+        unscaled, rho in the solver's (with `scale`, the scaled) space."""
     n = q.shape[-1]
     P = 0.5 * (P + P.transpose(-1, -2))
+    d = None
+    if bud.scale:
+        P, q, lb, ub, x0, y0, d = jacobi_scale(P, q, lb, ub, x0, y0)
     eye = torch.eye(n, dtype=P.dtype, device=P.device)
     ds = torch.clamp(torch.diagonal(P, dim1=-2, dim2=-1).mean(dim=-1), min=1e-12)
     rho = bud.rho0 * ds
@@ -332,13 +361,15 @@ def solve_box_qp(ar: Arith, bud: QPBudget, P, q, lb, ub, x0, y0=None, rho0=None)
             z_new = torch.minimum(torch.maximum(z_arg + y / r, lb), ub)
             y = y + r * (z_arg - z_new)
             z = z_new
-        stats = _stats(P, q, x, z, y)
+        stats = _stats(P, q, x, z, y, d)
         acc = _accepted(stats, bud.eps_abs, bud.eps_rel, bud.accept_abs, bud.accept_rel)
         prim, dual, xmax, zmax, pxmax, qmax, ymax = stats
         prim_s = prim / torch.clamp(torch.maximum(xmax, zmax), min=1e-12)
         dual_s = dual / torch.clamp(torch.maximum(pxmax, torch.maximum(qmax, ymax)), min=1e-12)
         ratio = torch.sqrt(prim_s / torch.clamp(dual_s, min=1e-16))
         rho = torch.where(acc, rho, torch.clamp(rho * ratio, 1e-8 * ds, 1e8 * ds))
+    if d is not None:
+        z, y = d * z, y / d
     return z, y, rho, acc
 
 
@@ -465,6 +496,10 @@ def closed_loop(prob: Problem, bud: LoopBudget, eps, ar: Arith, order: Optional[
             A_s, B_s, D_s = model.linearize(Xg[:, :, :H], Ug)
             w, M = condense(ar, A_s, B_s, D_s, x_cur)
             P, q = qp_cost(ar, w, M, X_ref, U_ref, Q_s, R)
+            # the carried dual is unscaled and rho in the space of the solve
+            # that returned it: across the warm/steady seam, where only one
+            # phase is scaled, y is scaled by the solve that takes it and rho
+            # passes as it is, clamped against that solve's diagonal
             seeded = not warm and bud.carry_duals
             z, y_n, rho_n, acc = solve_box_qp(
                 ar, bud.warm_qp if warm else bud.steady_qp, P, q, lb, ub,

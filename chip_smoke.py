@@ -14,7 +14,9 @@ Gauss-Jordan and Newton-Schulz inverses) and `expm_small` at d = 3 for the
 large-n presets, `expm_small` at d = 4 in its certified form on Hermitian
 generators and `admm_big` at n = 40 and 150 for the two-qubit presets,
 `expm_small` at d = 5 to 8 and `admm_big` at n = 24 for the 3-qubit
-problem. Each
+problem, and `condense_small` (the model phase of the small QPs: each
+output against model_along_traj + qp_data, one kernel a call) at the
+flagship's B 1, 16384 and 131072 and not_gate's B 1024. Each
 kernel phase gives the wrapper's time (CUDA events),
 the call's device time without the host's dispatch (a CUDA graph of 20
 calls, replayed), the plain version's time, the bound - the larger of the
@@ -171,36 +173,44 @@ QP_FORMS = {
 FLEETS = {
     "not_state": dict(batch=BATCH, fid_mean=0.999, fid_min=0.998, parity_lanes=64,
                       parity_tol=1e-4,
-                      launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0}),
+                      launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0,
+                                "condense_small": 26}),
     "not_gate": dict(batch=1024, kwargs=dict(n_steps=90), fid_mean=0.999, fid_min=None,
                      exit_early=1.0, parity_lanes=8, parity_tol=1e-4,
-                     launches={"boxqp_small": 96, "expm_small": 90, "admm_big": 0}),
+                     launches={"boxqp_small": 96, "expm_small": 90, "admm_big": 0,
+                               "condense_small": 96}),
     "lindblad_state": dict(batch=BATCH, fid_mean=None, fid_min=0.85, parity_lanes=64,
                            parity_tol=5e-2, tracking=(8, 1e-5),
-                           launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0}),
+                           launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0,
+                                     "condense_small": 26}),
     "drag_state": dict(batch=2048, fid_mean=0.999, fid_min=0.98, parity_lanes=64,
                        parity_tol=1e-4,
-                       launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 34}),
+                       launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 34,
+                                 "condense_small": 0}),
     "not_state_freq": dict(batch=1024, fid_mean=0.999, fid_min=0.98, parity_lanes=32,
                            parity_tol=2e-3, tracking=(30, 1e-5),
-                           launches={"boxqp_small": 0, "expm_small": 100, "admm_big": 114}),
+                           launches={"boxqp_small": 0, "expm_small": 100, "admm_big": 114,
+                                     "condense_small": 0}),
     # 203 = 7 + 49 x 4 cold solves of one round
     "crosstalk": dict(batch=1024, reps=2, fid_mean=None, fid_min=0.98, parity_lanes=16,
                       parity_tol=1e-4,
                       variant=dict(kwargs=dict(coupling=0.05), lanes=32, tol=2e-4),
-                      launches={"boxqp_small": 0, "expm_small": 50, "admm_big": 203}),
+                      launches={"boxqp_small": 0, "expm_small": 50, "admm_big": 203,
+                                "condense_small": 0}),
     # 222 = 8 x 3 warm rounds + 198 x 1 steady round
     "cnot_state": dict(batch=128, reps=2, kwargs=dict(order=2), fid_mean=None, fid_min=0.99,
                        rescue=dict(threshold=0.99, kwargs=dict(order=3)), parity_lanes=8,
                        parity_tol=2e-3, tracking=(60, 1e-4),
-                       launches={"boxqp_small": 0, "expm_small": 200, "admm_big": 222}),
+                       launches={"boxqp_small": 0, "expm_small": 200, "admm_big": 222,
+                                 "condense_small": 0}),
 }
 # the rescue pass on the card: cnot at order 2 cut to 20 steps, every lane
 # marginal (threshold above 1), re-run at order 3 on a batch padded from 6
 # lanes to 8; launches of the main pass 20 / 8 x 3 + 18 and of the rescue
 # the same; kept states against the float64 CPU path
 RESCUE = dict(lanes=6, steps=20, tol=1e-4,
-              launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 42})
+              launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 42,
+                        "condense_small": 0})
 # The two scenarios of no preset that the JAX package runs as any Scenario
 # (8 warm SQP iterations, cold duals, their own 3x300 in both phases),
 # built from the port's constructors (damped_pair_scenario,
@@ -255,22 +265,24 @@ SLICE_FLEETS = {"damped_pair": dict(batch=128, reps=2, parity_lanes=4, parity_st
 # max(m, n) eps of float32 (the JAX pinv's own default cut; at the JAX
 # tests' rcond 1e-15 float32 inverts rounding and 98 of 256 CPU lanes fail,
 # and even in float64 the JAX loop's mean is 0.98950 on 256 lanes, one lane
-# at 0.898), so its mean gate is 0.985. Launches a run as the flagship's:
-# the refit is plain PyTorch (RLS; the discrepancy fit's batched SVDs are
-# library calls).
+# at 0.898), so its mean gate is 0.985. Launches a run as the flagship's,
+# but for condense_small, which takes a shared model only (each lane has its
+# own here): the refit is plain PyTorch (RLS; the discrepancy fit's batched
+# SVDs are library calls).
 # learn_fleet's first probe_lanes lanes run once more, ungated, at sigma
 # 1e-4 (probe_sigma) to report the lanes below the gate there;
 # discrep_fleet's 64 parity lanes report their float64 mean beside the
 # card's.
 LEARN = dict(batch=BATCH, sigma=1e-5, alpha=1e2, fid_lane=0.95, fid_mean=0.99, parity_lanes=8,
              parity_tol=1e-3, probe_sigma=1e-4, probe_lanes=512,
-             launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0})
+             launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0, "condense_small": 0})
 DISCREP = dict(batch=1024, capacity=12, rcond=10 * 12 * float(np.finfo(np.float32).eps),
                fid_lane=0.95, fid_mean=0.985, parity_lanes=64, parity_tol=1e-3,
-               launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0})
+               launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0, "condense_small": 0})
 # the single-rollout phases (mpc(), B = 1): P(|1>) gate and the bound on its
 # distance from the same call in float64 on the CPU; on the default chol
-# backend a rollout launches no QP kernel
+# backend a rollout launches no QP kernel, and condense_small once an SQP
+# iteration (chol_launches, with that count)
 SINGLE = dict(p1=0.95, cpu_tol=1e-3, loss=1e-3,
               chol_launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 0})
 # The command line and the single-rollout solver surface, on the flagship.
@@ -472,8 +484,25 @@ EXPM_NAN = {8: (301, 7), 16: (301, 7), 100: (4, 1), 256: (4, 1), 300: (3, 1)}
 EXPM_INSTANCES = (*(f"expm_small_kernelILi{d}E" for d in range(2, 9)), "expm_tile_kernel",
                   "expm_cluster_kernel", "expm_wide_kernel")
 NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
-            "admm_cluster_kernel", "admm_stream_kernel", *EXPM_INSTANCES)
-INSTANCE_COUNT = 4 + (5 + 1 + 2) + (7 + 25 + 1 + 3 + 1)
+            "admm_cluster_kernel", "admm_stream_kernel", *EXPM_INSTANCES,
+            "condense_small_kernelILi4ELi16E", "condense_small_kernelILi16ELi16E")
+INSTANCE_COUNT = 4 + (5 + 1 + 2) + (7 + 25 + 1 + 3 + 1) + 2
+# condense_small at the flagship's shapes (B 1, the single rollout's; 16,384
+# and 131,072, the fleets') and not_gate's (dim_x 16, n 15, B 1,024): each
+# output against the plain version within CONDENSE_TOL of its largest entry
+# (float32 sums in another order), timed
+CONDENSE_SHAPES = (("not_state", 16384), ("not_state", 1), ("not_state", 131072),
+                   ("not_gate", 1024))
+CONDENSE_TOL = 1e-4
+# and at random shared models of (dim_x, H, dim_u), order 2, one for each
+# of the kernel's 15 instances (DX, W) (DX the power of two >= dim_x, W that
+# >= max(dim_x, n = H dim_u); of them the presets reach only (4, 16) and
+# (16, 16)), at B 333, a partial last block; (3, 5, 2) is the shape of the
+# CPU tests' two-control model
+CONDENSE_MODELS = ((1, 1, 1), (1, 2, 1), (1, 2, 2), (1, 7, 1), (1, 5, 3), (2, 1, 2),
+                   (2, 3, 1), (2, 4, 2), (2, 12, 1), (3, 4, 1), (4, 3, 2), (3, 5, 2),
+                   (5, 7, 1), (8, 8, 2), (9, 3, 3))
+CONDENSE_MODEL_BATCH = 333
 # every plan the kernel library computes against the Python one
 PLAN_BATCHES = (1, 4, 16, 128, 1024, BATCH)
 PLAN_SIZES = {"expm_small": 160, "admm_big": 4096}
@@ -644,7 +673,8 @@ def phase_build(build) -> dict:
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": build.build_seconds,
           "ptxas": report})
     require(len(report) == INSTANCE_COUNT,
-            f"expected 4 boxqp_small, 8 admm_big and 37 expm_small instances: {report}")
+            f"expected 4 boxqp_small, 8 admm_big, 37 expm_small and 2 condense_small "
+            f"instances: {report}")
     spilled = {name: rec for name, rec in report.items()
                if rec.get("spill_stores", -1) != 0 or rec.get("spill_loads", -1) != 0}
     require(not spilled, f"spills in {spilled}")
@@ -1054,6 +1084,86 @@ def time_kernels(root: Path) -> int:
     return 0
 
 
+def condense_input(case, B: int, seed: int = 0, device=DEVICE, dtype=torch.float32) -> dict:
+    """condense_small's arguments: at a preset's shapes (`case` its name),
+    its model, costs and a window of its targets; at a random shared model
+    (`case` (dim_x, H, dim_u), order 2: A of norm 0.9, Q not Hermitian nor
+    R symmetric, so an exchange of a transpose for the other shows), its own
+    costs and targets, sat 0.5 and du 0.2. Random guesses within the box,
+    the guess X a view of a (B, dim_x, H + 1) tensor, as the runner hands it
+    over."""
+    from mpc4quantum_tpu_torch import presets
+    from mpc4quantum_tpu_torch.mpc.driver import bilinear_model
+    from mpc4quantum_tpu_torch.ops.bilinear import BilinearModel
+    from mpc4quantum_tpu_torch.ops.library import size_of_library
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    real = lambda *s: torch.randn(s, generator=g, device=device, dtype=dtype)
+    cx = lambda *s: torch.complex(real(*s), real(*s))
+    if isinstance(case, str):
+        sc = presets.PRESETS[case](device=device, dtype=dtype)
+        model = bilinear_model(sc.model, sc.config)
+        H, dim_x, dim_u = sc.config.horizon, model.dim_x, model.dim_u
+        sat, du = sc.sat, sc.du
+        X_bm, U_bm = sc.X_targ[:, 3:H + 4], sc.U_targ[:, 3:H + 3]
+        Q_s = torch.cat([sc.Q.expand(H, -1, -1), sc.Qf[None]], dim=0).to(model.A.dtype)
+        R_s = sc.R.expand(H, -1, -1)
+    else:
+        dim_x, H, dim_u = case
+        Lm = size_of_library(2, dim_u) - 1
+        A = cx(dim_x, dim_x)
+        model = BilinearModel(A=0.9 * A / torch.linalg.matrix_norm(A, 2),
+                              N=0.3 * cx(dim_x, Lm, dim_x), dim_u=dim_u, order=2)
+        sat, du = 0.5, 0.2
+        X_bm, U_bm = 0.5 * cx(dim_x, H + 1), 0.2 * real(dim_u, H)
+        G = cx(H + 1, dim_x, dim_x)
+        Q_s = G @ G.mH / dim_x + 0.2 * cx(H + 1, dim_x, dim_x)
+        Rg = real(H, dim_u, dim_u)
+        R_s = Rg @ Rg.mT + 0.1 * torch.eye(dim_u, device=device, dtype=dtype) \
+            + 0.2 * real(H, dim_u, dim_u)
+    uni = lambda *s: (torch.rand(s, generator=g, device=device, dtype=dtype) * 2 - 1) * sat
+    return dict(model=model, X=0.5 * cx(B, dim_x, H + 1)[:, :, :H], U=uni(B, dim_u, H),
+                x_init=0.5 * cx(B, dim_x), X_bm=X_bm, U_bm=U_bm, Q_s=Q_s, R_s=R_s,
+                u_prev=uni(B, dim_u), sat=sat, du=du)
+
+
+def phase_condense(condense_mod, graph_node_types, floor_us) -> dict:
+    """condense_small at CONDENSE_SHAPES and CONDENSE_MODELS: one kernel on
+    the card a call (the nodes of a CUDA graph captured from it), each
+    output against the plain version (model_along_traj + qp_data); at
+    CONDENSE_SHAPES the device time against the bound of
+    condense_small_work, and the plain version's times."""
+    rec = {"phase": "condense_small", "gpu": smi_line(), "launch_floor_us": floor_us,
+           "tolerance": CONDENSE_TOL}
+    cases = [(name, B, True) for name, B in CONDENSE_SHAPES] + [
+        (shape, CONDENSE_MODEL_BATCH, False) for shape in CONDENSE_MODELS]
+    for case, B, timed in cases:
+        p = condense_input(case, B)
+        model = p["model"]
+        label = case if timed else "x{}_h{}_u{}".format(*case)
+        call_k = lambda: condense_mod.condense_small(**p)
+        call_p = lambda: condense_mod.condense_small_ref(**p)
+        out_k, out_p = call_k(), call_p()
+        torch.cuda.synchronize()
+        err = max(rel_err(a, b) for a, b in zip(out_k, out_p))
+        require(err <= CONDENSE_TOL, f"condense_small {label} B={B}: {err}")
+        del out_k, out_p
+        nodes = graph_node_types(call_k)
+        require(nodes == [0], f"condense_small {label} B={B}: one call put {nodes} on the "
+                              "card (graph node types), not one kernel")
+        row = {"max_rel_err": err, "graph_nodes": nodes}
+        if timed:
+            work = condense_mod.condense_small_work(B, model.dim_x, p["X"].shape[2],
+                                                    model.dim_u, model.polyu_dim)
+            row.update(kernel_ms=cuda_ms(call_k), device_us=graph_us(call_k), **bound(work),
+                       plain_ms=cuda_ms(call_p), plain_device_us=graph_us(call_p))
+            row["bound_pct"] = 100.0 * row["bound_us"] / row["device_us"]
+        rec[f"{label}_b{B}"] = row
+        torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
 def phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds) -> dict:
     """boxqp_big (one admm_big launch per round) against the plain solver,
     whole solves at the large-n presets' shapes and budgets."""
@@ -1238,21 +1348,28 @@ def phase_rescue(presets, run_hostloop_fleet, fleet_fidelity, counters) -> dict:
     return rec
 
 
-def expected_launches(runner, n_steps: int) -> dict:
-    """The kernel launches one run of `runner` makes, from its budgets: one
-    expm_small a step (plant step), and a QP kernel a warm SQP iteration
-    (warm_sqp_iters a warm step) and a steady step, boxqp_small once a
-    solve, admm_big once a rho round."""
+def expected_launches(runner, sc, n_steps: int) -> dict:
+    """The kernel launches one run of `runner` on scenario `sc` makes, from
+    its budgets: one expm_small a step (plant step), and a QP kernel a warm
+    SQP iteration (warm_sqp_iters a warm step) and a steady step,
+    boxqp_small once a solve, admm_big once a rho round; condense_small once
+    an SQP iteration where the runner's rule sends the model phase to it."""
+    from mpc4quantum_tpu_torch.mpc.driver import bilinear_model
+
     cfg = runner.config
     n_warm = min(2, n_steps) if cfg.warm_start else n_steps
     warm = sum(runner.warm_sqp_iters[min(s, len(runner.warm_sqp_iters) - 1)]
                for s in range(n_warm))
     steady = n_steps - n_warm
+    route = runner.condense_route(bilinear_model(sc.model, cfg), sc.x0.dtype,
+                                  torch.device(DEVICE))
+    condense = warm + steady if route == "kernel" else 0
     if runner.qp_kernel == "small":
-        return {"boxqp_small": warm + steady, "expm_small": n_steps, "admm_big": 0}
+        return {"boxqp_small": warm + steady, "expm_small": n_steps, "admm_big": 0,
+                "condense_small": condense}
     return {"boxqp_small": 0, "expm_small": n_steps,
             "admm_big": warm * cfg.qp_params.n_rounds
-            + steady * runner.steady_qp_params.n_rounds}
+            + steady * runner.steady_qp_params.n_rounds, "condense_small": condense}
 
 
 def phase_bench_entry(bench, presets, make_runner, counters, flagship: dict) -> dict:
@@ -1271,16 +1388,15 @@ def phase_bench_entry(bench, presets, make_runner, counters, flagship: dict) -> 
     lines = printed.getvalue().strip().splitlines()
     presets_res = res["presets"]
     sc, plants = bench.flagship(4, DEVICE, torch.float32)
-    runners = {"flagship": (make_runner(sc, plants, **bench.flagship_overrides(sc)),
-                            sc.config.n_steps, 1 + bench.DEFAULT_REPS)}
+    runners = {"flagship": (make_runner(sc, plants, **bench.flagship_overrides(sc)), sc,
+                            1 + bench.DEFAULT_REPS)}
     for name, (_, kw, _) in bench.PRESET_SPEC.items():
         sc = presets.PRESETS[name](**kw)
-        runners[name] = (make_runner(sc, make_lanes(sc.plant, 4)), sc.config.n_steps,
-                         bench.PRESET_REPS)
+        runners[name] = (make_runner(sc, make_lanes(sc.plant, 4)), sc, bench.PRESET_REPS)
     expected = dict.fromkeys(counters, 0)
-    for name, (runner, n_steps, runs) in runners.items():
+    for name, (runner, sc, runs) in runners.items():
         rescue = presets_res.get(name, {}).get("rescue_launches", {})
-        for k, v in expected_launches(runner, n_steps).items():
+        for k, v in expected_launches(runner, sc, sc.config.n_steps).items():
             expected[k] += v * runs + rescue.get(k, 0)
     headline = ("device", "power_limit", "batch", "value", "unit", "fidelity_mean",
                 "fidelity_min", "completed_frac", "compile_s", "vs_baseline",
@@ -1321,7 +1437,7 @@ def phase_slice_fleet(name, make, make_runner, run_hostloop_fleet, fleet_fidelit
     sc, sc64 = make(DEVICE, torch.float32), make("cpu", torch.float64)
     plants64 = make_lanes(sc64.plant, B)
     plants = plants64.to(DEVICE, torch.float32)
-    per_run = expected_launches(make_runner(sc, plants), sc.config.n_steps)
+    per_run = expected_launches(make_runner(sc, plants), sc, sc.config.n_steps)
     for fn in counters.values():
         fn.launches = 0
     metrics, out = run_hostloop_fleet(sc, B, plants=plants, reps=reps)
@@ -1640,8 +1756,8 @@ def phase_train_then_control(systems, torch_mods, counters, host_flag) -> dict:
     """The data-driven flow at B = 1: quantum_simulate of a Blackman drive
     (one expm_small launch at B = 48), train_model, then mpc() with the
     learned model on the ideal qubit, its QPs on the default chol backend
-    (plain PyTorch: no boxqp_small launch); the same in float64 on the
-    CPU."""
+    (plain PyTorch: no boxqp_small launch; condense_small once an SQP
+    iteration); the same in float64 on the CPU."""
     QuantumPlant, simulate = torch_mods["QuantumPlant"], torch_mods["quantum_simulate"]
     dt, order = 0.25, 2
     ts = np.arange(0, 12.0, dt)
@@ -1674,18 +1790,19 @@ def phase_train_then_control(systems, torch_mods, counters, host_flag) -> dict:
         results[where] = {"wall_s": time.perf_counter() - t0, "simulate_launches": sim_launches,
                           "min_loss": float(losses.min()), "rcond": rcond,
                           "exit_code": int(res.exit_code), "n_valid": int(res.n_valid),
-                          "p1": float(res.xs[3, -1].real),
+                          "p1": float(res.xs[3, -1].real), "sqp_iters": batch_iters(res),
                           "host_reads": host_flag.reads - reads,
                           "mpc_launches": {k: fn.launches for k, fn in counters.items()}}
     rec.update(results)
     rec["p1_gap_vs_cpu"] = abs(results["card"]["p1"] - results["cpu"]["p1"])
     emit(rec)
     card = results["card"]
-    require(card["simulate_launches"] == {"boxqp_small": 0, "expm_small": 1, "admm_big": 0},
+    require(card["simulate_launches"] == {"boxqp_small": 0, "expm_small": 1, "admm_big": 0,
+                                          "condense_small": 0},
             f"train_then_control: quantum_simulate launches {rec}")
     require(card["exit_code"] == 0 and card["p1"] > SINGLE["p1"]
             and card["min_loss"] < SINGLE["loss"], f"train_then_control gates: {rec}")
-    require(card["mpc_launches"] == SINGLE["chol_launches"],
+    require(card["mpc_launches"] == with_condense(SINGLE["chol_launches"], card["sqp_iters"]),
             f"train_then_control: mpc() launches (the chol default) {rec}")
     require(rec["p1_gap_vs_cpu"] <= SINGLE["cpu_tol"], f"train_then_control vs cpu {rec}")
     return rec
@@ -1696,7 +1813,7 @@ def phase_observe_eops(systems, torch_mods, counters, host_flag) -> dict:
     sigma 1e-4 (quantum_observe), noise drawn on the card; the same noise
     in float64 on the CPU. Run on the default chol backend and once on the
     kernel route (qp_backend="ns"), which launches boxqp_small at B = 1
-    once an SQP iteration."""
+    once an SQP iteration; condense_small once an SQP iteration on both."""
     QuantumPlant = torch_mods["QuantumPlant"]
     wq = 2 * np.pi * 4
     paulis = [np.eye(2, dtype=complex), systems.SX, systems.SY, systems.SZ]
@@ -1734,11 +1851,13 @@ def phase_observe_eops(systems, torch_mods, counters, host_flag) -> dict:
                 f"observe_eops {backend} gates: {rec}")
         require(rec[f"p1_gap_vs_cpu_{backend}"] <= SINGLE["cpu_tol"],
                 f"observe_eops {backend} vs cpu {rec}")
-    require(rec["card_chol"]["launches"] == SINGLE["chol_launches"],
+    chol = rec["card_chol"]
+    require(chol["launches"] == with_condense(SINGLE["chol_launches"], chol["sqp_iters"]),
             f"observe_eops chol launches {rec}")
     # the kernel route: one boxqp_small launch an SQP iteration
     ns = rec["card_ns"]
-    require(ns["launches"] == {"boxqp_small": ns["sqp_iters"], "expm_small": 20, "admm_big": 0},
+    require(ns["launches"] == {"boxqp_small": ns["sqp_iters"], "expm_small": 20, "admm_big": 0,
+                               "condense_small": ns["sqp_iters"]},
             f"observe_eops ns launches {rec}")
     return rec
 
@@ -1780,7 +1899,9 @@ def phase_cli_rollout(cli_main, counters, host_flag) -> dict:
                           "mean_sqp_iters"}, f"cli_rollout keys {rec}")
     require(card["exit_code"] == 0 and card["n_valid"] == 20 and card["fidelity"] > CLI["fid"],
             f"cli_rollout gates {rec}")
-    require(launches == CLI["launches"], f"cli_rollout launches {rec}")
+    # mean_sqp_iters, to 2 decimals, of 20 steps: their sum exactly
+    iters = round(card["mean_sqp_iters"] * card["n_valid"])
+    require(launches == with_condense(CLI["launches"], iters), f"cli_rollout launches {rec}")
     require(rec["fidelity_gap_vs_cpu"] <= CLI["cpu_tol"], f"cli_rollout vs cpu {rec}")
     return rec
 
@@ -1842,18 +1963,28 @@ def phase_cli_lqr(cli_main, presets, mpc, counters, host_flag) -> dict:
     # where no clip can hide it
     require(rec["step0_max_abs_u"] < sat and rec["step0_gain_rel"] <= CLI["lqr_step0_rtol"]
             and rec["step0_u_rel"] <= CLI["lqr_step0_rtol"], f"cli_lqr step-0 LQR vs cpu {rec}")
-    require(launches == CLI["launches"], f"cli_lqr launches {rec}")
+    require(launches == with_condense(CLI["launches"], 0), f"cli_lqr launches {rec}")
     return rec
 
 
 def phase_cli_batch(cli_main, presets, batched_mpc, fleet_fidelity, counters,
                     host_flag) -> dict:
-    """--batch 1024 through the CLI on the card (batched_mpc, chol); its
-    first lanes again through batched_mpc on the card and in float64 on
-    the CPU."""
+    """--batch 1024 through the CLI on the card (batched_mpc, chol); the
+    same batch through batched_mpc (its SQP iterations, one condense_small
+    launch each); its first lanes again through batched_mpc on the card and
+    in float64 on the CPU."""
+    from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
+
     B, lanes = CLI["batch"], CLI["parity_lanes"]
     (card, _), launches, reads = counted(
         counters, host_flag, lambda: run_cli(cli_main, ["not_state", "--batch", str(B)]))
+    # the CLI's plants: its detuning and its default seed, 1
+    sc = presets.not_state()
+    plants = make_scenario_batch(sc.plant, B, detune_scale=0.01,
+                                 generator=torch.Generator().manual_seed(1))
+    direct, direct_launches, _ = counted(counters, host_flag, lambda: batched_mpc(
+        sc.x0, sc.model, plants, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf, sc.config, sc.sat,
+        du=sc.du, exit_condition=sc.exit_condition))
     fids = {}
     for where, device in (("card", DEVICE), ("cpu", "cpu")):
         sc = presets.not_state(device=device)
@@ -1863,13 +1994,15 @@ def phase_cli_batch(cli_main, presets, batched_mpc, fleet_fidelity, counters,
         fids[where] = fleet_fidelity(sc, res.xs[:, :, -1])
     dfid = np.abs(fids["card"] - fids["cpu"])
     rec = {"phase": "cli_batch", "card": card, "launches": launches, "host_reads": reads,
+           "direct_launches": direct_launches, "sqp_iters": batch_iters(direct),
            "rollouts_per_s": card["rollouts_per_s"], "parity_lanes": lanes,
            "max_abs_dfid": float(dfid.max()),
            "gates": {"fidelity_min": CLI["batch_fid_min"], "vs_cpu": CLI["cpu_tol"]}}
     emit(rec)
     require(card["completed_frac"] == 1.0 and card["fidelity_min"] > CLI["batch_fid_min"],
             f"cli_batch gates {rec}")
-    require(launches == CLI["launches"], f"cli_batch launches {rec}")
+    require(launches == direct_launches == with_condense(CLI["launches"], rec["sqp_iters"]),
+            f"cli_batch launches {rec}")
     require(float(dfid.max()) <= CLI["cpu_tol"], f"cli_batch vs cpu {rec}")
     return rec
 
@@ -1937,7 +2070,8 @@ def phase_fleet_checkpoint(cli_main, presets, fleet_runner, make_runner, counter
     require(crashed and kept and not cli_left and not left, f"fleet_checkpoint files {rec}")
     require(all(equal.values()), f"fleet_checkpoint: resumed != uninterrupted {rec}")
     steady = sc.config.n_steps - crash
-    require(resumed_launches == {"boxqp_small": steady, "expm_small": steady, "admm_big": 0},
+    require(resumed_launches == {"boxqp_small": steady, "expm_small": steady, "admm_big": 0,
+                                 "condense_small": steady},
             f"fleet_checkpoint resumed launches {rec}")
     return rec
 
@@ -2163,6 +2297,12 @@ def batch_iters(res) -> int:
     return int(iters.reshape(-1, iters.shape[-1]).amax(dim=0).sum())
 
 
+def with_condense(launches: dict, iters: int) -> dict:
+    """A launch spec with condense_small's count: `iters`, once an SQP
+    iteration of a run on its route, or 0 off it."""
+    return {**launches, "condense_small": iters}
+
+
 def vdp_problem(classical, device, dtype, B=None):
     """The Van der Pol Koopman problem (CLASSICAL) on `device` in `dtype`:
     (model, targets and costs, config, the plant or a B-lane batch of it,
@@ -2184,7 +2324,8 @@ def phase_classical(port, counters, host_flag) -> dict:
     """The Van der Pol Koopman MPC on the card (CLASSICAL): training data by
     rk4_simulate in float64 on the card, train_model, then mpc() on the chol
     default and on the kernel route and batched_mpc at B 1024, in float32;
-    8 lanes again in float64 on the CPU."""
+    8 lanes again in float64 on the CPU. Its states are real: the model
+    phase stays plain (no condense_small launch)."""
     from mpc4quantum_tpu_torch.models.dmdc import dmdc_from_operator
     from mpc4quantum_tpu_torch.plants import classical
 
@@ -2252,7 +2393,8 @@ def phase_classical(port, counters, host_flag) -> dict:
         # through boxqp_big: one admm_big launch a rho round
         rounds = cfg.qp_params.n_rounds
         expected = {"boxqp_small": 0, "expm_small": 0,
-                    "admm_big": rounds * r["sqp_iters"] if backend == "ns" else 0}
+                    "admm_big": rounds * r["sqp_iters"] if backend == "ns" else 0,
+                    "condense_small": 0}
         require(r["launches"] == expected, f"classical mpc() {backend} launches, "
                                            f"expected {expected}: {r}")
     b = rec["batched_ns"]
@@ -2260,7 +2402,8 @@ def phase_classical(port, counters, host_flag) -> dict:
                              for k in counters}
     require(b["completed_frac"] == 1.0 and dx <= c["parity_tol"], f"classical batched: {b}")
     require(b["launches"] == {"boxqp_small": 0, "expm_small": 0,
-                              "admm_big": cfg.qp_params.n_rounds * b["sqp_iters"]},
+                              "admm_big": cfg.qp_params.n_rounds * b["sqp_iters"],
+                              "condense_small": 0},
             f"classical batched launches: {b}")
     return rec
 
@@ -2269,7 +2412,8 @@ def phase_embedded(presets, port, counters, host_flag) -> dict:
     """The flagship not_state in the real embedding against the complex
     problem on the kernel route (qp_backend "ns": boxqp_small at n = 10,
     the embedded plant's step one expm_small launch): mpc() at B 1 and
-    batched_mpc at B 1024 on detuned lanes."""
+    batched_mpc at B 1024 on detuned lanes. The complex problem's model
+    phase runs in condense_small, the embedding's (real states) plainly."""
     from mpc4quantum_tpu_torch.models.dmdc import dmdc_from_operator
     from mpc4quantum_tpu_torch.mpc import embedded
 
@@ -2322,7 +2466,8 @@ def phase_embedded(presets, port, counters, host_flag) -> dict:
         for form in ("complex", "embedded"):
             r = rec[f"{kind}_{form}"]
             require(r["exit_codes"] == [0] and r["launches"] == {
-                "boxqp_small": r["sqp_iters"], "expm_small": 20, "admm_big": 0},
+                "boxqp_small": r["sqp_iters"], "expm_small": 20, "admm_big": 0,
+                "condense_small": r["sqp_iters"] if form == "complex" else 0},
                     f"embedded {kind}_{form}: launches or exit codes {r}")
     return rec
 
@@ -2446,8 +2591,9 @@ def phase_tp_3q(port, counters, host_flag, tensor) -> dict:
     emit(rec)
     for name in ("dense", "tp"):
         r = rec[name]
+        # dim_x 64, beyond condense_small's 16: the model phase stays plain
         expected = {"boxqp_small": 0, "expm_small": cfg.n_steps,
-                    "admm_big": cfg.qp_params.n_rounds * r["sqp_iters"]}
+                    "admm_big": cfg.qp_params.n_rounds * r["sqp_iters"], "condense_small": 0}
         require(r["launches"] == expected, f"tp_3q {name} launches, expected {expected}: {r}")
         require(r["completed_frac"] == 1.0 and r["fidelity_min"] > TP3Q["fid_min"],
                 f"tp_3q {name} gates: {r}")
@@ -2513,7 +2659,8 @@ def phase_sharded_fleet(presets, port, counters, host_flag) -> dict:
     require(v["max_abs_dus"] <= SHARDED["equal_tol"] and v["max_abs_dxs"] <= SHARDED["equal_tol"]
             and torch.equal(res.exit_code, ref.exit_code), f"sharded_fleet vs batched_mpc: {v}")
     require(rec["summary_gap"] <= SHARDED["equal_tol"], f"sharded_fleet summary: {rec}")
-    expected = {"boxqp_small": rec["sqp_iters"], "expm_small": cfg.n_steps, "admm_big": 0}
+    expected = {"boxqp_small": rec["sqp_iters"], "expm_small": cfg.n_steps, "admm_big": 0,
+                "condense_small": rec["sqp_iters"]}
     require(launches == expected == ref_launches, f"sharded_fleet launches, expected {expected}")
     require(collectives["all_gather_into_tensor"]["calls"] == 6
             and collectives["all_reduce"]["calls"] == 4,
@@ -2560,7 +2707,8 @@ def phase_graft_entry(graft, counters) -> dict:
            "tolerance": GRAFT}
     emit(rec)
     require(x.device.type == DEVICE and step_launches["expm_small"] == 1
-            and step_launches["admm_big"] == 0 and step_launches["boxqp_small"] >= 1,
+            and step_launches["admm_big"] == 0 and step_launches["boxqp_small"] >= 1
+            and step_launches["condense_small"] == step_launches["boxqp_small"],
             f"graft_entry: one step's launches {step_launches}")
     require(rec["max_abs_dx_vs_f64"] <= GRAFT["state_tol"]
             and rec["abs_du_vs_f64"] <= GRAFT["state_tol"],
@@ -2586,6 +2734,7 @@ def main() -> int:
     from mpc4quantum_tpu_torch.kernels._graph import graph_kernel_launches, graph_node_types
     from mpc4quantum_tpu_torch.kernels import admm_big as admm_mod
     from mpc4quantum_tpu_torch.kernels import boxqp as boxqp_mod
+    from mpc4quantum_tpu_torch.kernels import condense as condense_mod
     from mpc4quantum_tpu_torch.kernels import expm as expm_mod
     from mpc4quantum_tpu_torch.solvers.boxqp import (BoxQPParams, accept_thresholds,
                                                      solve_boxqp_fixed)
@@ -2619,13 +2768,14 @@ def main() -> int:
     ex = phase_expm(expm_mod, graph_node_types, floor_us, build, graph_kernel_launches)
     ad = phase_admm(admm_mod, gj_inverse, build, graph_kernel_launches)
     phase_speed(ex, ad)
+    cond = phase_condense(condense_mod, graph_node_types, floor_us)
     if kernels_only:
         print(smi_line(), flush=True)
         emit({"ok": True, "kernels_only": True})
         return 0
     phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds)
     counters = {"boxqp_small": boxqp_mod.boxqp_small, "expm_small": expm_mod.expm_small,
-                "admm_big": admm_mod.admm_big}
+                "admm_big": admm_mod.admm_big, "condense_small": condense_mod.condense_small}
     total, flagship, defaults = dict.fromkeys(counters, 0), None, {}
     add = lambda launches: {k: total[k] + launches.get(k, 0) for k in total}
     for name in FLEETS:
@@ -2698,12 +2848,15 @@ def main() -> int:
     qp_runs = [qp[shape][f] for shape, forms in QP_FORMS.items() for f in forms]
     ex_runs = [ex[f] for f in EXPM_CASES]
     ad_runs = [ad[f"B{B}_n{n}_it{it}"] for B, n, it in ADMM_SHAPES]
+    cond_runs = [cond[f"{name}_b{B}"] for name, B in CONDENSE_SHAPES]
     kernels = (("boxqp_small", "mpc4quantum_tpu/ops/pallas_qp.py:42", qp_runs,
                 max(max(r["max_dz"], r["max_dy"]) for r in qp_runs)),
                ("expm_small", "mpc4quantum_tpu/ops/pallas_expm.py:64", ex_runs,
                 max(r["max_abs_err"] for r in ex_runs)),
                ("admm_big", "mpc4quantum_tpu/ops/pallas_qp.py:345", ad_runs,
-                max(r["max_abs_err"] for r in ad_runs)))
+                max(r["max_abs_err"] for r in ad_runs)),
+               ("condense_small", "none (XLA's contractions of model_along_traj and qp_data)",
+                cond_runs, max(r["max_rel_err"] for r in cond_runs)))
     emit({"gpu": gpu, "kernels": [
         {"name": name, "route": "cuda", "source": f"mpc4quantum_tpu_torch/csrc/{name}.cu",
          "replaces": replaces, "launches": total[name], "max_abs_err": err,

@@ -20,6 +20,7 @@ import torch
 
 from .kernels.admm_big import admm_big
 from .kernels.boxqp import boxqp_small
+from .kernels.condense import condense_small
 from .kernels.expm import expm_small
 from .mpc.fleet_runner import FleetRunner
 from .ops.expm import taylor_budget
@@ -244,7 +245,8 @@ def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.nd
     if not marginal.any():
         return {}
     t0 = time.perf_counter()
-    counters = {"boxqp_small": boxqp_small, "expm_small": expm_small, "admm_big": admm_big}
+    counters = {"boxqp_small": boxqp_small, "expm_small": expm_small, "admm_big": admm_big,
+                "condense_small": condense_small}
     before = {k: fn.launches for k, fn in counters.items()}
     idx = np.nonzero(marginal)[0]
     n = len(idx)

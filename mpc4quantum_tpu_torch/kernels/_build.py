@@ -41,6 +41,8 @@ _SIGNATURES = {
     # kinv, q, lb, ub, rho, x, z, y, x_out, z_out, y_out, ws, B, n, iters,
     # sigma, alpha, stream
     "mpc4q_admm_big": [_P] * 12 + [_I] * 3 + [_F] * 2 + [_P],
+    # A, N, X, U, x_init, X_bm, U_bm, Q, R, u_prev, P, q, lb, ub, w, M, args, stream
+    "mpc4q_condense_small": [_P] * 18,
     # B, size, query, out (5 ints): the launch plan of a call
     "mpc4q_expm_small_plan": [_I] * 3 + [_P],
     "mpc4q_admm_big_plan": [_I] * 3 + [_P],

@@ -41,7 +41,10 @@ cold init (`kinv_counts`).
 With `model_fns` (driver.ModelApplyFns) the step's linearization and the
 model prediction between measurements are the caller's (the row-sharded
 contractions of parallel/tensor.py); without it they are the dense
-ops.bilinear.model_along_traj and models.dmdc.predict.
+ops.bilinear.model_along_traj and models.dmdc.predict. On the card, a
+shared model at dim_x <= 16 and n <= 16 on the small-QP or chol route
+linearizes, condenses and assembles its QPs in one kernel launch an SQP
+iteration instead (kernels/condense.condense_small; `condense_route`).
 
 On the card a run's steps are replays of CUDA graphs that mpc/step_graphs.py
 captures once per signature of the run's inputs (process-wide, so `mpc()`
@@ -65,6 +68,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..kernels import condense as condense_kernel
 from ..kernels.boxqp import MAX_N as SMALL_MAX_N
 from ..models.dmdc import models_to, tile_lanes, tree_map
 from ..ops.bilinear import BilinearModel, model_along_traj
@@ -162,16 +166,40 @@ class FleetRunner:
         # done) whose guard fell back to the cold init; None without the carry
         self.kinv_counts: Optional[torch.Tensor] = None
 
+    def condense_route(self, bmodel: BilinearModel, dtype: torch.dtype,
+                       device: torch.device) -> str:
+        """Where an SQP iteration's model phase runs: "kernel", the one
+        launch of kernels/condense.condense_small, for a shared model without
+        model_fns on the small-QP or chol route, with complex64 states on the
+        card at shapes the kernel takes (dim_x <= 16, n <= 16); else
+        "plain", model_along_traj and qp_data."""
+        cfg = self.config
+        engages = (self.qp_kernel in ("small", "chol") and self.model_fns is None
+                   and not bmodel.per_lane and dtype == torch.complex64
+                   and torch.device(device).type == "cuda"
+                   and condense_kernel.fits(bmodel.dim_x, cfg.horizon * cfg.dim_u,
+                                            bmodel.polyu_dim))
+        return "kernel" if engages else "plain"
+
     def _sqp_iter(self, s: SQPState, ctx: StepContext, bmodel: BilinearModel, model_A, Q_s,
                   R_s, qp: BoxQPParams, single_shot: bool, kinv0=None):
-        """One SQP iteration of every lane: (the new state, the QP result)."""
+        """One SQP iteration of every lane: (the new state, the QP result).
+        On the kernel route (`condense_route`) the span sqp.linearize stays
+        empty: the linearization runs inside qp.condense's one launch."""
         H = self.config.horizon
+        route = self.condense_route(bmodel, s.Xg.dtype, s.Xg.device)
+        A_s = B_s = D_s = data = None
         with spans.span("sqp.iter"):
             with spans.span("sqp.linearize", events=True):
-                if self.model_fns is not None:
+                if route == "plain" and self.model_fns is not None:
                     A_s, B_s, D_s = self.model_fns.linearize(model_A, s.Xg[:, :, :H], s.Ug)
-                else:
+                elif route == "plain":
                     A_s, B_s, D_s = model_along_traj(bmodel, s.Xg[:, :, :H], s.Ug)
+            if route == "kernel":
+                with spans.span("qp.condense", events=True, route="kernel"):
+                    data = condense_kernel.condense_small(
+                        bmodel, s.Xg[:, :, :H], s.Ug, ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s,
+                        R_s, ctx.u_prev, self.sat, self.du)
             if self.qp_kernel == "lqr":
                 lres = lqr_quad_program(ctx.lift_x, ctx.X_ref, ctx.U_ref, Q_s, R_s, A_s, B_s,
                                         sat=self.sat, Delta_s=D_s)
@@ -190,7 +218,7 @@ class FleetRunner:
                                    Y_warm=s.y if seeded else None,
                                    rho_warm=s.rho if seeded else None, kinv0=kinv0,
                                    kernel=self.qp_kernel if self.qp_kernel in ("small", "big")
-                                   else None)
+                                   else None, data=data)
             s_new = sqp_update_from_qp(s, res, ctx.X_ref, ctx.U_ref, Q_s, R_s,
                                        single_shot, self.config.step_tol)
             return select(s.done, s, s_new), res

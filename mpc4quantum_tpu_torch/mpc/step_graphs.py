@@ -35,8 +35,8 @@ the private `FleetRunner._graphs` to False.
 Counters, as utils.profiling.host_flag.reads: StepGraphs.captures (graphs
 captured), StepGraphs.replays (graphs replayed), StepGraphs.eager (pieces
 run eagerly on the card, each on its first use before its capture). The
-kernels' launch counters (boxqp_small / admm_big / expm_small.launches)
-count each replay's launches and not the capture's.
+kernels' launch counters (boxqp_small / admm_big / expm_small /
+condense_small.launches) count each replay's launches and not the capture's.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ import torch
 from ..kernels import _graph
 from ..kernels.admm_big import admm_big
 from ..kernels.boxqp import boxqp_small
+from ..kernels.condense import condense_small
 from ..kernels.expm import expm_small
 from ..models.dmdc import tree_map
 from ..plants.base import Plant
@@ -61,7 +62,7 @@ from .driver import (Carry, SQPState, StepContext, advance, bilinear_model, reco
 # signatures whose graphs the cache keeps, the least recently used dropped first
 MAX_SIGNATURES = 8
 # the kernel wrappers whose `launches` a replay adds to
-_KERNELS = (boxqp_small, admm_big, expm_small)
+_KERNELS = (boxqp_small, admm_big, expm_small, condense_small)
 
 # the static buffers' names: the carry, the duals, the SQP state, the record row
 CARRY = tuple("c." + f for f in Carry._fields)

@@ -135,7 +135,7 @@ def objective_value(X, U, X_bm, U_bm, Q_s, R_s):
 def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, sat=None,
                  du=None, U_warm=None, params: BoxQPParams | None = None,
                  backend: str = "chol", Y_warm=None, rho_warm=None, kinv0=None,
-                 kernel: str | None = None) -> QPResult:
+                 kernel: str | None = None, data=None) -> QPResult:
     """Solve the lanes' LTV horizon tracking QPs (the reference's
     `quad_program`, batched).
 
@@ -161,23 +161,28 @@ def quad_program(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev=None, s
         solve (its QPResult.kinv), refreshed under params.ns_guard.
     :param kernel: on "ns", None = the size rule above; "small" or "big"
         forces that route (`boxqp_small` raises above n = 16 on the card).
+    :param data: None, or (P, q, lb, ub, w, M) condensed already (as
+        kernels/condense.condense_small gives them, in its own span
+        qp.condense) in place of qp_data on A_s, B_s, Delta_s; these may
+        then be None, unless a Riccati K-inverse on boxqp_big reads them.
     :return: QPResult with the exact rollout of the solved controls; `iters`
         on the chol backend only; `kinv` and `guard_cold` on boxqp_big.
     """
     if x_init.dim() == 1:
         one = lambda t: None if t is None or not torch.is_tensor(t) else t[None]
-        res = quad_program(x_init[None], X_bm, U_bm, Q_s, R_s, A_s[None], B_s[None],
-                           Delta_s[None], one(u_prev), sat, du, one(U_warm), params, backend,
+        res = quad_program(x_init[None], X_bm, U_bm, Q_s, R_s, one(A_s), one(B_s),
+                           one(Delta_s), one(u_prev), sat, du, one(U_warm), params, backend,
                            one(Y_warm), None if rho_warm is None else torch.as_tensor(
                                rho_warm, dtype=x_init.real.dtype, device=x_init.device).reshape(1),
-                           one(kinv0), kernel)
+                           one(kinv0), kernel, None if data is None else tuple(map(one, data)))
         return QPResult(*(None if t is None else t[0] for t in res))
     params = BoxQPParams() if params is None else params
     if backend not in QP_BACKENDS:
         raise ValueError(f"backend={backend!r} is not one of {QP_BACKENDS}")
-    with spans.span("qp.condense", events=True):
-        P, q, lb, ub, w, M = qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev,
-                                     sat, du)
+    if data is None:
+        with spans.span("qp.condense", events=True, route="plain"):
+            data = qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, Delta_s, u_prev, sat, du)
+    P, q, lb, ub, w, M = data
     x0 = None if U_warm is None else U_warm.transpose(1, 2).reshape(P.shape[0], -1).to(P.dtype)
     iters = kinv = guard_cold = None
     if backend == "chol":

@@ -25,7 +25,10 @@ The spans and their sites:
                  {"phase": "warm" | "steady", "graph": "replay" | "capture" | "eager"}
   sqp.iter       FleetRunner._sqp_iter
   sqp.linearize  the SQP iteration's linearization (events)
-  qp.condense    solvers/condense.qp_data inside quad_program (events)
+  qp.condense    the condensing, attrs {"route": "plain" | "kernel"}: plain,
+                 solvers/condense.qp_data inside quad_program; kernel,
+                 kernels/condense.condense_small in FleetRunner._sqp_iter,
+                 which also linearizes (sqp.linearize then stays empty) (events)
   qp.kinv        each round's K^-1 build of solvers/boxqp.solve_boxqp_fixed (events)
   plant.step     the plant step that FleetRunner.step hands to driver.advance (events)
   host.flag      the host's read in `host_flag`

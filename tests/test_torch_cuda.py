@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mpc4quantum_tpu_torch.kernels import _build
 from mpc4quantum_tpu_torch.kernels import admm_big as admm_mod
 from mpc4quantum_tpu_torch.kernels import expm as expm_mod
@@ -679,3 +680,93 @@ def test_cli_on_the_card(cuda, capsys):
     out = json.loads(capsys.readouterr().out)
     assert out["exit_code"] == 0 and out["n_valid"] == 20 and out["fidelity"] > 0.995
     assert (boxqp_small.launches - before[0], expm_small.launches - before[1]) == (0, 20)
+
+
+@pytest.mark.parametrize("case, B", [("not_state", 1), ("not_state", 16384), ("not_gate", 1024),
+                                     *((shape, B) for shape in chip_smoke.CONDENSE_MODELS
+                                       for B in (1, 333))])
+def test_condense_kernel_matches_plain(cuda, case, B):
+    """Each output of the one launch against model_along_traj + qp_data in
+    float32 on the card: the box to the bit, the rest to 1e-4 of each
+    output's largest entry (float32 sums in another order). The presets
+    reach the kernel's instances (4, 16) and (16, 16); chip_smoke's random
+    models of (dim_x, H, dim_u) each of the others, at one lane and at a
+    partial last block."""
+    from mpc4quantum_tpu_torch.kernels.condense import condense_small, condense_small_ref
+
+    p = chip_smoke.condense_input(case, B, device=cuda)
+    before = condense_small.launches
+    got = condense_small(**p)
+    ref = condense_small_ref(**p)
+    torch.cuda.synchronize()
+    assert condense_small.launches == before + 1
+    for k, a, b in zip(("P", "q", "lb", "ub", "w", "M"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, k
+        if k in ("lb", "ub"):
+            assert torch.equal(a, b), k
+        else:
+            scale = max(1.0, float(b.abs().max()))
+            assert float((a - b).abs().max()) <= 1e-4 * scale, k
+
+
+def test_condense_kernel_replays_as_launched(cuda):
+    """One kernel node a call, and a CUDA graph's replay equal to the eager
+    launch on the same inputs."""
+    from mpc4quantum_tpu_torch.kernels.condense import condense_small
+
+    p = chip_smoke.condense_input("not_state", 4096, seed=3, device=cuda)
+    assert graph_node_types(lambda: condense_small(**p)) == [0]
+    eager = condense_small(**p)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = condense_small(**p)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+def test_condense_kernel_refuses_what_it_does_not_take(cuda):
+    from mpc4quantum_tpu_torch.kernels.condense import condense_small
+    from mpc4quantum_tpu_torch.models.dmdc import tile_lanes
+    from mpc4quantum_tpu_torch.mpc.driver import bilinear_model
+    from mpc4quantum_tpu_torch import presets
+
+    p = chip_smoke.condense_input("not_state", 8, device=cuda)
+    before = condense_small.launches
+    sc = presets.not_state(device=cuda)
+    with pytest.raises(ValueError, match="shared model"):
+        condense_small(**{**p, "model": bilinear_model(tile_lanes(sc.model, 8), sc.config)})
+    with pytest.raises(ValueError, match="complex64"):
+        condense_small(**{**p, "X": p["X"].to(torch.complex128)})
+    assert condense_small.launches == before
+
+
+def test_flagship_fleet_on_the_condense_kernel(cuda, monkeypatch):
+    """not_state at B 16384 with the model phase in the kernel (its steps
+    captured) against the plain route (model_along_traj + qp_data, eager,
+    so no graph of the kernel's route is replayed): one launch an SQP
+    iteration (7 + 1 + 18), exit codes equal, final fidelities within 1e-5."""
+    from mpc4quantum_tpu_torch import presets
+    from mpc4quantum_tpu_torch.benchfleet import fleet_fidelity, make_runner
+    from mpc4quantum_tpu_torch.kernels.condense import condense_small
+    from mpc4quantum_tpu_torch.mpc.fleet_runner import FleetRunner
+    from mpc4quantum_tpu_torch.parallel.fleet import make_scenario_batch
+
+    sc = presets.not_state(device=cuda)
+    plants = make_scenario_batch(sc.plant, 16384, generator=torch.Generator().manual_seed(4))
+    runner = make_runner(sc, plants)
+    go = lambda: runner.run(sc.x0, sc.model, plants, sc.X_targ, sc.U_targ, sc.Q, sc.R, sc.Qf)
+    before = condense_small.launches
+    kernel = go()
+    torch.cuda.synchronize()
+    assert condense_small.launches - before == 26
+    monkeypatch.setattr(FleetRunner, "condense_route", lambda self, *a: "plain")
+    runner._graphs = False
+    before = condense_small.launches
+    plain = go()
+    torch.cuda.synchronize()
+    assert condense_small.launches == before
+    assert torch.equal(kernel["exit_code"], plain["exit_code"])
+    dfid = fleet_fidelity(sc, kernel["final_x"]) - fleet_fidelity(sc, plain["final_x"])
+    assert float(np.abs(dfid).max()) <= 1e-5

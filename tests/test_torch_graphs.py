@@ -23,6 +23,7 @@ from mpc4quantum_tpu_torch import mpc, presets
 from mpc4quantum_tpu_torch.benchfleet import make_runner, rescue_pass
 from mpc4quantum_tpu_torch.kernels.admm_big import admm_big
 from mpc4quantum_tpu_torch.kernels.boxqp import boxqp_small
+from mpc4quantum_tpu_torch.kernels.condense import condense_small
 from mpc4quantum_tpu_torch.kernels.expm import expm_small
 from mpc4quantum_tpu_torch.mpc import step_graphs
 from mpc4quantum_tpu_torch.mpc.driver import ModelApplyFns
@@ -283,7 +284,8 @@ CARD = {"flagship_b64": ("not_state", 64, None, {}),
 
 
 def _launches():
-    return (boxqp_small.launches, admm_big.launches, expm_small.launches)
+    return (boxqp_small.launches, admm_big.launches, expm_small.launches,
+            condense_small.launches)
 
 
 @pytest.mark.cuda

@@ -443,7 +443,8 @@ def test_rescue_matches_jax():
     moved = (out["final_x"] - out_main["final_x"]).abs().amax(dim=1) > 1e-6
     assert int(moved.sum()) == m["rescue_improved"] >= 1
     assert m["fidelity_min"] >= m_main["fidelity_min"]
-    assert m["rescue_launches"] == {"boxqp_small": 0, "expm_small": 0, "admm_big": 0}
+    assert m["rescue_launches"] == {"boxqp_small": 0, "expm_small": 0, "admm_big": 0,
+                                    "condense_small": 0}
     assert m["rescue_s"] > 0 and m["rollouts_per_s"] > 0
 
 

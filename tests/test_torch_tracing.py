@@ -46,6 +46,8 @@ EVENT_TIMED = ("model_stream_ms_per_step.fleet", "kinv_stream_ms_per_step.fleet"
                "plant_stream_ms_per_step.fleet")
 # the readers of the steps' graph attribute: off the card every step is eager
 GRAPH_METRICS = ("graph_replay_pct.fleet", "graph_replay_pct.rollout")
+# the reader of the condensing's route attribute: off the card every one is plain
+ROUTE_METRICS = ("condense_kernel_pct.fleet",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -224,7 +226,7 @@ def readings(tmp_path_factory):
 
 
 def test_readers_read_their_cells(readings):
-    assert len(SPAN_METRICS) == 8
+    assert len(SPAN_METRICS) == 9
     for m in SPAN_METRICS:
         for cell_name in CELLS:
             off_card, timed, _ = readings[cell_name]
@@ -234,7 +236,7 @@ def test_readers_read_their_cells(readings):
                 value = timed[m["name"]]
             else:
                 value = off_card[m["name"]]
-            if listed and m["name"] in GRAPH_METRICS:
+            if listed and m["name"] in GRAPH_METRICS + ROUTE_METRICS:
                 assert value == 0.0, (m["name"], cell_name)
             elif listed:
                 assert value is not None and value > 0, (m["name"], cell_name)

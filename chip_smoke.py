@@ -213,8 +213,8 @@ RESCUE = dict(lanes=6, steps=20, tol=1e-4,
                         "condense_small": 0})
 # The two scenarios of no preset that the JAX package runs as any Scenario
 # (8 warm SQP iterations, cold duals, their own 3x300 in both phases),
-# built from the port's constructors (damped_pair_scenario,
-# cnot_h80_scenario): damped_pair, cnot_state's pair with amplitude damping
+# built from the port's constructors (presets.damped_pair_scenario,
+# presets.cnot_h80_scenario): damped_pair, cnot_state's pair with amplitude damping
 # (every plant step one expm_small launch at d 16, its tile instance, QP n
 # 150), and cnot_h80, cnot_state at horizon 80 (QP n 240, admm_big's
 # cluster instance). At
@@ -225,7 +225,7 @@ RESCUE = dict(lanes=6, steps=20, tol=1e-4,
 # equal (the float32 closed loop of cnot_state tracks float64 to 1e-4
 # over 60 steps and branches between steps 70 and 100). Two more at full
 # width launch the last two kernel instances: damped_chain4
-# (damped_chain4_scenario: four damped qubits, every plant step one
+# (presets.damped_chain4_scenario: four damped qubits, every plant step one
 # expm_small launch at d 256 in its cluster2d instance at the budget (12, 4)
 # expm_budget_for gives the chain; QP n 32, 6 steps, the default 2x150) at
 # B 128, whose float32 closed loop branches from float64 in step 1's eight
@@ -235,7 +235,7 @@ RESCUE = dict(lanes=6, steps=20, tol=1e-4,
 # (tests/test_torch_large.py::test_chain_float32_branches_in_jax_too), so
 # its first step is held to 1e-5 of float64 (tracking) and the final
 # fidelity of all 6 steps to 5e-2, exit codes equal; and cnot_h250
-# (cnot_h250_scenario: QP n 750, admm_big's cluster instance at 10 CTAs a
+# (presets.cnot_h250_scenario: QP n 750, admm_big's cluster instance at 10 CTAs a
 # lane, 0 / 200 / 642 launches a run) at B 16, 2 lanes over 6 steps held
 # to float64 (cut from cnot_h80's 4 x 12: its 642 cold Newton-Schulz K^-1
 # builds at n 750 make the float64 CPU run about 30 s a lane-step on one
@@ -494,14 +494,8 @@ INSTANCE_COUNT = 4 + (5 + 1 + 2) + (7 + 25 + 1 + 3 + 1) + 2
 CONDENSE_SHAPES = (("not_state", 16384), ("not_state", 1), ("not_state", 131072),
                    ("not_gate", 1024))
 CONDENSE_TOL = 1e-4
-# and at random shared models of (dim_x, H, dim_u), order 2, one for each
-# of the kernel's 15 instances (DX, W) (DX the power of two >= dim_x, W that
-# >= max(dim_x, n = H dim_u); of them the presets reach only (4, 16) and
-# (16, 16)), at B 333, a partial last block; (3, 5, 2) is the shape of the
-# CPU tests' two-control model
-CONDENSE_MODELS = ((1, 1, 1), (1, 2, 1), (1, 2, 2), (1, 7, 1), (1, 5, 3), (2, 1, 2),
-                   (2, 3, 1), (2, 4, 2), (2, 12, 1), (3, 4, 1), (4, 3, 2), (3, 5, 2),
-                   (5, 7, 1), (8, 8, 2), (9, 3, 3))
+# and at its random shared models (kernels/condense.CONDENSE_MODELS) at B 333,
+# a partial last block
 CONDENSE_MODEL_BATCH = 333
 # every plan the kernel library computes against the Python one
 PLAN_BATCHES = (1, 4, 16, 128, 1024, BATCH)
@@ -1084,49 +1078,6 @@ def time_kernels(root: Path) -> int:
     return 0
 
 
-def condense_input(case, B: int, seed: int = 0, device=DEVICE, dtype=torch.float32) -> dict:
-    """condense_small's arguments: at a preset's shapes (`case` its name),
-    its model, costs and a window of its targets; at a random shared model
-    (`case` (dim_x, H, dim_u), order 2: A of norm 0.9, Q not Hermitian nor
-    R symmetric, so an exchange of a transpose for the other shows), its own
-    costs and targets, sat 0.5 and du 0.2. Random guesses within the box,
-    the guess X a view of a (B, dim_x, H + 1) tensor, as the runner hands it
-    over."""
-    from mpc4quantum_tpu_torch import presets
-    from mpc4quantum_tpu_torch.mpc.driver import bilinear_model
-    from mpc4quantum_tpu_torch.ops.bilinear import BilinearModel
-    from mpc4quantum_tpu_torch.ops.library import size_of_library
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    real = lambda *s: torch.randn(s, generator=g, device=device, dtype=dtype)
-    cx = lambda *s: torch.complex(real(*s), real(*s))
-    if isinstance(case, str):
-        sc = presets.PRESETS[case](device=device, dtype=dtype)
-        model = bilinear_model(sc.model, sc.config)
-        H, dim_x, dim_u = sc.config.horizon, model.dim_x, model.dim_u
-        sat, du = sc.sat, sc.du
-        X_bm, U_bm = sc.X_targ[:, 3:H + 4], sc.U_targ[:, 3:H + 3]
-        Q_s = torch.cat([sc.Q.expand(H, -1, -1), sc.Qf[None]], dim=0).to(model.A.dtype)
-        R_s = sc.R.expand(H, -1, -1)
-    else:
-        dim_x, H, dim_u = case
-        Lm = size_of_library(2, dim_u) - 1
-        A = cx(dim_x, dim_x)
-        model = BilinearModel(A=0.9 * A / torch.linalg.matrix_norm(A, 2),
-                              N=0.3 * cx(dim_x, Lm, dim_x), dim_u=dim_u, order=2)
-        sat, du = 0.5, 0.2
-        X_bm, U_bm = 0.5 * cx(dim_x, H + 1), 0.2 * real(dim_u, H)
-        G = cx(H + 1, dim_x, dim_x)
-        Q_s = G @ G.mH / dim_x + 0.2 * cx(H + 1, dim_x, dim_x)
-        Rg = real(H, dim_u, dim_u)
-        R_s = Rg @ Rg.mT + 0.1 * torch.eye(dim_u, device=device, dtype=dtype) \
-            + 0.2 * real(H, dim_u, dim_u)
-    uni = lambda *s: (torch.rand(s, generator=g, device=device, dtype=dtype) * 2 - 1) * sat
-    return dict(model=model, X=0.5 * cx(B, dim_x, H + 1)[:, :, :H], U=uni(B, dim_u, H),
-                x_init=0.5 * cx(B, dim_x), X_bm=X_bm, U_bm=U_bm, Q_s=Q_s, R_s=R_s,
-                u_prev=uni(B, dim_u), sat=sat, du=du)
-
-
 def phase_condense(condense_mod, graph_node_types, floor_us) -> dict:
     """condense_small at CONDENSE_SHAPES and CONDENSE_MODELS: one kernel on
     the card a call (the nodes of a CUDA graph captured from it), each
@@ -1136,9 +1087,9 @@ def phase_condense(condense_mod, graph_node_types, floor_us) -> dict:
     rec = {"phase": "condense_small", "gpu": smi_line(), "launch_floor_us": floor_us,
            "tolerance": CONDENSE_TOL}
     cases = [(name, B, True) for name, B in CONDENSE_SHAPES] + [
-        (shape, CONDENSE_MODEL_BATCH, False) for shape in CONDENSE_MODELS]
+        (shape, CONDENSE_MODEL_BATCH, False) for shape in condense_mod.CONDENSE_MODELS]
     for case, B, timed in cases:
-        p = condense_input(case, B)
+        p = condense_mod.condense_input(case, B)
         model = p["model"]
         label = case if timed else "x{}_h{}_u{}".format(*case)
         call_k = lambda: condense_mod.condense_small(**p)
@@ -1599,157 +1550,12 @@ def single_problem(systems, torch_mods, dt, device, dtype):
     return cx(x0), args, MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=1, order=2), sat
 
 
-def three_qubit_problem(device, dtype, detune: float = 0.99, coupling: float = 0.1):
-    """The 3-qubit (dim_s 8, dim_x 64) state preparation |000> -> |111> of
-    the JAX package's tensor-parallel tests (tests/test_tensor_parallel.py
-    `make_3q_scenario`), built in the port: ZZ couplings, X drives, the
-    order-1 discretization at dt 0.5, horizon 8, 6 steps, sat 2.5, the
-    start rotated by 1e-2 on each qubit. :return: (mpc keyword arguments
-    with the nominal plant, the target state (64,))."""
-    from mpc4quantum_tpu_torch import MPCConfig, QuantumPlant
-    from mpc4quantum_tpu_torch.models.dmdc import dmdc_from_operator
-    from mpc4quantum_tpu_torch.ops.liouville import discretize_homogeneous, liouville_generator
-
-    X = np.array([[0, 1], [1, 0]], complex)
-    Z = np.array([[1, 0], [0, -1]], complex)
-    I = np.eye(2, dtype=complex)
-    kron3 = lambda a, b, c: np.kron(np.kron(a, b), c)
-    H0 = 0.5 * coupling * (kron3(Z, Z, I) + kron3(I, Z, Z))
-    H1s = [0.5 * kron3(X, I, I), 0.5 * kron3(I, X, I), 0.5 * kron3(I, I, X)]
-    dt, H, n_steps, order = 0.5, 8, 6, 1
-    A_dst = discretize_homogeneous([liouville_generator(h) for h in [H0] + H1s], dt, order)
-    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
-    cx = lambda a: torch.as_tensor(np.asarray(a)).to(device, cdt)
-    model = dmdc_from_operator(cx(A_dst), 64, 64, A_dst.shape[1] - 64)
-    plant = QuantumPlant.create(detune * H0, H1s, device=device, dtype=dtype)
-    th = 1e-2
-    R1 = np.array([[np.cos(th / 2), -1j * np.sin(th / 2)], [-1j * np.sin(th / 2), np.cos(th / 2)]])
-    R = kron3(R1, R1, R1)
-    rho0 = np.zeros((8, 8), complex)
-    rho0[0, 0] = 1.0
-    rho0 = R @ rho0 @ R.conj().T
-    targ = np.zeros((8, 8), complex)
-    targ[7, 7] = 1.0
-    Qd = np.zeros(64)
-    Qd[[0, 63]] = 1.0
-    Q = cx(np.diag(Qd))
-    args = dict(x0=cx(rho0.flatten()), model_state=model, plant=plant,
-                X_targ=cx(np.tile(targ.flatten()[:, None], (1, n_steps + H + 1))),
-                U_targ=torch.zeros((3, n_steps + H), dtype=dtype, device=device), Q=Q,
-                R=torch.eye(3, dtype=dtype, device=device) * 1e-2, Qf=Q,
-                config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=3, order=order),
-                sat=2.5, du=None)
-    return args, cx(targ.flatten())
-
-
-def damped_pair_scenario(device, dtype, gamma: float = 0.005):
-    """cnot_state's coupled pair on an open system, built from the port's
-    public constructors as a user would build it (no preset of its own):
-    amplitude damping sqrt(gamma) sigma_- on each qubit in the model (the
-    exact order-2 discretization of the Lindbladian drift and the three
-    Hamiltonian controls, dim_x 16) and in the plant (`LindbladPlant`, a
-    16 x 16 Liouvillian per step), everything else as cnot_state: the
-    ramped target, dt 0.25, H 50 (QP n 150), 200 steps, sat 2 pi 0.05, QP
-    eps 1e-8 at 3x300. Its name is in no tuning table, so the fleet runs it
-    as the reference runs any Scenario: 8 warm SQP iterations, cold duals,
-    its own 3x300 in both phases."""
-    from mpc4quantum_tpu_torch import presets, systems
-    from mpc4quantum_tpu_torch.ops.liouville import (discretize_homogeneous, lindblad_generator,
-                                                     liouville_generator)
-    from mpc4quantum_tpu_torch.plants.lindblad import LindbladPlant
-
-    cnot = presets.cnot_state(order=2, device="cpu", dtype=torch.float64)
-    H_list = systems.RWACoupled().H_list
-    sminus = np.sqrt(gamma) * np.array([[0.0, 1.0], [0.0, 0.0]], complex)
-    c_ops = [np.kron(sminus, np.eye(2)), np.kron(np.eye(2), sminus)]
-    A = discretize_homogeneous([lindblad_generator(H_list[0], c_ops)]
-                               + [liouville_generator(h) for h in H_list[1:]],
-                               cnot.config.dt, 2)
-    plant = LindbladPlant.create(H_list[0], H_list[1:], c_ops=c_ops)
-    a = lambda t: t.numpy()
-    return presets.scenario_from_arrays(
-        "damped_pair", x0=a(cnot.x0), A=A.numpy(), X_targ=a(cnot.X_targ), U_targ=a(cnot.U_targ),
-        Q=a(cnot.Q), R=a(cnot.R), Qf=a(cnot.Qf), sat=cnot.sat, du=cnot.du,
-        target_state=a(cnot.target_state), config=cnot.config, plant=plant, device=device,
-        dtype=dtype)
-
-
-def cnot_h80_scenario(device, dtype, horizon: int = 80, name: str = "cnot_h80"):
-    """cnot_state at order 2 with a longer horizon (QP n = 3 horizon, 240
-    at 80): its targets rebuilt for n_steps + horizon + 1 columns with the
-    same incline min(1, 2k / n_steps), named `name`, which no tuning table
-    knows (8 warm SQP iterations, cold duals, its own 3x300)."""
+def damped_chain4_scenario(device, dtype, **kw):
+    """presets.damped_chain4_scenario, under the name the benchmark's own
+    tests read."""
     from mpc4quantum_tpu_torch import presets
 
-    sc = presets.cnot_state(order=2, device=device, dtype=dtype)
-    n = sc.config.n_steps
-    incline = torch.tensor([min(1.0, 2 * k / n) for k in range(n + horizon + 1)],
-                           dtype=sc.U_targ.dtype, device=sc.U_targ.device)
-    return dataclasses.replace(
-        sc, name=name,
-        X_targ=sc.target_state[:, None] * incline[None, :].to(sc.X_targ.dtype),
-        U_targ=torch.zeros((sc.config.dim_u, n + horizon), dtype=sc.U_targ.dtype,
-                           device=sc.U_targ.device),
-        config=dataclasses.replace(sc.config, horizon=horizon))
-
-
-def cnot_h250_scenario(device, dtype):
-    """cnot_state at horizon 250 (QP n 750, admm_big's cluster instance at
-    10 CTAs a lane): a window that spans the whole 50-unit entangling gate."""
-    return cnot_h80_scenario(device, dtype, horizon=250, name="cnot_h250")
-
-
-def damped_chain4_scenario(device, dtype, gamma: float = 0.005, coupling: float = 0.1):
-    """The JAX tests' three-qubit problem (three_qubit_problem) extended to a
-    chain of four qubits and damped, built from the port's public
-    constructors (no preset of its own): H0 = 0.05 (Z1 Z2 + Z2 Z3 + Z3 Z4), a
-    0.5 X drive on each qubit (4 controls), amplitude damping sqrt(gamma)
-    sigma_- on each qubit in the model (the order-1 discretization of the
-    Lindbladian drift and the four Hamiltonian controls, dim_x 256) and in the
-    plant (`LindbladPlant`, a 256 x 256 Liouvillian a step: expm_small's
-    cluster2d instance); |0000> -> |1111> from a start rotated by 1e-2 on
-    each qubit, Q on the two populations, R 1e-2 I, sat 2.5, dt 0.5, horizon
-    8 (QP n 32), 6 steps, the default QP budget."""
-    from mpc4quantum_tpu_torch import MPCConfig, presets
-    from mpc4quantum_tpu_torch.ops.liouville import (discretize_homogeneous, lindblad_generator,
-                                                     liouville_generator)
-    from mpc4quantum_tpu_torch.plants.lindblad import LindbladPlant
-
-    X = np.array([[0, 1], [1, 0]], complex)
-    Z = np.array([[1, 0], [0, -1]], complex)
-    sminus = np.sqrt(gamma) * np.array([[0.0, 1.0], [0.0, 0.0]], complex)
-
-    def on(ops: dict) -> np.ndarray:
-        """The four-qubit operator with ops[k] on qubit k, the identity elsewhere."""
-        out = np.eye(1, dtype=complex)
-        for k in range(4):
-            out = np.kron(out, ops.get(k, np.eye(2, dtype=complex)))
-        return out
-
-    H0 = 0.5 * coupling * sum(on({k: Z, k + 1: Z}) for k in range(3))
-    H1s = [0.5 * on({k: X}) for k in range(4)]
-    c_ops = [on({k: sminus}) for k in range(4)]
-    th = 1e-2
-    R1 = np.array([[np.cos(th / 2), -1j * np.sin(th / 2)], [-1j * np.sin(th / 2), np.cos(th / 2)]])
-    R = on({k: R1 for k in range(4)})
-    rho0 = np.zeros((16, 16), complex)
-    rho0[0, 0] = 1.0
-    rho0 = R @ rho0 @ R.conj().T
-    targ = np.zeros((16, 16), complex)
-    targ[15, 15] = 1.0
-    Qd = np.zeros(256)
-    Qd[[0, 255]] = 1.0
-    dt, H, n_steps, order = 0.5, 8, 6, 1
-    A = discretize_homogeneous([lindblad_generator(H0, c_ops)]
-                               + [liouville_generator(h) for h in H1s], dt, order)
-    plant = LindbladPlant.create(H0, H1s, c_ops=c_ops)
-    return presets.scenario_from_arrays(
-        "damped_chain4", x0=rho0.flatten(), A=A.numpy(),
-        X_targ=np.tile(targ.flatten()[:, None], (1, n_steps + H + 1)),
-        U_targ=np.zeros((4, n_steps + H)), Q=np.diag(Qd), R=np.eye(4) * 1e-2, Qf=np.diag(Qd),
-        sat=2.5, du=None, target_state=targ.flatten(),
-        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=4, order=order), plant=plant,
-        device=device, dtype=dtype)
+    return presets.damped_chain4_scenario(device, dtype, **kw)
 
 
 def phase_train_then_control(systems, torch_mods, counters, host_flag) -> dict:
@@ -2535,6 +2341,7 @@ def phase_tp_3q(port, counters, host_flag, tensor) -> dict:
     wall time (after a warm-up run of each); 8 lanes again in float64 on
     the CPU."""
     from mpc4quantum_tpu_torch.ops.expm import taylor_budget
+    from mpc4quantum_tpu_torch.presets import three_qubit_problem
 
     B, lanes = TP3Q["batch"], TP3Q["parity_lanes"]
     args, targ = three_qubit_problem(DEVICE, torch.float32)
@@ -2799,9 +2606,10 @@ def main() -> int:
     for name in ("mpc_complex", "mpc_embedded", "batched_complex", "batched_embedded"):
         total = add(rec[name]["launches"])
     phase_rescue(presets, run_hostloop_fleet, fleet_fidelity, counters)
-    for name, make in (("damped_pair", damped_pair_scenario), ("cnot_h80", cnot_h80_scenario),
-                       ("damped_chain4", damped_chain4_scenario),
-                       ("cnot_h250", cnot_h250_scenario)):
+    for name, make in (("damped_pair", presets.damped_pair_scenario),
+                       ("cnot_h80", presets.cnot_h80_scenario),
+                       ("damped_chain4", presets.damped_chain4_scenario),
+                       ("cnot_h250", presets.cnot_h250_scenario)):
         rec = phase_slice_fleet(name, make, make_runner, run_hostloop_fleet, fleet_fidelity,
                                 counters)
         total = add(rec["launches"])

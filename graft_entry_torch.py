@@ -61,8 +61,9 @@ def entry(device="cuda", dtype=torch.float32):
     tensors, and the plant is noiseless.
     """
     from mpc4quantum_tpu_torch.models.dmdc import dmdc_from_operator
-    from mpc4quantum_tpu_torch.mpc.driver import Carry, bilinear_model, record_row
+    from mpc4quantum_tpu_torch.mpc.driver import Carry
     from mpc4quantum_tpu_torch.mpc.fleet_runner import FleetRunner
+    from mpc4quantum_tpu_torch.mpc.step_graphs import Eager
     from mpc4quantum_tpu_torch.ops.expm import taylor_budget
 
     sc = flagship(device=device, dtype=dtype)
@@ -83,10 +84,10 @@ def entry(device="cuda", dtype=torch.float32):
         carry = Carry(x_cur=x0[None], x_true=x0[None].clone(), X_guess=X_guess[None],
                       U_guess=U_guess[None], u_last=zeros(1, dim_u),
                       exit_code=zeros(1, dt=torch.int32), done=zeros(1, dt=torch.bool))
-        carry_new, _, _, s, _ = runner.step(0, carry, (zeros(1, H * dim_u), zeros(1)), model,
-                                            bilinear_model(model, config), plants,
-                                            sc.X_targ, sc.U_targ, Q_s, R_s)
-        return carry_new.x_cur[0], record_row(carry, s)[0][0]
+        carry_new, _, _, row = runner.step(Eager(plants, model, Q_s, R_s), 0, carry,
+                                           (zeros(1, H * dim_u), zeros(1)), sc.X_targ,
+                                           sc.U_targ, record=True)
+        return carry_new.x_cur[0], row[0][0]
 
     example_args = (sc.x0, sc.model.A, sc.x0[:, None].expand(dim_x, H + 1).clone(),
                     torch.zeros((dim_u, H), dtype=dtype, device=sc.x0.device))

@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from ..ops.bilinear import BilinearModel, model_along_traj
+from ..ops.library import size_of_library
 from ..solvers.condense import qp_data
 from . import _build
 
@@ -77,6 +78,56 @@ def condense_small_ref(model: BilinearModel, X, U, x_init, X_bm, U_bm, Q_s, R_s,
     device and dtype. :return: (P, q, lb, ub, w, M)."""
     A_s, B_s, D_s = model_along_traj(model, X, U)
     return qp_data(x_init, X_bm, U_bm, Q_s, R_s, A_s, B_s, D_s, u_prev, sat, du)
+
+
+# random shared models of (dim_x, H, dim_u), order 2, one for each of the
+# kernel's 15 instances (DX, W) (DX the power of two >= dim_x, W that >=
+# max(dim_x, n = H dim_u); of them the presets reach only (4, 16) and
+# (16, 16)); (3, 5, 2) is the shape of the CPU tests' two-control model
+CONDENSE_MODELS = ((1, 1, 1), (1, 2, 1), (1, 2, 2), (1, 7, 1), (1, 5, 3), (2, 1, 2),
+                   (2, 3, 1), (2, 4, 2), (2, 12, 1), (3, 4, 1), (4, 3, 2), (3, 5, 2),
+                   (5, 7, 1), (8, 8, 2), (9, 3, 3))
+
+
+def condense_input(case, B: int, seed: int = 0, device="cuda", dtype=torch.float32) -> dict:
+    """condense_small's arguments: at a preset's shapes (`case` its name),
+    its model, costs and a window of its targets; at a random shared model
+    (`case` (dim_x, H, dim_u), order 2: A of norm 0.9, Q not Hermitian nor
+    R symmetric, so an exchange of a transpose for the other shows), its own
+    costs and targets, sat 0.5 and du 0.2. Random guesses within the box,
+    the guess X a view of a (B, dim_x, H + 1) tensor, as the runner hands it
+    over."""
+    from .. import presets
+    from ..mpc.driver import bilinear_model
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    real = lambda *s: torch.randn(s, generator=g, device=device, dtype=dtype)
+    cx = lambda *s: torch.complex(real(*s), real(*s))
+    if isinstance(case, str):
+        sc = presets.PRESETS[case](device=device, dtype=dtype)
+        model = bilinear_model(sc.model, sc.config)
+        H, dim_x, dim_u = sc.config.horizon, model.dim_x, model.dim_u
+        sat, du = sc.sat, sc.du
+        X_bm, U_bm = sc.X_targ[:, 3:H + 4], sc.U_targ[:, 3:H + 3]
+        Q_s = torch.cat([sc.Q.expand(H, -1, -1), sc.Qf[None]], dim=0).to(model.A.dtype)
+        R_s = sc.R.expand(H, -1, -1)
+    else:
+        dim_x, H, dim_u = case
+        Lm = size_of_library(2, dim_u) - 1
+        A = cx(dim_x, dim_x)
+        model = BilinearModel(A=0.9 * A / torch.linalg.matrix_norm(A, 2),
+                              N=0.3 * cx(dim_x, Lm, dim_x), dim_u=dim_u, order=2)
+        sat, du = 0.5, 0.2
+        X_bm, U_bm = 0.5 * cx(dim_x, H + 1), 0.2 * real(dim_u, H)
+        G = cx(H + 1, dim_x, dim_x)
+        Q_s = G @ G.mH / dim_x + 0.2 * cx(H + 1, dim_x, dim_x)
+        Rg = real(H, dim_u, dim_u)
+        R_s = Rg @ Rg.mT + 0.1 * torch.eye(dim_u, device=device, dtype=dtype) \
+            + 0.2 * real(H, dim_u, dim_u)
+    uni = lambda *s: (torch.rand(s, generator=g, device=device, dtype=dtype) * 2 - 1) * sat
+    return dict(model=model, X=0.5 * cx(B, dim_x, H + 1)[:, :, :H], U=uni(B, dim_u, H),
+                x_init=0.5 * cx(B, dim_x), X_bm=X_bm, U_bm=U_bm, Q_s=Q_s, R_s=R_s,
+                u_prev=uni(B, dim_u), sat=sat, du=du)
 
 
 def _checked(t: torch.Tensor, name: str, shape: tuple, dtype) -> torch.Tensor:

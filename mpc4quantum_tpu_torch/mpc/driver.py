@@ -182,15 +182,26 @@ def bilinear_model(model, config: MPCConfig) -> BilinearModel:
                                       config.dim_u, config.order)
 
 
+def window(step: int, config: MPCConfig, X_targ, U_targ):
+    """Step `step`'s tracking window: (X_ref (dim_x, H + 1), U_ref (dim_u,
+    H)) from column max(step - 1, 0)."""
+    H = config.horizon
+    start = max(step - 1, 0)
+    return X_targ[:, start:start + H + 1], U_targ[:, start:start + H]
+
+
+def slew_anchor(step: int, U_ref, u_last):
+    """The control the first-step slew box is anchored at: the window's
+    benchmark control on steps 0 and 1, the last applied one after."""
+    return u_last if step > 1 else U_ref[:, 0].expand_as(u_last)
+
+
 def context(carry: Carry, step: int, config: MPCConfig, X_targ, U_targ,
             plants: Plant) -> StepContext:
     """Per-step quantities shared by the SQP iterations and the advance."""
-    H = config.horizon
-    start = max(step - 1, 0)
-    X_ref = X_targ[:, start:start + H + 1]
-    U_ref = U_targ[:, start:start + H]
-    u_prev = carry.u_last if step > 1 else U_ref[:, 0].expand_as(carry.u_last)
-    return StepContext(X_ref, U_ref, plants.lift(carry.x_cur), u_prev)
+    X_ref, U_ref = window(step, config, X_targ, U_targ)
+    return StepContext(X_ref, U_ref, plants.lift(carry.x_cur),
+                       slew_anchor(step, U_ref, carry.u_last))
 
 
 def sqp_init(carry: Carry, duals) -> SQPState:

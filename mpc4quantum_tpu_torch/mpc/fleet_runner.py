@@ -46,9 +46,11 @@ shared model at dim_x <= 16 and n <= 16 on the small-QP or chol route
 linearizes, condenses and assembles its QPs in one kernel launch an SQP
 iteration instead (kernels/condense.condense_small; `condense_route`).
 
-On the card a run's steps are replays of CUDA graphs that mpc/step_graphs.py
-captures once per signature of the run's inputs (process-wide, so `mpc()`
-captures once); a run stays eager off the card, with model_fns, with a
+`FleetRunner.step` is the one description of a step. It runs three pieces
+(begin; iter, once per SQP iteration; end: the record row and the advance)
+through the run's executor (mpc/step_graphs.py): on the card the replays of
+CUDA graphs captured once per signature of the run's inputs (process-wide,
+so `mpc()` captures once); plain calls off the card, with model_fns, with a
 streaming refit and on the chol QP.
 
 All state stays on the plants' device; the loop makes no host copy. With a
@@ -81,19 +83,25 @@ from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.profiling import host_flag, spans
 from . import step_graphs
 from .driver import (Carry, ModelApplyFns, MPCConfig, MPCResult, SQPState, StepContext,
-                     advance, bilinear_model, context, lqr_seed_guess, record_row, select,
-                     sqp_init, sqp_update_from_qp)
+                     advance, bilinear_model, lqr_seed_guess, record_row, select, slew_anchor,
+                     sqp_init, sqp_update_from_qp, window)
 
 
 # the kernel choices of the "ns" route (FleetRunner's qp_kernel)
 QP_KERNELS = ("auto", "small", "big")
+# the named tensors of a step that pass between its pieces: the carry, the
+# duals, the SQP state, the record row
+CARRY = tuple("c." + f for f in Carry._fields)
+DUALS = ("d.y", "d.rho")
+SQP = tuple("s." + f for f in SQPState._fields)
+ROW = ("row.u", "row.obj", "row.iters", "row.active")
 
 
 class FleetRunner:
     """Receding-horizon MPC over a lane batch; build once, `run` any number
     of times. Every steady (single-shot) QP starts from the previous
-    solve's shifted dual and rho. On the card a run's steps replay CUDA
-    graphs captured once per signature (mpc/step_graphs.py)."""
+    solve's shifted dual and rho. A step's pieces run through the run's
+    executor (mpc/step_graphs.py): replays of CUDA graphs on the card."""
 
     # capture the steps where the inputs allow it (step_graphs.eager_reason);
     # False (on an instance, or on the class for the runners that `mpc()` and
@@ -223,51 +231,118 @@ class FleetRunner:
                                        single_shot, self.config.step_tol)
             return select(s.done, s, s_new), res
 
-    def step(self, step: int, carry: Carry, duals, model, bmodel: BilinearModel, plants: Plant,
-             X_targ: torch.Tensor, U_targ: torch.Tensor, Q_s: torch.Tensor, R_s: torch.Tensor,
-             kinv=None, kinv_counts=None, **advance_kw):
-        """One receding-horizon step of every lane: the step's SQP (at a warm
-        step `warm_sqp_iters` cold iterations, else one single-shot
-        iteration from the carried `duals` and K-inverse), then
-        `driver.advance` with the runner's exit condition and model
-        functions (`advance_kw`: its noise_t, observe_fn, model_update_fn).
-
-        :param Q_s, R_s: (H + 1, dim_x, dim_x) and (H, dim_u, dim_u) costs.
-        :param kinv, kinv_counts: the K-inverse carry and its counts (`run`).
-        :return: (carry, duals, model, the step's SQPState, kinv).
-        """
+    def piece_keys(self, step: int, kinv) -> tuple:
+        """The pieces of step `step` as keys, each holding what its piece
+        reads of the step: begin; the SQP iteration, by single-shot, the slew
+        anchor (`slew_anchor`: step > 1) and a given K-inverse; end, by the
+        measurement branch of `driver.advance`."""
         cfg = self.config
         warm = step <= 1 or not cfg.warm_start
-        with spans.span("fleet.step", phase="warm" if warm else "steady", graph="eager"):
-            ctx = context(carry, step, cfg, X_targ, U_targ, plants)
-            s = sqp_init(carry, duals)
+        return (("begin",),
+                ("iter", not warm, step > 1, kinv is not None and not warm),
+                ("end", (step + 1) % cfg.measure_freq == 0))
+
+    def step(self, ex, step: int, carry: Carry, duals, X_targ: torch.Tensor,
+             U_targ: torch.Tensor, kinv=None, kinv_counts=None, noise_t=None, observe_fn=None,
+             model_update_fn=None, record: bool = False):
+        """One receding-horizon step of every lane: `_begin`, the step's SQP
+        (at a warm step `warm_sqp_iters` cold iterations, with `early_exit`
+        ended by a host read once every lane is done; else one single-shot
+        iteration from the carried `duals` and K-inverse), then `_end` (the
+        record row and `driver.advance`). Each piece runs on the step's named
+        tensors through `ex.piece`, which calls it or replays its capture.
+
+        :param ex: the executor of the run (step_graphs.for_run), holding
+            its plants, model and costs; or step_graphs.Eager(plants, model,
+            Q_s, R_s) with Q_s, R_s the (H + 1, dim_x, dim_x) and (H, dim_u,
+            dim_u) costs.
+        :param kinv, kinv_counts: the K-inverse carry and its counts (`run`).
+        :param noise_t, observe_fn, model_update_fn: as `driver.advance`'s.
+        :return: (carry, duals, kinv, the record row or None); a streaming
+            refit leaves the new model in ex.model.
+        """
+        keys = self.piece_keys(step, kinv)
+        warm = not keys[1][1]
+        v = dict(zip(CARRY, carry))
+        v.update(zip(DUALS, duals))
+        v["ctx.X_ref"], v["ctx.U_ref"] = window(step, self.config, X_targ, U_targ)
+        for name, t in (("noise_t", noise_t), ("kinv", kinv), ("counts", kinv_counts)):
+            if t is not None:
+                v[name] = t
+        with spans.span("fleet.step", phase="warm" if warm else "steady", graph=ex.mode(keys)):
+            ex.piece(keys[0], v, lambda u: self._begin(ex, u))
+            iterate = lambda u: self._iter(ex, u, step, keys[1])
             if warm:
                 n_it = self.warm_sqp_iters[min(step, len(self.warm_sqp_iters) - 1)]
                 for it in range(n_it):
-                    s, _ = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s, cfg.qp_params,
-                                          False)
-                    if self.early_exit and it + 1 < n_it and host_flag(s.done.all()):
+                    ex.piece(keys[1], v, iterate)
+                    if self.early_exit and it + 1 < n_it and host_flag(v["flag"]):
                         break
             else:
-                s, res = self._sqp_iter(s, ctx, bmodel, model.A, Q_s, R_s,
-                                        self.steady_qp_params, True, kinv0=kinv)
-                if self.carry_kinv:
-                    kinv = self._carry_kinv(kinv, res, carry.done, kinv_counts)
-            carry, duals, model = advance(carry, s, step, cfg, ctx, bmodel, model, plants,
-                                          self._plant_stepper(plants), self.exit_condition,
-                                          model_fns=self.model_fns, **advance_kw)
-            return carry, duals, model, s, kinv
+                ex.piece(keys[1], v, iterate)
+            ex.piece(keys[2], v,
+                     lambda u: self._end(ex, u, step, observe_fn, model_update_fn, record))
+        if kinv_counts is not None and v["counts"] is not kinv_counts:
+            kinv_counts.copy_(v["counts"])
+        if "model" in v:
+            ex.model = v["model"]
+        return (Carry(*(v[k] for k in CARRY)), (v["d.y"], v["d.rho"]), v.get("kinv"),
+                tuple(v[k] for k in ROW) if record else None)
 
-    def _plant_stepper(self, plants: Plant) -> Callable:
-        """The plant step that a step hands to `driver.advance`, in the span
-        plant.step."""
+    # -- the pieces: functions of the named tensors, the run's constant inputs
+    # read from the executor
+
+    def _begin(self, ex, v: dict) -> dict:
+        """The SQP state from the carry and the duals, the lifted state."""
+        carry = Carry(*(v[k] for k in CARRY))
+        out = dict(zip(SQP, sqp_init(carry, (v["d.y"], v["d.rho"]))))
+        out["ctx.lift_x"] = ex.plants.lift(carry.x_cur)
+        return out
+
+    def _iter(self, ex, v: dict, step: int, key: tuple) -> dict:
+        """One SQP iteration (`_sqp_iter`), at a steady step with the
+        K-inverse carry's update, at a warm step with the early exit's flag."""
+        _, single_shot, _, kinv_given = key
         cfg = self.config
+        U_ref = v["ctx.U_ref"]
+        ctx = StepContext(v["ctx.X_ref"], U_ref, v["ctx.lift_x"],
+                          slew_anchor(step, U_ref, v["c.u_last"]))
+        kinv = v["kinv"] if kinv_given else None
+        qp = self.steady_qp_params if single_shot else cfg.qp_params
+        s, res = self._sqp_iter(SQPState(*(v[k] for k in SQP)), ctx,
+                                bilinear_model(ex.model, cfg), ex.model.A, ex.Q_s, ex.R_s, qp,
+                                single_shot, kinv0=kinv)
+        out = dict(zip(SQP, s))
+        if single_shot and self.carry_kinv:
+            out["kinv"] = self._carry_kinv(kinv, res, v["c.done"], v.get("counts"))
+        if self.early_exit and not single_shot:
+            out["flag"] = s.done.all()
+        return out
+
+    def _end(self, ex, v: dict, step: int, observe_fn, model_update_fn, record: bool) -> dict:
+        """The record row, then `driver.advance` with the runner's exit
+        condition and model functions, the plant step in the span
+        plant.step; with a refit, its model as "model"."""
+        cfg = self.config
+        carry = Carry(*(v[k] for k in CARRY))
+        s = SQPState(*(v[k] for k in SQP))
+        ctx = StepContext(v["ctx.X_ref"], v["ctx.U_ref"], v["ctx.lift_x"], None)
+        out = dict(zip(ROW, record_row(carry, s))) if record else {}
 
         def plant_step(x_true, u):
             with spans.span("plant.step", events=True):
-                return plants.step(x_true, u, cfg.dt, self.expm_taylor_k,
-                                   self.expm_max_squarings)
-        return plant_step
+                return ex.plants.step(x_true, u, cfg.dt, self.expm_taylor_k,
+                                      self.expm_max_squarings)
+        carry, duals, model = advance(carry, s, step, cfg, ctx, bilinear_model(ex.model, cfg),
+                                      ex.model, ex.plants, plant_step,
+                                      self.exit_condition, noise_t=v.get("noise_t"),
+                                      observe_fn=observe_fn, model_update_fn=model_update_fn,
+                                      model_fns=self.model_fns)
+        out.update(zip(CARRY, carry))
+        out.update(zip(DUALS, duals))
+        if model_update_fn is not None:
+            out["model"] = model
+        return out
 
     def run(self, x0: torch.Tensor, model, plants: Plant,
             X_targ: torch.Tensor, U_targ: torch.Tensor, Q: torch.Tensor,
@@ -381,11 +456,10 @@ class FleetRunner:
                     0, carry, duals, model, noise, rec,
                     self._kinv_slot(None, kinv_counts, B, rdtype)))
                 start, carry, duals, model, noise, rec, kinv, kinv_counts = self._unpack(state)
-            bmodel = bilinear_model(model, cfg)
             # measurement-aligned cold re-entry of the carry
             kinv_m = cfg.measure_freq if self.carry_kinv else 0
-            graphs = step_graphs.for_run(self, plants, model, Q_s, R_s, X_targ, U_targ, x0,
-                                         noise, observe_fn, streaming, record)
+            ex = step_graphs.for_run(self, plants, model, Q_s, R_s, X_targ, U_targ, x0, noise,
+                                     observe_fn, streaming, record)
 
             last_saved = last_beat = start
             t_beat = time.perf_counter()
@@ -400,24 +474,15 @@ class FleetRunner:
                     last_beat = step
                 if kinv_m > 1 and step % kinv_m == 0:
                     kinv = None
-                noise_t = None if noise is None else noise[step]
-                if graphs is None:
-                    prev = carry
-                    carry, duals, model, s, kinv = self.step(
-                        step, carry, duals, model, bmodel, plants, X_targ, U_targ, Q_s, R_s,
-                        kinv, kinv_counts, noise_t=noise_t, observe_fn=observe_fn,
-                        model_update_fn=model_update_fn if streaming else None)
-                    row = record_row(prev, s) if record else None
-                else:
-                    carry, duals, s, kinv, row = graphs.step(
-                        self, step, carry, duals, X_targ, U_targ, kinv, kinv_counts, noise_t,
-                        observe_fn, record)
+                carry, duals, kinv, row = self.step(
+                    ex, step, carry, duals, X_targ, U_targ, kinv, kinv_counts,
+                    None if noise is None else noise[step], observe_fn,
+                    model_update_fn if streaming else None, record)
                 if record:
                     rec[1][:, :, step], rec[2][:, step], rec[3][:, step], rec[4][:, step] = row
-                if streaming:
-                    bmodel = bilinear_model(model, cfg)
-                if record:
                     rec[0][:, :, step + 1] = carry.x_cur
+                if streaming:
+                    model = ex.model
                 if (checkpointing and step + 1 - last_saved >= checkpoint_every
                         and step + 1 < cfg.n_steps):
                     t0 = time.perf_counter()
@@ -427,11 +492,9 @@ class FleetRunner:
                     self.checkpoint_seconds.append(time.perf_counter() - t0)
                     last_saved = step + 1
             self.kinv_counts = kinv_counts
-            if graphs is not None:
-                # the carry is the graphs' buffers, which the next run overwrites
-                carry = carry._replace(x_cur=carry.x_cur.clone(),
-                                       exit_code=carry.exit_code.clone())
-            out = {"final_x": carry.x_cur, "exit_code": carry.exit_code, "model_state": model}
+            # the carry may be the executor's buffers, which the next run overwrites
+            out = {"final_x": carry.x_cur.clone(), "exit_code": carry.exit_code.clone(),
+                   "model_state": model}
             if record:
                 xs, us, objs, iters, active = rec
                 out.update(xs=xs, us=us, objs=objs, sqp_iters=iters,

@@ -1,15 +1,15 @@
-"""CUDA-graph capture of the fleet step: the step loop's device work as
-replays of graphs captured once per signature, so a step costs the host a
-few graph launches instead of one dispatch per PyTorch op.
+"""How the pieces of a fleet step run: eagerly, or as replays of CUDA
+graphs captured once per signature, so a step costs the host a few graph
+launches instead of one dispatch per PyTorch op.
 
-`FleetRunner.run` hands each step of a run on the card to `StepGraphs.step`.
-A step is three pieces:
-  begin  the SQP state from the carry and the duals, the lifted state;
-  iter   one SQP iteration (replayed once an iteration of a warm step, with
-         `mpc()`'s done-flag read on the host between iterations; a steady
-         step's single shot, with the K-inverse carry where the runner has it);
-  end    the record row and the advance (plant step, observation, exits,
-         the shifted guesses and duals).
+`FleetRunner.step` is the step's schedule: it runs each of its pieces
+(functions of named tensors, fleet_runner's begin, iter and end) through
+one call, `executor.piece(key, v, fn)`, where the key holds all that the
+piece reads of the step. `for_run` gives a run its executor: `Eager`, which
+calls the piece, or the `StepGraphs` of the run's signature, which replays
+the piece's capture. This module knows no schedule: a key is only a name
+for a capture.
+
 The first use of a piece runs it eagerly (its kernels warm up there: the
 library's build, each kernel's attributes) and then captures it. The capture
 cuts a new graph at both ends of each timed span (sqp.linearize,
@@ -55,20 +55,12 @@ from ..kernels.condense import condense_small
 from ..kernels.expm import expm_small
 from ..models.dmdc import tree_map
 from ..plants.base import Plant
-from ..utils.profiling import host_flag, spans
-from .driver import (Carry, SQPState, StepContext, advance, bilinear_model, record_row,
-                     sqp_init)
+from ..utils.profiling import spans
 
 # signatures whose graphs the cache keeps, the least recently used dropped first
 MAX_SIGNATURES = 8
 # the kernel wrappers whose `launches` a replay adds to
 _KERNELS = (boxqp_small, admm_big, expm_small, condense_small)
-
-# the static buffers' names: the carry, the duals, the SQP state, the record row
-CARRY = tuple("c." + f for f in Carry._fields)
-DUALS = ("d.y", "d.rho")
-SQP = tuple("s." + f for f in SQPState._fields)
-ROW = ("row.u", "row.obj", "row.iters", "row.active")
 
 
 def eager_reason(runner, device, streaming: bool) -> Optional[str]:
@@ -133,26 +125,16 @@ def signature(runner, plants: Plant, model, Q_s, R_s, X_targ, U_targ, x0, noise,
             None if noise is None else (tuple(noise.shape[1:]), noise.dtype), bool(record))
 
 
-def piece_keys(runner, step: int, kinv) -> tuple:
-    """The pieces of step `step` within a signature: begin; the SQP
-    iteration, by single-shot, the slew anchor (the last applied control
-    after step 1) and a given K-inverse; end, by the measurement branch."""
-    cfg = runner.config
-    warm = step <= 1 or not cfg.warm_start
-    return (("begin",),
-            ("iter", not warm, step > 1, kinv is not None and not warm),
-            ("end", (step + 1) % cfg.measure_freq == 0))
-
-
 _CACHE: "collections.OrderedDict[tuple, StepGraphs]" = collections.OrderedDict()
 
 
 def for_run(runner, plants: Plant, model, Q_s, R_s, X_targ, U_targ, x0, noise, observe_fn,
-            streaming: bool, record: bool) -> Optional["StepGraphs"]:
-    """The captured steps of a run, bound to its constant inputs, or None
-    where the run stays eager (`eager_reason`)."""
+            streaming: bool, record: bool):
+    """The executor of a run's pieces, bound to its constant inputs: the
+    StepGraphs of its signature, or Eager where the run stays eager
+    (`eager_reason`)."""
     if eager_reason(runner, plants.device, streaming) is not None:
-        return None
+        return Eager(plants, model, Q_s, R_s)
     key = signature(runner, plants, model, Q_s, R_s, X_targ, U_targ, x0, noise, observe_fn,
                     record)
     graphs = _CACHE.pop(key, None)
@@ -163,6 +145,22 @@ def for_run(runner, plants: Plant, model, Q_s, R_s, X_targ, U_targ, x0, noise, o
     _CACHE[key] = graphs
     graphs.bind(plants, model, Q_s, R_s)
     return graphs
+
+
+class Eager:
+    """The executor of a run that stays eager: each piece one call on the
+    run's own tensors."""
+
+    def __init__(self, plants: Plant, model, Q_s, R_s):
+        self.plants, self.model, self.Q_s, self.R_s = plants, model, Q_s, R_s
+
+    @staticmethod
+    def mode(keys) -> str:
+        return "eager"
+
+    @staticmethod
+    def piece(key: tuple, v: dict, fn) -> None:
+        v.update(fn(v))
 
 
 def _launches() -> tuple:
@@ -282,86 +280,13 @@ class StepGraphs:
         self.Q_s.copy_(Q_s)
         self.R_s.copy_(R_s)
 
-    def step(self, runner, step: int, carry: Carry, duals, X_targ, U_targ, kinv, kinv_counts,
-             noise_t, observe_fn, record: bool):
-        """`FleetRunner.step` of every lane as replays: (carry, duals, the
-        step's SQPState, kinv, the record row or None). The carry, duals,
-        state and K-inverse returned are static buffers, valid until the
-        next step of this signature; `kinv_counts` is updated in place."""
-        cfg = runner.config
-        H = cfg.horizon
-        keys = piece_keys(runner, step, kinv)
-        warm = not keys[1][1]
-        start = max(step - 1, 0)
-        v = dict(zip(CARRY, carry))
-        v.update(zip(DUALS, duals))
-        v["ctx.X_ref"] = X_targ[:, start:start + H + 1]
-        v["ctx.U_ref"] = U_targ[:, start:start + H]
-        for name, t in (("noise_t", noise_t), ("kinv", kinv), ("counts", kinv_counts)):
-            if t is not None:
-                v[name] = t
-        mode = "replay" if all(k in self.scripts for k in keys) else "capture"
-        with spans.span("fleet.step", phase="warm" if warm else "steady", graph=mode):
-            self._piece(keys[0], v, self._begin)
-            iterate = lambda u: self._iter(runner, u, keys[1])
-            if warm:
-                n_it = runner.warm_sqp_iters[min(step, len(runner.warm_sqp_iters) - 1)]
-                for it in range(n_it):
-                    self._piece(keys[1], v, iterate)
-                    if runner.early_exit and it + 1 < n_it and host_flag(v["flag"]):
-                        break
-            else:
-                self._piece(keys[1], v, iterate)
-            self._piece(keys[2], v, lambda u: self._end(runner, u, step, observe_fn, record))
-        if kinv_counts is not None and v["counts"] is not kinv_counts:
-            kinv_counts.copy_(v["counts"])
-        return (Carry(*(v[k] for k in CARRY)), (v["d.y"], v["d.rho"]),
-                SQPState(*(v[k] for k in SQP)), v.get("kinv"),
-                tuple(v[k] for k in ROW) if record else None)
-
-    # -- the pieces: functions of the named tensors, run eagerly or captured
-
-    def _begin(self, v: dict) -> dict:
-        carry = Carry(*(v[k] for k in CARRY))
-        out = dict(zip(SQP, sqp_init(carry, (v["d.y"], v["d.rho"]))))
-        out["ctx.lift_x"] = self.plants.lift(carry.x_cur)
-        return out
-
-    def _iter(self, runner, v: dict, key: tuple) -> dict:
-        _, single_shot, from_carry, kinv_given = key
-        cfg = runner.config
-        U_ref, u_last = v["ctx.U_ref"], v["c.u_last"]
-        ctx = StepContext(v["ctx.X_ref"], U_ref, v["ctx.lift_x"],
-                          u_last if from_carry else U_ref[:, 0].expand_as(u_last))
-        kinv = v["kinv"] if kinv_given else None
-        qp = runner.steady_qp_params if single_shot else cfg.qp_params
-        s, res = runner._sqp_iter(SQPState(*(v[k] for k in SQP)), ctx,
-                                  bilinear_model(self.model, cfg), self.model.A, self.Q_s,
-                                  self.R_s, qp, single_shot, kinv0=kinv)
-        out = dict(zip(SQP, s))
-        if single_shot and runner.carry_kinv:
-            out["kinv"] = runner._carry_kinv(kinv, res, v["c.done"], v.get("counts"))
-        if runner.early_exit and not single_shot:
-            out["flag"] = s.done.all()
-        return out
-
-    def _end(self, runner, v: dict, step: int, observe_fn, record: bool) -> dict:
-        cfg = runner.config
-        carry = Carry(*(v[k] for k in CARRY))
-        s = SQPState(*(v[k] for k in SQP))
-        ctx = StepContext(v["ctx.X_ref"], v["ctx.U_ref"], v["ctx.lift_x"], None)
-        out = dict(zip(ROW, record_row(carry, s))) if record else {}
-        carry, duals, _ = advance(carry, s, step, cfg, ctx, bilinear_model(self.model, cfg),
-                                  self.model, self.plants, runner._plant_stepper(self.plants),
-                                  runner.exit_condition, noise_t=v.get("noise_t"),
-                                  observe_fn=observe_fn)
-        out.update(zip(CARRY, carry))
-        out.update(zip(DUALS, duals))
-        return out
-
     # -- running a piece
 
-    def _piece(self, key: tuple, v: dict, fn) -> None:
+    def mode(self, keys) -> str:
+        """The `graph` attribute of a step of these pieces' keys."""
+        return "replay" if all(k in self.scripts for k in keys) else "capture"
+
+    def piece(self, key: tuple, v: dict, fn) -> None:
         """Run the piece `key` on the named tensors `v` and put its outputs
         into `v`: its replay, or on first use one eager call and its capture."""
         script = self.scripts.get(key)

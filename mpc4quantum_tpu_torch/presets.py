@@ -370,3 +370,145 @@ def cnot_state(order: int = 1, device="cuda", dtype: Optional[torch.dtype] = Non
 PRESETS = {"not_state": not_state, "not_state_freq": not_state_freq,
            "drag_state": drag_state, "crosstalk": crosstalk, "cnot_state": cnot_state,
            "not_gate": not_gate, "lindblad_state": lindblad_state}
+
+
+# Scenarios of no preset, built from the public constructors above as a user
+# would build them; not in PRESETS, so no tuning table knows them and a fleet
+# runs them as the reference runs any Scenario.
+
+
+def three_qubit_problem(device, dtype, detune: float = 0.99, coupling: float = 0.1):
+    """The 3-qubit (dim_s 8, dim_x 64) state preparation |000> -> |111> of
+    the JAX package's tensor-parallel tests (tests/test_tensor_parallel.py
+    `make_3q_scenario`), built in the port: ZZ couplings, X drives, the
+    order-1 discretization at dt 0.5, horizon 8, 6 steps, sat 2.5, the
+    start rotated by 1e-2 on each qubit. :return: (mpc keyword arguments
+    with the nominal plant, the target state (64,))."""
+    X = np.array([[0, 1], [1, 0]], complex)
+    Z = np.array([[1, 0], [0, -1]], complex)
+    I = np.eye(2, dtype=complex)
+    kron3 = lambda a, b, c: np.kron(np.kron(a, b), c)
+    H0 = 0.5 * coupling * (kron3(Z, Z, I) + kron3(I, Z, Z))
+    H1s = [0.5 * kron3(X, I, I), 0.5 * kron3(I, X, I), 0.5 * kron3(I, I, X)]
+    dt, H, n_steps, order = 0.5, 8, 6, 1
+    A_dst = discretize_homogeneous([liouville_generator(h) for h in [H0] + H1s], dt, order)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    cx = lambda a: torch.as_tensor(np.asarray(a)).to(device, cdt)
+    model = dmdc_from_operator(cx(A_dst), 64, 64, A_dst.shape[1] - 64)
+    plant = QuantumPlant.create(detune * H0, H1s, device=device, dtype=dtype)
+    th = 1e-2
+    R1 = np.array([[np.cos(th / 2), -1j * np.sin(th / 2)], [-1j * np.sin(th / 2), np.cos(th / 2)]])
+    R = kron3(R1, R1, R1)
+    rho0 = np.zeros((8, 8), complex)
+    rho0[0, 0] = 1.0
+    rho0 = R @ rho0 @ R.conj().T
+    targ = np.zeros((8, 8), complex)
+    targ[7, 7] = 1.0
+    Qd = np.zeros(64)
+    Qd[[0, 63]] = 1.0
+    Q = cx(np.diag(Qd))
+    args = dict(x0=cx(rho0.flatten()), model_state=model, plant=plant,
+                X_targ=cx(np.tile(targ.flatten()[:, None], (1, n_steps + H + 1))),
+                U_targ=torch.zeros((3, n_steps + H), dtype=dtype, device=device), Q=Q,
+                R=torch.eye(3, dtype=dtype, device=device) * 1e-2, Qf=Q,
+                config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=3, order=order),
+                sat=2.5, du=None)
+    return args, cx(targ.flatten())
+
+
+def damped_pair_scenario(device, dtype, gamma: float = 0.005):
+    """cnot_state's coupled pair on an open system, built from the port's
+    public constructors as a user would build it (no preset of its own):
+    amplitude damping sqrt(gamma) sigma_- on each qubit in the model (the
+    exact order-2 discretization of the Lindbladian drift and the three
+    Hamiltonian controls, dim_x 16) and in the plant (`LindbladPlant`, a
+    16 x 16 Liouvillian per step), everything else as cnot_state: the
+    ramped target, dt 0.25, H 50 (QP n 150), 200 steps, sat 2 pi 0.05, QP
+    eps 1e-8 at 3x300. Its name is in no tuning table, so the fleet runs it
+    as the reference runs any Scenario: 8 warm SQP iterations, cold duals,
+    its own 3x300 in both phases."""
+    cnot = cnot_state(order=2, device="cpu", dtype=torch.float64)
+    H_list = systems.RWACoupled().H_list
+    sminus = np.sqrt(gamma) * np.array([[0.0, 1.0], [0.0, 0.0]], complex)
+    c_ops = [np.kron(sminus, np.eye(2)), np.kron(np.eye(2), sminus)]
+    A = discretize_homogeneous([lindblad_generator(H_list[0], c_ops)]
+                               + [liouville_generator(h) for h in H_list[1:]],
+                               cnot.config.dt, 2)
+    plant = LindbladPlant.create(H_list[0], H_list[1:], c_ops=c_ops)
+    a = lambda t: t.numpy()
+    return scenario_from_arrays(
+        "damped_pair", x0=a(cnot.x0), A=A.numpy(), X_targ=a(cnot.X_targ), U_targ=a(cnot.U_targ),
+        Q=a(cnot.Q), R=a(cnot.R), Qf=a(cnot.Qf), sat=cnot.sat, du=cnot.du,
+        target_state=a(cnot.target_state), config=cnot.config, plant=plant, device=device,
+        dtype=dtype)
+
+
+def cnot_h80_scenario(device, dtype, horizon: int = 80, name: str = "cnot_h80"):
+    """cnot_state at order 2 with a longer horizon (QP n = 3 horizon, 240
+    at 80): its targets rebuilt for n_steps + horizon + 1 columns with the
+    same incline min(1, 2k / n_steps), named `name`, which no tuning table
+    knows (8 warm SQP iterations, cold duals, its own 3x300)."""
+    sc = cnot_state(order=2, device=device, dtype=dtype)
+    n = sc.config.n_steps
+    incline = torch.tensor([min(1.0, 2 * k / n) for k in range(n + horizon + 1)],
+                           dtype=sc.U_targ.dtype, device=sc.U_targ.device)
+    return dataclasses.replace(
+        sc, name=name,
+        X_targ=sc.target_state[:, None] * incline[None, :].to(sc.X_targ.dtype),
+        U_targ=torch.zeros((sc.config.dim_u, n + horizon), dtype=sc.U_targ.dtype,
+                           device=sc.U_targ.device),
+        config=dataclasses.replace(sc.config, horizon=horizon))
+
+
+def cnot_h250_scenario(device, dtype):
+    """cnot_state at horizon 250 (QP n 750, admm_big's cluster instance at
+    10 CTAs a lane): a window that spans the whole 50-unit entangling gate."""
+    return cnot_h80_scenario(device, dtype, horizon=250, name="cnot_h250")
+
+
+def damped_chain4_scenario(device, dtype, gamma: float = 0.005, coupling: float = 0.1):
+    """The JAX tests' three-qubit problem (three_qubit_problem) extended to a
+    chain of four qubits and damped, built from the port's public
+    constructors (no preset of its own): H0 = 0.05 (Z1 Z2 + Z2 Z3 + Z3 Z4), a
+    0.5 X drive on each qubit (4 controls), amplitude damping sqrt(gamma)
+    sigma_- on each qubit in the model (the order-1 discretization of the
+    Lindbladian drift and the four Hamiltonian controls, dim_x 256) and in the
+    plant (`LindbladPlant`, a 256 x 256 Liouvillian a step: expm_small's
+    cluster2d instance); |0000> -> |1111> from a start rotated by 1e-2 on
+    each qubit, Q on the two populations, R 1e-2 I, sat 2.5, dt 0.5, horizon
+    8 (QP n 32), 6 steps, the default QP budget."""
+    X = np.array([[0, 1], [1, 0]], complex)
+    Z = np.array([[1, 0], [0, -1]], complex)
+    sminus = np.sqrt(gamma) * np.array([[0.0, 1.0], [0.0, 0.0]], complex)
+
+    def on(ops: dict) -> np.ndarray:
+        """The four-qubit operator with ops[k] on qubit k, the identity elsewhere."""
+        out = np.eye(1, dtype=complex)
+        for k in range(4):
+            out = np.kron(out, ops.get(k, np.eye(2, dtype=complex)))
+        return out
+
+    H0 = 0.5 * coupling * sum(on({k: Z, k + 1: Z}) for k in range(3))
+    H1s = [0.5 * on({k: X}) for k in range(4)]
+    c_ops = [on({k: sminus}) for k in range(4)]
+    th = 1e-2
+    R1 = np.array([[np.cos(th / 2), -1j * np.sin(th / 2)], [-1j * np.sin(th / 2), np.cos(th / 2)]])
+    R = on({k: R1 for k in range(4)})
+    rho0 = np.zeros((16, 16), complex)
+    rho0[0, 0] = 1.0
+    rho0 = R @ rho0 @ R.conj().T
+    targ = np.zeros((16, 16), complex)
+    targ[15, 15] = 1.0
+    Qd = np.zeros(256)
+    Qd[[0, 255]] = 1.0
+    dt, H, n_steps, order = 0.5, 8, 6, 1
+    A = discretize_homogeneous([lindblad_generator(H0, c_ops)]
+                               + [liouville_generator(h) for h in H1s], dt, order)
+    plant = LindbladPlant.create(H0, H1s, c_ops=c_ops)
+    return scenario_from_arrays(
+        "damped_chain4", x0=rho0.flatten(), A=A.numpy(),
+        X_targ=np.tile(targ.flatten()[:, None], (1, n_steps + H + 1)),
+        U_targ=np.zeros((4, n_steps + H)), Q=np.diag(Qd), R=np.eye(4) * 1e-2, Qf=np.diag(Qd),
+        sat=2.5, du=None, target_state=targ.flatten(),
+        config=MPCConfig(horizon=H, n_steps=n_steps, dt=dt, dim_u=4, order=order), plant=plant,
+        device=device, dtype=dtype)

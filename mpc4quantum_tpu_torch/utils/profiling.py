@@ -21,8 +21,8 @@ kept (`spans.runs`).
 
 The spans and their sites:
   fleet.run      FleetRunner.run (the root; its records share its run id)
-  fleet.step     FleetRunner.step and mpc/step_graphs.StepGraphs.step, attrs
-                 {"phase": "warm" | "steady", "graph": "replay" | "capture" | "eager"}
+  fleet.step     FleetRunner.step, attrs {"phase": "warm" | "steady", "graph":
+                 "replay" | "capture" | "eager"}, the executor's mode
   sqp.iter       FleetRunner._sqp_iter
   sqp.linearize  the SQP iteration's linearization (events)
   qp.condense    the condensing, attrs {"route": "plain" | "kernel"}: plain,
@@ -30,7 +30,7 @@ The spans and their sites:
                  kernels/condense.condense_small in FleetRunner._sqp_iter,
                  which also linearizes (sqp.linearize then stays empty) (events)
   qp.kinv        each round's K^-1 build of solvers/boxqp.solve_boxqp_fixed (events)
-  plant.step     the plant step that FleetRunner.step hands to driver.advance (events)
+  plant.step     the plant step that FleetRunner._end hands to driver.advance (events)
   host.flag      the host's read in `host_flag`
 """
 

@@ -63,10 +63,10 @@ def fleets():
         plants = dataclasses.replace(plants, sigma=plants.sigma + sigma)
         gen = torch.Generator(device=plants.device).manual_seed(7) if sigma else None
         yield name, sc, plants, dict(record=True, generator=gen, model_update_fn=fit)
-    for name, make in (("damped_pair", cs.damped_pair_scenario),
-                       ("cnot_h80", cs.cnot_h80_scenario),
-                       ("damped_chain4", cs.damped_chain4_scenario),
-                       ("cnot_h250", cs.cnot_h250_scenario)):
+    for name, make in (("damped_pair", presets.damped_pair_scenario),
+                       ("cnot_h80", presets.cnot_h80_scenario),
+                       ("damped_chain4", presets.damped_chain4_scenario),
+                       ("cnot_h250", presets.cnot_h250_scenario)):
         sc = make("cuda", torch.float32)
         yield name, sc, lanes(sc, cs.SLICE_FLEETS[name]["batch"]), {}
 

@@ -38,6 +38,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from mpc4quantum_tpu_torch.presets import three_qubit_problem  # noqa: E402
 from perf_fleets import profiled  # noqa: E402
 
 LANES = 8
@@ -47,8 +48,8 @@ def run(port, device, dtype, batch=LANES):
     """(final fidelity, controls, SQP iterations) of the first LANES lanes
     of tp_3q's B 1024 plants, run as a batch of `batch` of its first lanes,
     float64 on the host."""
-    args, targ = cs.three_qubit_problem(device, dtype)
-    nominal64, _ = cs.three_qubit_problem("cpu", torch.float64)
+    args, targ = three_qubit_problem(device, dtype)
+    nominal64, _ = three_qubit_problem("cpu", torch.float64)
     plants = cs.make_lanes(nominal64["plant"], cs.TP3Q["batch"])[:batch].to(device, dtype)
     cfg = dataclasses.replace(args["config"], qp_backend="ns")
     res = port.batched_mpc(args["x0"], args["model_state"], plants, args["X_targ"],
@@ -97,8 +98,8 @@ def profile_runs(port) -> None:
     from mpc4quantum_tpu_torch import presets
     from mpc4quantum_tpu_torch.parallel import tensor
 
-    args, _ = cs.three_qubit_problem("cuda", torch.float32)
-    nominal64, _ = cs.three_qubit_problem("cpu", torch.float64)
+    args, _ = three_qubit_problem("cuda", torch.float32)
+    nominal64, _ = three_qubit_problem("cpu", torch.float64)
     B = cs.TP3Q["batch"]
     plants = cs.make_lanes(nominal64["plant"], B).to("cuda", torch.float32)
     cfg = dataclasses.replace(args["config"], qp_backend="ns")

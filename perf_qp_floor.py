@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Why cnot_state at horizon 250 (QP n 750, chip_smoke.cnot_h250_scenario)
+"""Why cnot_state at horizon 250 (QP n 750, presets.cnot_h250_scenario)
 needs the Newton-Schulz K^-1's last step in float64 on the card: the same
 float32 fleet with the port's ns_inverse ("mixed": its last step's residual
 I - K X formed in float64) and with float32's own iteration ("f32": every
@@ -37,6 +37,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import chip_smoke as cs  # noqa: E402
+from mpc4quantum_tpu_torch.presets import cnot_h250_scenario  # noqa: E402
 
 
 def f32_ns(K, iters: int = 30, X0=None, guard: float = 0.5):
@@ -68,7 +69,7 @@ def main() -> int:
     FleetRunner._graphs = False
     forms = {"mixed": solvers.ns_inverse, "f32": f32_ns}
     solve = boxqp_mod.solve_boxqp_fixed
-    plants64 = cs.make_lanes(cs.cnot_h250_scenario("cpu", torch.float64).plant, 16)
+    plants64 = cs.make_lanes(cnot_h250_scenario("cpu", torch.float64).plant, 16)
 
     def ratios(aux, p):
         tol_p, tol_d = solvers.accept_thresholds(aux.xmax, aux.zmax, aux.pxmax, aux.qmax,
@@ -85,7 +86,7 @@ def main() -> int:
                              out.aux))
             return out
 
-        sc = cs.cnot_h250_scenario(cs.DEVICE, torch.float32)
+        sc = cnot_h250_scenario(cs.DEVICE, torch.float32)
         if steps is not None:
             sc = dataclasses.replace(sc, config=dataclasses.replace(sc.config, n_steps=steps))
             boxqp_mod.solve_boxqp_fixed = recording

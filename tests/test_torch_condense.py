@@ -24,12 +24,12 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402
 from benchmark import devtrace, spec  # noqa: E402
 from mpc4quantum_tpu_torch import presets  # noqa: E402
 from mpc4quantum_tpu_torch.benchfleet import make_runner  # noqa: E402
 from mpc4quantum_tpu_torch.kernels import condense as condense_mod  # noqa: E402
-from mpc4quantum_tpu_torch.kernels.condense import (condense_small, condense_small_ref,  # noqa: E402
+from mpc4quantum_tpu_torch.kernels.condense import (CONDENSE_MODELS, condense_input,  # noqa: E402
+                                                    condense_small, condense_small_ref,
                                                     condense_small_work)
 from mpc4quantum_tpu_torch.models.dmdc import tile_lanes  # noqa: E402
 from mpc4quantum_tpu_torch.mpc.driver import ModelApplyFns, bilinear_model  # noqa: E402
@@ -184,13 +184,13 @@ def test_kernel_algebra_matches_the_plain_route(shape, order, B, sat, du):
             assert np.abs(mirror[name][fin] - ref[fin]).max() <= 1e-12 * scale, name
 
 
-@pytest.mark.parametrize("shape", chip_smoke.CONDENSE_MODELS,
+@pytest.mark.parametrize("shape", CONDENSE_MODELS,
                          ids=lambda shape: "x{}_h{}_u{}".format(*shape))
 def test_kernel_algebra_at_every_instance(shape):
-    """The random models of chip_smoke.CONDENSE_MODELS, on which the card
+    """The random models of kernels/condense.CONDENSE_MODELS, on which the card
     holds the kernel's instances that no preset reaches: the mirror of its
     algebra matches the plain route there in float64 too."""
-    p = chip_smoke.condense_input(shape, 3, device="cpu", dtype=torch.float64)
+    p = condense_input(shape, 3, device="cpu", dtype=torch.float64)
     got = dict(zip(OUTPUTS, condense_small_ref(**p)))
     mirror = kernel_mirror(**p)
     for name in OUTPUTS:

@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from mpc4quantum_tpu_torch.kernels import _build
 from mpc4quantum_tpu_torch.kernels import admm_big as admm_mod
 from mpc4quantum_tpu_torch.kernels import expm as expm_mod
@@ -19,6 +18,7 @@ from mpc4quantum_tpu_torch.kernels._graph import graph_kernel_launches, graph_no
 from mpc4quantum_tpu_torch.kernels.admm_big import STREAM_SMEM_MAX_N, admm_big, admm_iters_ref
 from mpc4quantum_tpu_torch.kernels.boxqp import (boxqp_accept, boxqp_big, boxqp_small,
                                                  boxqp_small_ref)
+from mpc4quantum_tpu_torch.kernels.condense import CONDENSE_MODELS, condense_input
 from mpc4quantum_tpu_torch.kernels.expm import expm_small, expm_small_ref
 from mpc4quantum_tpu_torch.solvers.boxqp import BoxQPParams, solve_boxqp_fixed
 from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
@@ -683,18 +683,18 @@ def test_cli_on_the_card(cuda, capsys):
 
 
 @pytest.mark.parametrize("case, B", [("not_state", 1), ("not_state", 16384), ("not_gate", 1024),
-                                     *((shape, B) for shape in chip_smoke.CONDENSE_MODELS
+                                     *((shape, B) for shape in CONDENSE_MODELS
                                        for B in (1, 333))])
 def test_condense_kernel_matches_plain(cuda, case, B):
     """Each output of the one launch against model_along_traj + qp_data in
     float32 on the card: the box to the bit, the rest to 1e-4 of each
     output's largest entry (float32 sums in another order). The presets
-    reach the kernel's instances (4, 16) and (16, 16); chip_smoke's random
+    reach the kernel's instances (4, 16) and (16, 16); CONDENSE_MODELS's random
     models of (dim_x, H, dim_u) each of the others, at one lane and at a
     partial last block."""
     from mpc4quantum_tpu_torch.kernels.condense import condense_small, condense_small_ref
 
-    p = chip_smoke.condense_input(case, B, device=cuda)
+    p = condense_input(case, B, device=cuda)
     before = condense_small.launches
     got = condense_small(**p)
     ref = condense_small_ref(**p)
@@ -714,7 +714,7 @@ def test_condense_kernel_replays_as_launched(cuda):
     launch on the same inputs."""
     from mpc4quantum_tpu_torch.kernels.condense import condense_small
 
-    p = chip_smoke.condense_input("not_state", 4096, seed=3, device=cuda)
+    p = condense_input("not_state", 4096, seed=3, device=cuda)
     assert graph_node_types(lambda: condense_small(**p)) == [0]
     eager = condense_small(**p)
     graph = torch.cuda.CUDAGraph()
@@ -732,7 +732,7 @@ def test_condense_kernel_refuses_what_it_does_not_take(cuda):
     from mpc4quantum_tpu_torch.mpc.driver import bilinear_model
     from mpc4quantum_tpu_torch import presets
 
-    p = chip_smoke.condense_input("not_state", 8, device=cuda)
+    p = condense_input("not_state", 8, device=cuda)
     before = condense_small.launches
     sc = presets.not_state(device=cuda)
     with pytest.raises(ValueError, match="shared model"):

@@ -154,7 +154,7 @@ def test_signature_moves_with_what_selects_the_code(what):
 
 def test_piece_keys():
     sc, plants, runner = fleet(qp_kernel="big", warm_kinv=True)
-    keys = lambda step, kinv=None: step_graphs.piece_keys(runner, step, kinv)
+    keys = lambda step, kinv=None: runner.piece_keys(step, kinv)
     # steps 0 and 1: warm iterations anchored at the benchmark control
     assert keys(0) == keys(1) == (("begin",), ("iter", False, False, False), ("end", True))
     assert keys(2) == (("begin",), ("iter", True, True, False), ("end", True))
@@ -222,6 +222,9 @@ def emulated(monkeypatch):
 EMULATED = {"flagship": ("not_state", 4, {}),
             "big_route": ("not_state", 2, {"qp_kernel": "big"}),
             "kinv_carry": ("drag_state", 2, {"warm_kinv": True}),
+            # measured every 5th step: the end's measurement branch, and the
+            # carry's cold re-entry at steps 5 and 10
+            "kinv_measured": ("not_state_freq", 2, {"warm_kinv": True, "n_steps": 12}),
             "exit": ("not_gate", 2, {})}
 
 

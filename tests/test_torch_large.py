@@ -6,7 +6,7 @@ made from a seed:
   tests/test_tensor_parallel.py `make_3q_scenario`, extended to four qubits
   with amplitude damping on each: a 256 x 256 Liouvillian plant step, QP
   n 32) and cnot_state at horizon 250 (QP n 750), each built by
-  chip_smoke.py from the port's public constructors and held, array for
+  presets.py from the port's public constructors and held, array for
   array, to the same scenario built here in the JAX package; each run as a
   plain Scenario outside the tuning tables (8 warm SQP iterations, cold
   duals, the scenario's own budget) by the port in float64 and by JAX's
@@ -50,7 +50,7 @@ from mpc4quantum_tpu.parallel.fleet import make_scenario_batch as jax_batch
 from mpc4quantum_tpu.plants import lindblad as jlind
 from mpc4quantum_tpu.solvers.boxqp import ns_inverse as jax_ns_inverse
 
-import chip_smoke
+from mpc4quantum_tpu_torch import presets
 from mpc4quantum_tpu_torch.benchfleet import run_hostloop_fleet
 from mpc4quantum_tpu_torch.convert import plant_from_numpy
 from mpc4quantum_tpu_torch.kernels.admm_big import admm_iters_ref
@@ -143,8 +143,8 @@ def jax_cnot_h250(horizon: int = 250):
 
 
 # name: (JAX constructor, port constructor, QP n, plant expm budget, steps run)
-LARGE = {"damped_chain4": (jax_damped_chain4, chip_smoke.damped_chain4_scenario, 32, (12, 4), 6),
-         "cnot_h250": (jax_cnot_h250, chip_smoke.cnot_h250_scenario, 750, (12, 0), 1)}
+LARGE = {"damped_chain4": (jax_damped_chain4, presets.damped_chain4_scenario, 32, (12, 4), 6),
+         "cnot_h250": (jax_cnot_h250, presets.cnot_h250_scenario, 750, (12, 0), 1)}
 
 
 def cut(sc, steps):
@@ -164,7 +164,7 @@ def plant_fields(p) -> dict:
 
 @pytest.mark.parametrize("name", sorted(LARGE))
 def test_large_scenario_is_the_jax_one(name):
-    """chip_smoke.py builds the scenario from the port's constructors; it
+    """presets.py builds the scenario from the port's constructors; it
     is the JAX package's, array for array."""
     make_j, make_t, n_qp, _, _ = LARGE[name]
     sc_j, sc = make_j(), make_t("cpu", torch.float64)
@@ -239,7 +239,7 @@ def test_chain_float32_branches_in_jax_too():
     fid = {}
     for steps in (1, 6):
         for dtype in (torch.float32, torch.float64):
-            sc = cut(chip_smoke.damped_chain4_scenario("cpu", dtype), steps)
+            sc = cut(presets.damped_chain4_scenario("cpu", dtype), steps)
             _, out = run_hostloop_fleet(sc, B, plants=plants64.to("cpu", dtype))
             fid[steps, dtype] = fidelity(sc, out["final_x"].numpy())
     port_gap = np.abs(fid[6, torch.float32] - fid[6, torch.float64]).max()

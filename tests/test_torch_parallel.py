@@ -330,15 +330,15 @@ def test_dp_tp_on_a_two_by_four_mesh(reference):
 
 
 def test_chip_smoke_builds_the_jax_three_qubit_problem():
-    """chip_smoke.py's tp_3q phase builds make_3q_scenario in the port:
-    the same operator, plant, start, targets and costs (1e-15)."""
+    """presets.three_qubit_problem, the problem of chip_smoke.py's tp_3q
+    phase, builds make_3q_scenario in the port: the same operator, plant,
+    start, targets and costs (1e-15)."""
     import torch
 
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
+    from mpc4quantum_tpu_torch.presets import three_qubit_problem
 
     args_j, targ_j = make_3q_scenario()
-    args_t, targ_t = chip_smoke.three_qubit_problem("cpu", torch.float64)
+    args_t, targ_t = three_qubit_problem("cpu", torch.float64)
     for k in ("x0", "X_targ", "U_targ", "Q", "R", "Qf"):
         close(args_t[k], args_j[k], 1e-15)
     close(args_t["model_state"].A, args_j["model_state"].A, 1e-15)

@@ -19,7 +19,7 @@ says float32), on numpy inputs made from a seed:
   as JAX's `run_hostloop_fleet(cpu=True)` runs any Scenario (8 warm SQP
   iterations, cold duals, the scenario's own 3x300): the damped CNOT pair
   (a 16 x 16 Liouvillian plant step, QP n 150) and cnot_state at horizon
-  80 (QP n 240), each built by chip_smoke.py from the port's public
+  80 (QP n 240), each built by presets.py from the port's public
   constructors and held to the same scenario built in the JAX package.
 
 Tolerances: scenario arrays 1e-12; expm 1e-12 in float64 (against scipy
@@ -50,7 +50,7 @@ from mpc4quantum_tpu.ops.pallas_qp import _admm_iters_lanes
 from mpc4quantum_tpu.parallel.fleet import make_scenario_batch as jax_batch
 from mpc4quantum_tpu.plants import lindblad as jlind
 
-import chip_smoke
+from mpc4quantum_tpu_torch import presets
 from mpc4quantum_tpu_torch.benchfleet import run_hostloop_fleet
 from mpc4quantum_tpu_torch.convert import plant_from_numpy
 from mpc4quantum_tpu_torch.kernels.admm_big import admm_iters_ref, check_admm_args
@@ -253,8 +253,8 @@ def jax_cnot_h80(horizon: int = 80):
         config=dataclasses.replace(sc.config, horizon=horizon))
 
 
-SLICE = {"damped_pair": (jax_damped_pair, chip_smoke.damped_pair_scenario, 150, (12, 1)),
-         "cnot_h80": (jax_cnot_h80, chip_smoke.cnot_h80_scenario, 240, (12, 0))}
+SLICE = {"damped_pair": (jax_damped_pair, presets.damped_pair_scenario, 150, (12, 1)),
+         "cnot_h80": (jax_cnot_h80, presets.cnot_h80_scenario, 240, (12, 0))}
 
 
 def cut(sc, steps):
@@ -274,7 +274,7 @@ def plant_fields(p) -> dict:
 
 @pytest.mark.parametrize("name", sorted(SLICE))
 def test_slice_scenario_is_the_jax_one(name):
-    """chip_smoke.py builds the scenario from the port's constructors; it
+    """presets.py builds the scenario from the port's constructors; it
     is the JAX package's, array for array."""
     make_j, make_t, n_qp, _ = SLICE[name]
     sc_j, sc = make_j(), make_t("cpu", torch.float64)

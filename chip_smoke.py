@@ -174,35 +174,35 @@ FLEETS = {
     "not_state": dict(batch=BATCH, fid_mean=0.999, fid_min=0.998, parity_lanes=64,
                       parity_tol=1e-4,
                       launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0,
-                                "condense_small": 26}),
+                                "condense_small": 26, "ns_cold": 0}),
     "not_gate": dict(batch=1024, kwargs=dict(n_steps=90), fid_mean=0.999, fid_min=None,
                      exit_early=1.0, parity_lanes=8, parity_tol=1e-4,
                      launches={"boxqp_small": 96, "expm_small": 90, "admm_big": 0,
-                               "condense_small": 96}),
+                               "condense_small": 96, "ns_cold": 0}),
     "lindblad_state": dict(batch=BATCH, fid_mean=None, fid_min=0.85, parity_lanes=64,
                            parity_tol=5e-2, tracking=(8, 1e-5),
                            launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0,
-                                     "condense_small": 26}),
+                                     "condense_small": 26, "ns_cold": 0}),
     "drag_state": dict(batch=2048, fid_mean=0.999, fid_min=0.98, parity_lanes=64,
                        parity_tol=1e-4,
                        launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 34,
-                                 "condense_small": 0}),
+                                 "condense_small": 0, "ns_cold": 0}),
     "not_state_freq": dict(batch=1024, fid_mean=0.999, fid_min=0.98, parity_lanes=32,
                            parity_tol=2e-3, tracking=(30, 1e-5),
                            launches={"boxqp_small": 0, "expm_small": 100, "admm_big": 114,
-                                     "condense_small": 0}),
+                                     "condense_small": 0, "ns_cold": 114}),
     # 203 = 7 + 49 x 4 cold solves of one round
     "crosstalk": dict(batch=1024, reps=2, fid_mean=None, fid_min=0.98, parity_lanes=16,
                       parity_tol=1e-4,
                       variant=dict(kwargs=dict(coupling=0.05), lanes=32, tol=2e-4),
                       launches={"boxqp_small": 0, "expm_small": 50, "admm_big": 203,
-                                "condense_small": 0}),
+                                "condense_small": 0, "ns_cold": 203}),
     # 222 = 8 x 3 warm rounds + 198 x 1 steady round
     "cnot_state": dict(batch=128, reps=2, kwargs=dict(order=2), fid_mean=None, fid_min=0.99,
                        rescue=dict(threshold=0.99, kwargs=dict(order=3)), parity_lanes=8,
                        parity_tol=2e-3, tracking=(60, 1e-4),
                        launches={"boxqp_small": 0, "expm_small": 200, "admm_big": 222,
-                                 "condense_small": 0}),
+                                 "condense_small": 0, "ns_cold": 222}),
 }
 # the rescue pass on the card: cnot at order 2 cut to 20 steps, every lane
 # marginal (threshold above 1), re-run at order 3 on a batch padded from 6
@@ -210,7 +210,7 @@ FLEETS = {
 # the same; kept states against the float64 CPU path
 RESCUE = dict(lanes=6, steps=20, tol=1e-4,
               launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 42,
-                        "condense_small": 0})
+                        "condense_small": 0, "ns_cold": 42})
 # The two scenarios of no preset that the JAX package runs as any Scenario
 # (8 warm SQP iterations, cold duals, their own 3x300 in both phases),
 # built from the port's constructors (presets.damped_pair_scenario,
@@ -275,16 +275,18 @@ SLICE_FLEETS = {"damped_pair": dict(batch=128, reps=2, parity_lanes=4, parity_st
 # card's.
 LEARN = dict(batch=BATCH, sigma=1e-5, alpha=1e2, fid_lane=0.95, fid_mean=0.99, parity_lanes=8,
              parity_tol=1e-3, probe_sigma=1e-4, probe_lanes=512,
-             launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0, "condense_small": 0})
+             launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0, "condense_small": 0,
+                       "ns_cold": 0})
 DISCREP = dict(batch=1024, capacity=12, rcond=10 * 12 * float(np.finfo(np.float32).eps),
                fid_lane=0.95, fid_mean=0.985, parity_lanes=64, parity_tol=1e-3,
-               launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0, "condense_small": 0})
+               launches={"boxqp_small": 26, "expm_small": 20, "admm_big": 0, "condense_small": 0,
+                         "ns_cold": 0})
 # the single-rollout phases (mpc(), B = 1): P(|1>) gate and the bound on its
 # distance from the same call in float64 on the CPU; on the default chol
 # backend a rollout launches no QP kernel, and condense_small once an SQP
 # iteration (chol_launches, with that count)
 SINGLE = dict(p1=0.95, cpu_tol=1e-3, loss=1e-3,
-              chol_launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 0})
+              chol_launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 0, "ns_cold": 0})
 # The command line and the single-rollout solver surface, on the flagship.
 # cli_rollout: `python -m mpc4quantum_tpu_torch not_state` (the chol QP;
 # the JAX package's single rollout reaches 0.9988) against its --cpu run in
@@ -315,7 +317,7 @@ CLI = dict(fid=0.995, cpu_tol=1e-4, lqr_close_steps=10, lqr_close_tol=1e-4, sat_
            lqr_p1_f32=0.85, lqr_step0_rtol=1e-4,
            batch=1024, batch_fid_min=0.998, parity_lanes=8, ckpt_every=5, crash_step=10,
            chol_accept=0.99,
-           launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 0})
+           launches={"boxqp_small": 0, "expm_small": 20, "admm_big": 0, "ns_cold": 0})
 # The K-inverse family and the real-state path. kinv_builds: the four
 # K^-1 forms (Newton-Schulz at the warm phase's ns_iters, Gauss-Jordan, the
 # Riccati factorization and its log-depth scan) on a real linearization of
@@ -485,8 +487,9 @@ EXPM_INSTANCES = (*(f"expm_small_kernelILi{d}E" for d in range(2, 9)), "expm_til
                   "expm_cluster_kernel", "expm_wide_kernel")
 NO_SPILL = ("boxqp_small_kernelILi10E", "boxqp_small_kernelILi15E", "admm_big_kernel",
             "admm_cluster_kernel", "admm_stream_kernel", *EXPM_INSTANCES,
-            "condense_small_kernelILi4ELi16E", "condense_small_kernelILi16ELi16E")
-INSTANCE_COUNT = 4 + (5 + 1 + 2) + (7 + 25 + 1 + 3 + 1) + 2
+            "condense_small_kernelILi4ELi16E", "condense_small_kernelILi16ELi16E",
+            "ns_cold_kernel")
+INSTANCE_COUNT = 4 + (5 + 1 + 2) + (7 + 25 + 1 + 3 + 1) + 2 + 1
 # condense_small at the flagship's shapes (B 1, the single rollout's; 16,384
 # and 131,072, the fleets') and not_gate's (dim_x 16, n 15, B 1,024): each
 # output against the plain version within CONDENSE_TOL of its largest entry
@@ -494,6 +497,23 @@ INSTANCE_COUNT = 4 + (5 + 1 + 2) + (7 + 25 + 1 + 3 + 1) + 2
 CONDENSE_SHAPES = (("not_state", 16384), ("not_state", 1), ("not_state", 131072),
                    ("not_gate", 1024))
 CONDENSE_TOL = 1e-4
+# ns_cold (B, n, iters) against the plain chain (solvers/boxqp._ns_inverse)
+# on SPD K whose lanes' conditions run from 1e2 to 1e5: per lane ||I - K X||_inf
+# within 2x the plain chain's + 1e-6, one graph node a call, and
+# max |X - X_plain| within NSINV_REL of max |X_plain|: a chain that
+# has not converged at its budget (condition 1e5 at 16-30 steps) carries the
+# rounding of another order of sums, amplified (1.3e-3 in a float32 mirror of
+# the kernel's arithmetic on the CPU; converged chains agree to ~1e-6). At
+# NSINV_TIMED (cnot_state's B 1,024 n 150 and not_state_freq's n 50 at 20
+# steps, cnot's chip_smoke batch 128) the device time beside the plain chain,
+# torch.linalg.inv_ex (the library's inverse, a yardstick the port never
+# calls; timed by events alone: it cannot be captured in a CUDA graph) and
+# the bound of the chain's full products (nsinv_work)
+NSINV_SHAPES = ((128, 17, 20), (128, 24, 20), (128, 32, 16), (128, 40, 20), (128, 50, 16),
+                (128, 150, 30), (128, 152, 20), (1, 150, 20), (1024, 150, 20), (1024, 50, 20),
+                (128, 150, 20))
+NSINV_TIMED = ((1024, 150, 20), (1024, 50, 20), (128, 150, 20))
+NSINV_REL = 5e-3
 # and at its random shared models (kernels/condense.CONDENSE_MODELS) at B 333,
 # a partial last block
 CONDENSE_MODEL_BATCH = 333
@@ -667,8 +687,8 @@ def phase_build(build) -> dict:
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": build.build_seconds,
           "ptxas": report})
     require(len(report) == INSTANCE_COUNT,
-            f"expected 4 boxqp_small, 8 admm_big, 37 expm_small and 2 condense_small "
-            f"instances: {report}")
+            f"expected 4 boxqp_small, 8 admm_big, 37 expm_small, 2 condense_small and 1 "
+            f"ns_cold instances: {report}")
     spilled = {name: rec for name, rec in report.items()
                if rec.get("spill_stores", -1) != 0 or rec.get("spill_loads", -1) != 0}
     require(not spilled, f"spills in {spilled}")
@@ -1115,6 +1135,61 @@ def phase_condense(condense_mod, graph_node_types, floor_us) -> dict:
     return rec
 
 
+def spd_batch(B: int, n: int, seed: int) -> torch.Tensor:
+    """B symmetric positive definite float32 (n, n) on the card, lane b of
+    condition 10^(2 + 3 b / (B - 1)): Q diag(eigenvalues) Q^T from a random
+    orthogonal Q, in float64, then rounded."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    Q = torch.linalg.qr(torch.randn(B, n, n, generator=g, dtype=torch.float64))[0]
+    cond = torch.logspace(2, 5, B, dtype=torch.float64) if B > 1 else torch.tensor([1e3])
+    ev = cond[:, None] ** torch.linspace(0, 1, n, dtype=torch.float64)[None]
+    K = (Q * ev[:, None, :]) @ Q.mT
+    return (0.5 * (K + K.mT)).to(DEVICE, torch.float32)
+
+
+def nsinv_work(B: int, n: int, iters: int):
+    """The chain's work counted as full products: iters steps of two n x n
+    x n products a lane (FMA = 2 flops), K read and X written once."""
+    return B * iters * 4 * n ** 3, 8 * B * n * n
+
+
+def phase_nsinv(nsinv_mod, graph_node_types, floor_us) -> dict:
+    """ns_cold at NSINV_SHAPES against the plain chain, timed at NSINV_TIMED."""
+    from mpc4quantum_tpu_torch.solvers.boxqp import _ns_inverse
+
+    rec = {"phase": "ns_cold", "gpu": smi_line(), "launch_floor_us": floor_us,
+           "tolerance": NSINV_REL}
+    for B, n, iters in NSINV_SHAPES:
+        K = spd_batch(B, n, n)
+        call_k = lambda: nsinv_mod.ns_cold(K, iters)
+        call_p = lambda: _ns_inverse(K, iters)[0]
+        Xk, Xp = call_k(), call_p()
+        torch.cuda.synchronize()
+        eye = torch.eye(n, dtype=torch.float64, device=DEVICE)
+        resid = lambda X: (eye - K.double() @ X.double()).abs().sum(dim=-1).amax(dim=-1)
+        rk, rp = resid(Xk), resid(Xp)
+        rel = float(((Xk - Xp).abs().amax(dim=(-1, -2))
+                     / Xp.abs().amax(dim=(-1, -2))).max())
+        row = {"residual_max": float(rk.max()), "plain_residual_max": float(rp.max()),
+               "residual_ratio_max": float((rk / (2 * rp + 1e-6)).max()), "max_rel_err": rel,
+               "graph_nodes": graph_node_types(call_k)}
+        label = f"B{B}_n{n}_it{iters}"
+        require(row["residual_ratio_max"] <= 1.0 and rel <= NSINV_REL
+                and row["graph_nodes"] == [0], f"ns_cold {label}: {row}")
+        if (B, n, iters) in NSINV_TIMED:
+            call_l = lambda: torch.linalg.inv_ex(K)[0]
+            row.update(kernel_ms=cuda_ms(call_k), device_us=graph_us(call_k),
+                       plain_ms=cuda_ms(call_p), plain_device_us=graph_us(call_p),
+                       library_ms=cuda_ms(call_l),
+                       **bound(nsinv_work(B, n, iters)))
+            row["bound_pct"] = 100.0 * row["bound_us"] / row["device_us"]
+        rec[label] = row
+        del K, Xk, Xp
+        torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
 def phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds) -> dict:
     """boxqp_big (one admm_big launch per round) against the plain solver,
     whole solves at the large-n presets' shapes and budgets."""
@@ -1303,8 +1378,10 @@ def expected_launches(runner, sc, n_steps: int) -> dict:
     """The kernel launches one run of `runner` on scenario `sc` makes, from
     its budgets: one expm_small a step (plant step), and a QP kernel a warm
     SQP iteration (warm_sqp_iters a warm step) and a steady step,
-    boxqp_small once a solve, admm_big once a rho round; condense_small once
-    an SQP iteration where the runner's rule sends the model phase to it."""
+    boxqp_small once a solve, admm_big once a rho round and ns_cold once a
+    rho round of a cold "ns" K^-1 that it takes; condense_small once an SQP
+    iteration where the runner's rule sends the model phase to it."""
+    from mpc4quantum_tpu_torch.kernels.nsinv import MAX_N, MIN_N
     from mpc4quantum_tpu_torch.mpc.driver import bilinear_model
 
     cfg = runner.config
@@ -1317,10 +1394,16 @@ def expected_launches(runner, sc, n_steps: int) -> dict:
     condense = warm + steady if route == "kernel" else 0
     if runner.qp_kernel == "small":
         return {"boxqp_small": warm + steady, "expm_small": n_steps, "admm_big": 0,
-                "condense_small": condense}
+                "condense_small": condense, "ns_cold": 0}
+    require(not runner.carry_kinv, "expected_launches counts runs without the K^-1 carry")
+    # a cold "ns" chain of a float32 K, n within ns_cold's sizes
+    n = cfg.horizon * cfg.dim_u
+    cold = lambda p: int(p.kinv == "ns" and sc.plant.real_dtype == torch.float32
+                         and MIN_N <= n <= MAX_N) * p.n_rounds
     return {"boxqp_small": 0, "expm_small": n_steps,
             "admm_big": warm * cfg.qp_params.n_rounds
-            + steady * runner.steady_qp_params.n_rounds, "condense_small": condense}
+            + steady * runner.steady_qp_params.n_rounds, "condense_small": condense,
+            "ns_cold": warm * cold(cfg.qp_params) + steady * cold(runner.steady_qp_params)}
 
 
 def phase_bench_entry(bench, presets, make_runner, counters, flagship: dict) -> dict:
@@ -1604,7 +1687,7 @@ def phase_train_then_control(systems, torch_mods, counters, host_flag) -> dict:
     emit(rec)
     card = results["card"]
     require(card["simulate_launches"] == {"boxqp_small": 0, "expm_small": 1, "admm_big": 0,
-                                          "condense_small": 0},
+                                          "condense_small": 0, "ns_cold": 0},
             f"train_then_control: quantum_simulate launches {rec}")
     require(card["exit_code"] == 0 and card["p1"] > SINGLE["p1"]
             and card["min_loss"] < SINGLE["loss"], f"train_then_control gates: {rec}")
@@ -1663,7 +1746,7 @@ def phase_observe_eops(systems, torch_mods, counters, host_flag) -> dict:
     # the kernel route: one boxqp_small launch an SQP iteration
     ns = rec["card_ns"]
     require(ns["launches"] == {"boxqp_small": ns["sqp_iters"], "expm_small": 20, "admm_big": 0,
-                               "condense_small": ns["sqp_iters"]},
+                               "condense_small": ns["sqp_iters"], "ns_cold": 0},
             f"observe_eops ns launches {rec}")
     return rec
 
@@ -1877,7 +1960,7 @@ def phase_fleet_checkpoint(cli_main, presets, fleet_runner, make_runner, counter
     require(all(equal.values()), f"fleet_checkpoint: resumed != uninterrupted {rec}")
     steady = sc.config.n_steps - crash
     require(resumed_launches == {"boxqp_small": steady, "expm_small": steady, "admm_big": 0,
-                                 "condense_small": steady},
+                                 "condense_small": steady, "ns_cold": 0},
             f"fleet_checkpoint resumed launches {rec}")
     return rec
 
@@ -2020,6 +2103,8 @@ def phase_kinv_fleet(kind, presets, run_hostloop_fleet, fleet_fidelity, counters
     float64 CPU lanes; warm_kinv: 8 lanes against the float64 CPU path of
     the same carried fleet, and the fleet without the carry reported (freq's
     is the default phase's run on the same plants)."""
+    from mpc4quantum_tpu_torch.benchfleet import make_runner
+
     fleets = RICCATI_FLEETS if kind == "riccati" else WARM_KINV_FLEETS
     rec = {"phase": f"{kind}_fleet", "gpu": smi_line()}
     total = dict.fromkeys(counters, 0)
@@ -2077,6 +2162,12 @@ def phase_kinv_fleet(kind, presets, run_hostloop_fleet, fleet_fidelity, counters
                                "bound": spec["parity_tol"], "exit_codes_equal": codes_equal}
         rec[name] = cell
         expected = {k: v * reps for k, v in spec["launches"].items()}
+        # ns_cold: no cold chain under a Riccati K^-1; with the carry, one a
+        # rho round but in the steady solves that started from the carry
+        rounds = make_runner(sc, plants64[:1].to(DEVICE, torch.float32),
+                             **kw).steady_qp_params.n_rounds
+        expected["ns_cold"] = 0 if kind == "riccati" else reps * (
+            spec["launches"]["admm_big"] - metrics["kinv_warm_solves"] * rounds)
         checks = {"launches": launches == expected,
                   "parity": float(dfid.max()) <= spec["parity_tol"] and codes_equal}
         if kind == "riccati":
@@ -2196,11 +2287,10 @@ def phase_classical(port, counters, host_flag) -> dict:
         require(r["exit_code"] == 0 and r["x_final_norm"] < c["x_final"],
                 f"classical mpc() {backend}: {r}")
         # no expm on a classical plant; the kernel route solves at n = 20
-        # through boxqp_big: one admm_big launch a rho round
-        rounds = cfg.qp_params.n_rounds
-        expected = {"boxqp_small": 0, "expm_small": 0,
-                    "admm_big": rounds * r["sqp_iters"] if backend == "ns" else 0,
-                    "condense_small": 0}
+        # through boxqp_big: one admm_big and one (cold) ns_cold launch a rho round
+        rounds = cfg.qp_params.n_rounds * r["sqp_iters"] if backend == "ns" else 0
+        expected = {"boxqp_small": 0, "expm_small": 0, "admm_big": rounds,
+                    "condense_small": 0, "ns_cold": rounds}
         require(r["launches"] == expected, f"classical mpc() {backend} launches, "
                                            f"expected {expected}: {r}")
     b = rec["batched_ns"]
@@ -2209,7 +2299,8 @@ def phase_classical(port, counters, host_flag) -> dict:
     require(b["completed_frac"] == 1.0 and dx <= c["parity_tol"], f"classical batched: {b}")
     require(b["launches"] == {"boxqp_small": 0, "expm_small": 0,
                               "admm_big": cfg.qp_params.n_rounds * b["sqp_iters"],
-                              "condense_small": 0},
+                              "condense_small": 0,
+                              "ns_cold": cfg.qp_params.n_rounds * b["sqp_iters"]},
             f"classical batched launches: {b}")
     return rec
 
@@ -2273,7 +2364,7 @@ def phase_embedded(presets, port, counters, host_flag) -> dict:
             r = rec[f"{kind}_{form}"]
             require(r["exit_codes"] == [0] and r["launches"] == {
                 "boxqp_small": r["sqp_iters"], "expm_small": 20, "admm_big": 0,
-                "condense_small": r["sqp_iters"] if form == "complex" else 0},
+                "condense_small": r["sqp_iters"] if form == "complex" else 0, "ns_cold": 0},
                     f"embedded {kind}_{form}: launches or exit codes {r}")
     return rec
 
@@ -2398,9 +2489,11 @@ def phase_tp_3q(port, counters, host_flag, tensor) -> dict:
     emit(rec)
     for name in ("dense", "tp"):
         r = rec[name]
-        # dim_x 64, beyond condense_small's 16: the model phase stays plain
-        expected = {"boxqp_small": 0, "expm_small": cfg.n_steps,
-                    "admm_big": cfg.qp_params.n_rounds * r["sqp_iters"], "condense_small": 0}
+        # dim_x 64, beyond condense_small's 16: the model phase stays plain;
+        # at n 24 every rho round's K^-1 is a cold ns_cold launch
+        rounds = cfg.qp_params.n_rounds * r["sqp_iters"]
+        expected = {"boxqp_small": 0, "expm_small": cfg.n_steps, "admm_big": rounds,
+                    "condense_small": 0, "ns_cold": rounds}
         require(r["launches"] == expected, f"tp_3q {name} launches, expected {expected}: {r}")
         require(r["completed_frac"] == 1.0 and r["fidelity_min"] > TP3Q["fid_min"],
                 f"tp_3q {name} gates: {r}")
@@ -2467,7 +2560,7 @@ def phase_sharded_fleet(presets, port, counters, host_flag) -> dict:
             and torch.equal(res.exit_code, ref.exit_code), f"sharded_fleet vs batched_mpc: {v}")
     require(rec["summary_gap"] <= SHARDED["equal_tol"], f"sharded_fleet summary: {rec}")
     expected = {"boxqp_small": rec["sqp_iters"], "expm_small": cfg.n_steps, "admm_big": 0,
-                "condense_small": rec["sqp_iters"]}
+                "condense_small": rec["sqp_iters"], "ns_cold": 0}
     require(launches == expected == ref_launches, f"sharded_fleet launches, expected {expected}")
     require(collectives["all_gather_into_tensor"]["calls"] == 6
             and collectives["all_reduce"]["calls"] == 4,
@@ -2543,6 +2636,7 @@ def main() -> int:
     from mpc4quantum_tpu_torch.kernels import boxqp as boxqp_mod
     from mpc4quantum_tpu_torch.kernels import condense as condense_mod
     from mpc4quantum_tpu_torch.kernels import expm as expm_mod
+    from mpc4quantum_tpu_torch.kernels import nsinv as nsinv_mod
     from mpc4quantum_tpu_torch.solvers.boxqp import (BoxQPParams, accept_thresholds,
                                                      solve_boxqp_fixed)
     from mpc4quantum_tpu_torch.utils.linalg import gj_inverse
@@ -2576,13 +2670,15 @@ def main() -> int:
     ad = phase_admm(admm_mod, gj_inverse, build, graph_kernel_launches)
     phase_speed(ex, ad)
     cond = phase_condense(condense_mod, graph_node_types, floor_us)
+    nsinv = phase_nsinv(nsinv_mod, graph_node_types, floor_us)
     if kernels_only:
         print(smi_line(), flush=True)
         emit({"ok": True, "kernels_only": True})
         return 0
     phase_boxqp_big(boxqp_mod, BoxQPParams, solve_boxqp_fixed, accept_thresholds)
     counters = {"boxqp_small": boxqp_mod.boxqp_small, "expm_small": expm_mod.expm_small,
-                "admm_big": admm_mod.admm_big, "condense_small": condense_mod.condense_small}
+                "admm_big": admm_mod.admm_big, "condense_small": condense_mod.condense_small,
+                "ns_cold": nsinv_mod.ns_cold}
     total, flagship, defaults = dict.fromkeys(counters, 0), None, {}
     add = lambda launches: {k: total[k] + launches.get(k, 0) for k in total}
     for name in FLEETS:
@@ -2657,6 +2753,7 @@ def main() -> int:
     ex_runs = [ex[f] for f in EXPM_CASES]
     ad_runs = [ad[f"B{B}_n{n}_it{it}"] for B, n, it in ADMM_SHAPES]
     cond_runs = [cond[f"{name}_b{B}"] for name, B in CONDENSE_SHAPES]
+    ns_runs = [nsinv[f"B{B}_n{n}_it{it}"] for B, n, it in NSINV_TIMED]
     kernels = (("boxqp_small", "mpc4quantum_tpu/ops/pallas_qp.py:42", qp_runs,
                 max(max(r["max_dz"], r["max_dy"]) for r in qp_runs)),
                ("expm_small", "mpc4quantum_tpu/ops/pallas_expm.py:64", ex_runs,
@@ -2664,7 +2761,9 @@ def main() -> int:
                ("admm_big", "mpc4quantum_tpu/ops/pallas_qp.py:345", ad_runs,
                 max(r["max_abs_err"] for r in ad_runs)),
                ("condense_small", "none (XLA's contractions of model_along_traj and qp_data)",
-                cond_runs, max(r["max_rel_err"] for r in cond_runs)))
+                cond_runs, max(r["max_rel_err"] for r in cond_runs)),
+               ("ns_cold", "none (XLA's matmuls of ns_inverse's cold chain)", ns_runs,
+                max(nsinv[f"B{B}_n{n}_it{it}"]["max_rel_err"] for B, n, it in NSINV_SHAPES)))
     emit({"gpu": gpu, "kernels": [
         {"name": name, "route": "cuda", "source": f"mpc4quantum_tpu_torch/csrc/{name}.cu",
          "replaces": replaces, "launches": total[name], "max_abs_err": err,

@@ -22,6 +22,7 @@ from .kernels.admm_big import admm_big
 from .kernels.boxqp import boxqp_small
 from .kernels.condense import condense_small
 from .kernels.expm import expm_small
+from .kernels.nsinv import ns_cold
 from .mpc.fleet_runner import FleetRunner
 from .ops.expm import taylor_budget
 from .parallel.fleet import make_scenario_batch
@@ -246,7 +247,7 @@ def rescue_pass(sc: Scenario, rescue: dict, plants: Plant, out: dict, fid: np.nd
         return {}
     t0 = time.perf_counter()
     counters = {"boxqp_small": boxqp_small, "expm_small": expm_small, "admm_big": admm_big,
-                "condense_small": condense_small}
+                "condense_small": condense_small, "ns_cold": ns_cold}
     before = {k: fn.launches for k, fn in counters.items()}
     idx = np.nonzero(marginal)[0]
     n = len(idx)

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "mpc4q_admm_big": [_P] * 12 + [_I] * 3 + [_F] * 2 + [_P],
     # A, N, X, U, x_init, X_bm, U_bm, Q, R, u_prev, P, q, lb, ub, w, M, args, stream
     "mpc4q_condense_small": [_P] * 18,
+    # K, out, B, n, iters, stream
+    "mpc4q_ns_cold": [_P] * 2 + [_I] * 3 + [_P],
     # B, size, query, out (5 ints): the launch plan of a call
     "mpc4q_expm_small_plan": [_I] * 3 + [_P],
     "mpc4q_admm_big_plan": [_I] * 3 + [_P],

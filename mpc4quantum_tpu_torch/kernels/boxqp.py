@@ -18,6 +18,7 @@ from ..solvers.boxqp import (BoxQPAux, BoxQPParams, FixedSolve, accept_rule,
                              solve_boxqp_fixed)
 from . import _build
 from .admm_big import admm_big
+from .nsinv import ns_cold
 
 MAX_N = 16
 # the rows of boxqp_small's aux buffer (csrc/boxqp_small.cu), BoxQPAux's fields
@@ -129,7 +130,8 @@ def boxqp_big(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int, rounds: 
     (sigma + rho) I, inverts it in plain torch, runs `iters` ADMM steps in
     one `admm_big` launch, and takes the residuals, the acceptance test and
     the rho rebalance (solvers/boxqp.solve_boxqp_fixed with the kernel as
-    its ADMM loop).
+    its ADMM loop). A cold "ns" inverse (no `kinv0`) of a float32 K on the
+    card at kernels/nsinv's MIN_N <= n <= MAX_N is one `ns_cold` launch.
 
     :param kinv_method: "gj", "ns" (`ns_iters` cold steps, or `ns_refresh`
         from `kinv0` under the `ns_guard` contraction guard), "riccati" or
@@ -148,7 +150,7 @@ def boxqp_big(P, q, lb, ub, x0=None, y0=None, rho0=None, *, iters: int, rounds: 
                      acc_rel, kinv=kinv_method, ns_iters=ns_iters, ns_refresh=ns_refresh,
                      ns_guard=ns_guard, ns_polish=ns_polish, scale=scale)
     return solve_boxqp_fixed(P, q, lb, ub, x0=x0, y0=y0, rho0=rho0, params=params,
-                             kinv0=kinv0, lqr_data=lqr_data, admm=admm_big)
+                             kinv0=kinv0, lqr_data=lqr_data, admm=admm_big, ns_cold=ns_cold)
 
 
 def boxqp_accept(aux: BoxQPAux, eps_abs: float, eps_rel: float,

@@ -36,7 +36,8 @@ Counters, as utils.profiling.host_flag.reads: StepGraphs.captures (graphs
 captured), StepGraphs.replays (graphs replayed), StepGraphs.eager (pieces
 run eagerly on the card, each on its first use before its capture). The
 kernels' launch counters (boxqp_small / admm_big / expm_small /
-condense_small.launches) count each replay's launches and not the capture's.
+condense_small / ns_cold.launches) count each replay's launches and not the
+capture's.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from ..kernels.admm_big import admm_big
 from ..kernels.boxqp import boxqp_small
 from ..kernels.condense import condense_small
 from ..kernels.expm import expm_small
+from ..kernels.nsinv import ns_cold
 from ..models.dmdc import tree_map
 from ..plants.base import Plant
 from ..utils.profiling import spans
@@ -60,7 +62,7 @@ from ..utils.profiling import spans
 # signatures whose graphs the cache keeps, the least recently used dropped first
 MAX_SIGNATURES = 8
 # the kernel wrappers whose `launches` a replay adds to
-_KERNELS = (boxqp_small, admm_big, expm_small, condense_small)
+_KERNELS = (boxqp_small, admm_big, expm_small, condense_small, ns_cold)
 
 
 def eager_reason(runner, device, streaming: bool) -> Optional[str]:

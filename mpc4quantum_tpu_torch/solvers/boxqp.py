@@ -252,7 +252,8 @@ def _rebalance(rho, stats, keep, diag_scale):
 
 def solve_boxqp_fixed(P, q, lb, ub, x0=None, y0=None, rho0=None,
                       params: BoxQPParams | None = None, kinv0=None, lqr_data=None,
-                      admm: Optional[Callable] = None) -> FixedSolve:
+                      admm: Optional[Callable] = None,
+                      ns_cold: Optional[Callable] = None) -> FixedSolve:
     """Batched fixed-budget ADMM.
 
     Each round's K-inverse, by params.kinv: "gj" the exact Gauss-Jordan
@@ -280,6 +281,10 @@ def solve_boxqp_fixed(P, q, lb, ub, x0=None, y0=None, rho0=None,
         the Riccati inverses.
     :param admm: the ADMM inner loop, with the signature of `admm_iters`
         (the default); kernels/boxqp.boxqp_big passes the CUDA kernel.
+    :param ns_cold: the cold "ns" chain `(K, iters) -> K^-1`, taken where
+        `ns_cold.fits(K)` (else `ns_inverse`); kernels/boxqp.boxqp_big passes
+        the CUDA kernel (kernels/nsinv.ns_cold). The span qp.kinv names the
+        route taken: "kernel" there, "plain" for every other K^-1.
     :return: FixedSolve (z, y, aux, kinv, guard_cold).
     """
     params = BoxQPParams() if params is None else params
@@ -306,7 +311,9 @@ def solve_boxqp_fixed(P, q, lb, ub, x0=None, y0=None, rho0=None,
     Kinv = rho_prev = guard_cold = None
     for rnd in range(params.n_rounds):
         K = P + (sigma + rho)[:, None, None] * eye
-        with spans.span("qp.kinv", events=True):
+        cold = params.kinv == "ns" and kinv0 is None
+        route = "kernel" if cold and ns_cold is not None and ns_cold.fits(K) else "plain"
+        with spans.span("qp.kinv", events=True, route=route):
             if params.kinv == "gj":
                 Kinv = gj_inverse(K)
             elif use_riccati and rnd == 0:
@@ -325,6 +332,8 @@ def solve_boxqp_fixed(P, q, lb, ub, x0=None, y0=None, rho0=None,
             elif kinv0 is not None:
                 Kinv, kept = _ns_inverse(K, params.ns_refresh, X0=kinv0, guard=params.ns_guard)
                 guard_cold = ~kept
+            elif route == "kernel":
+                Kinv = ns_cold(K, params.ns_iters)
             else:
                 Kinv = ns_inverse(K, params.ns_iters)
         rho_prev = rho

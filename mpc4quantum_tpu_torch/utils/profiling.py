@@ -29,7 +29,9 @@ The spans and their sites:
                  solvers/condense.qp_data inside quad_program; kernel,
                  kernels/condense.condense_small in FleetRunner._sqp_iter,
                  which also linearizes (sqp.linearize then stays empty) (events)
-  qp.kinv        each round's K^-1 build of solvers/boxqp.solve_boxqp_fixed (events)
+  qp.kinv        each round's K^-1 build of solvers/boxqp.solve_boxqp_fixed, attrs
+                 {"route": "kernel" | "plain"}: kernel, the cold chain's one
+                 kernels/nsinv.ns_cold launch; plain, every other K^-1 (events)
   plant.step     the plant step that FleetRunner._end hands to driver.advance (events)
   host.flag      the host's read in `host_flag`
 """

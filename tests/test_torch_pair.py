@@ -444,7 +444,7 @@ def test_rescue_matches_jax():
     assert int(moved.sum()) == m["rescue_improved"] >= 1
     assert m["fidelity_min"] >= m_main["fidelity_min"]
     assert m["rescue_launches"] == {"boxqp_small": 0, "expm_small": 0, "admm_big": 0,
-                                    "condense_small": 0}
+                                    "condense_small": 0, "ns_cold": 0}
     assert m["rescue_s"] > 0 and m["rollouts_per_s"] > 0
 
 

@@ -46,8 +46,11 @@ EVENT_TIMED = ("model_stream_ms_per_step.fleet", "kinv_stream_ms_per_step.fleet"
                "plant_stream_ms_per_step.fleet")
 # the readers of the steps' graph attribute: off the card every step is eager
 GRAPH_METRICS = ("graph_replay_pct.fleet", "graph_replay_pct.rollout")
-# the reader of the condensing's route attribute: off the card every one is plain
-ROUTE_METRICS = ("condense_kernel_pct.fleet",)
+# the readers of the condensing's and the K^-1's route attribute: off the card
+# every one is plain
+ROUTE_METRICS = ("condense_kernel_pct.fleet", "kinv_kernel_pct.fleet")
+# the readers of qp.kinv, which off the card the plain boxqp_small opens too
+KINV_METRICS = ("kinv_stream_ms_per_step.fleet", "kinv_kernel_pct.fleet")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -226,7 +229,7 @@ def readings(tmp_path_factory):
 
 
 def test_readers_read_their_cells(readings):
-    assert len(SPAN_METRICS) == 9
+    assert len(SPAN_METRICS) == 10
     for m in SPAN_METRICS:
         for cell_name in CELLS:
             off_card, timed, _ = readings[cell_name]
@@ -240,12 +243,13 @@ def test_readers_read_their_cells(readings):
                 assert value == 0.0, (m["name"], cell_name)
             elif listed:
                 assert value is not None and value > 0, (m["name"], cell_name)
-            elif m["name"] != "kinv_stream_ms_per_step.fleet":
+            elif m["name"] not in KINV_METRICS:
                 assert value is None, (m["name"], cell_name)
     # off the card the plain boxqp_small builds its K^-1 in torch (a qp.kinv
     # span); on the card the kernel does, and no cell but cnot has the span
     _, timed, _ = readings["not_state.rollout_b1"]
     assert timed["kinv_stream_ms_per_step.fleet"] is None
+    assert timed["kinv_kernel_pct.fleet"] is None
 
 
 def test_reader_arithmetic(readings):
@@ -274,6 +278,32 @@ def test_fleet_step_graph_attribute_on_the_cpu(tmp_path):
         steps = [sp for sp in run if sp.name == "fleet.step"]
         assert len(steps) == 20
         assert {sp.attrs["graph"] for sp in steps} == {"eager"}
+
+
+def test_kinv_span_names_the_route(tmp_path, monkeypatch):
+    """qp.kinv's attribute route: "plain" off the card; "kernel" where
+    boxqp_big's cold chain goes to ns_cold (a stand-in that fits any K and
+    runs the plain chain), with the same outputs; the rollout's boxqp_small
+    (its Gauss-Jordan K^-1 in torch off the card) stays "plain"."""
+    from mpc4quantum_tpu_torch.kernels import boxqp as boxqp_mod
+    from mpc4quantum_tpu_torch.solvers.boxqp import _ns_inverse
+
+    plain, _, _ = traced(flagship_work(), tmp_path)
+    routes = lambda run: {sp.attrs["route"] for sp in run if sp.name == "qp.kinv"}
+    assert routes(spans.runs[-2]) == routes(spans.runs[-1]) == {"plain"}
+    calls = []
+
+    def stand_in(K, iters):
+        calls.append(iters)
+        return _ns_inverse(K, iters)[0]
+    stand_in.fits = lambda K: True
+    monkeypatch.setattr(boxqp_mod, "ns_cold", stand_in)
+    out, _, _ = traced(flagship_work(), tmp_path)
+    kinv = [sp for sp in spans.runs[-2] if sp.name == "qp.kinv"]
+    assert {sp.attrs["route"] for sp in kinv} == {"kernel"} and len(calls) == len(kinv) > 0
+    assert routes(spans.runs[-1]) == {"plain"}
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
 
 
 def planted(graphs):
